@@ -79,16 +79,52 @@ def random_assignments(problem, pop: int, seed: int) -> np.ndarray:
     return A
 
 
-def makespan_bound_ms(A: torch.Tensor, arrays: dict, problem) -> tuple[float, str, int, int]:
-    """Least time an H100 could take for one makespan call: inputs read once
-    and outputs written once at the HBM rate, against the P*T*CMAX^2 rank
-    compares plus three operations (divide, add, max) per dependency edge
-    and candidate at the f32 rate."""
+def makespan_work(A: torch.Tensor, kw: dict) -> tuple[int, int]:
+    """(bytes, operations) that one makespan call on ``A [P, T]`` needs with
+    this data, whatever the implementation.
+
+    Bytes: the assignments, the per-task vectors (cores, data, release,
+    deadline) and the predecessor lists read once, the two outputs written
+    once, and of the tables only the entries this population reaches: the
+    durations and feasibility of each distinct (task, node) pair, the rate
+    of each distinct (pred node, node) pair that a cross-node edge uses, and
+    the initial core-free row and core count of each node used.
+    Operations: per candidate and task, a linear selection of the c-th
+    smallest of CMAX free times and a CMAX-wide overwrite of the c smallest
+    (2*CMAX), and four more (release max, start max, add the duration, the
+    feasibility or deadline test); per candidate and edge, a divide, an add
+    and a max across nodes, one max on the same node."""
     P, T = A.shape
-    C = arrays["init_free"].shape[-1]
-    nbytes = A.numel() * A.element_size() + 2 * P * 4
-    nbytes += sum(arrays[k].numel() * arrays[k].element_size() for k in KEYS)
-    ops = P * T * C * C + 3 * P * len(problem.edges)
+    N, C = kw["init_free"].shape
+    a = A.long()
+    preds = kw["pred_matrix"].long()
+    q_task, q_slot = torch.nonzero(preds >= 0, as_tuple=True)  # every edge p -> j
+    p_node = a[:, preds[q_task, q_slot]]  # [P, E]
+    j_node = a[:, q_task]
+    cross = p_node != j_node
+    n_cross, n_edges = int(cross.sum()), P * q_task.numel()
+    pairs_tn = torch.unique(torch.arange(T, device=a.device) * N + a).numel()
+    pairs_nn = torch.unique((p_node * N + j_node)[cross]).numel()
+    nodes = torch.unique(a).numel()
+    per_task = 3 + (kw["deadline"] is not None)
+    nbytes = (
+        A.numel() * 4 + 2 * P * 4 + per_task * T * 4 + preds.numel() * 4
+        + pairs_tn * (4 + 1) + pairs_nn * 4 + nodes * (C * 4 + 4)
+    )
+    ops = P * T * (2 * C + 4) + 3 * n_cross + (n_edges - n_cross)
+    return nbytes, ops
+
+
+def makespan_bound_ms(A: torch.Tensor, kw: dict) -> tuple[float, str, int, int]:
+    """Least time an H100 could take for the makespan of ``A [P, T]`` or of
+    a family ``A [B, P, T]`` (see :func:`makespan_work`): its bytes at the
+    HBM rate against its operations at the f32 rate, the larger."""
+    if A.dim() == 2:
+        A, kw = A[None], {k: None if v is None else v[None] for k, v in kw.items()}
+    nbytes = ops = 0
+    for b in range(A.shape[0]):
+        nb, op = makespan_work(A[b], {k: None if v is None else v[b] for k, v in kw.items()})
+        nbytes, ops = nbytes + nb, ops + op
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations", nbytes, ops
 
@@ -199,9 +235,9 @@ def main() -> int:
         max_err = max(max_err, float((mk_k - mk_p).abs().max()), float((v_k - v_p).abs().max()))
         ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=20)
         plain_ms = cuda_ms(lambda: population_makespan_ref(A, **kw), reps=3, warmup=1)
-        bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, arrays, problem)
+        bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, kw)
         print(f"makespan {name}: P={pop} bucket={packed.bucket} kernel == plain exactly; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
               f"{nbytes} B, {ops} ops)",
               flush=True)
         if name == "table9_500x500":
@@ -210,6 +246,7 @@ def main() -> int:
     sweep_problems = [table9(s) for s in SWEEP_SEEDS]
     stacked, bucket = stack_packed(sweep_problems, device=dev)
     kw = {k: stacked[k] for k in KEYS}
+    kw["deadline"] = None
     A = torch.zeros(len(sweep_problems), GA["pop_size"], bucket[0], dtype=torch.int32)
     for b, problem in enumerate(sweep_problems):
         A[b, :, : problem.num_tasks] = torch.from_numpy(random_assignments(problem, GA["pop_size"], b))
@@ -219,8 +256,10 @@ def main() -> int:
     torch.cuda.synchronize()
     check(torch.equal(mk_k, mk_p) and torch.equal(v_k, v_p), "batched family: kernel == plain version")
     batch_ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=10)
+    bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, kw)
     print(f"makespan batched {len(sweep_problems)}x500x500: bucket={bucket} kernel == plain exactly; "
-          f"kernel {batch_ms:.4f} ms", flush=True)
+          f"kernel {batch_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)",
+          flush=True)
 
     # 3. single GA: the main path -----------------------------------------------
     population_makespan_cuda.launches = 0

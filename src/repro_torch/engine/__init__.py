@@ -7,7 +7,6 @@ from repro_torch.engine.backends import (
     EngineRegistry,
     ScheduleEngine,
     batched_population_fitness_fn,
-    default_engine,
     population_fitness_fn,
     population_fitness_from_arrays,
     register_engine,

@@ -8,12 +8,13 @@ Every way of scoring schedules against a
   ground truth, per-task start/finish times;
 * ``torch`` — the plain PyTorch makespan version on any device (what the
   CPU runs, and the yardstick the kernel is held to);
-* ``cuda`` — the hand-written Hopper kernel (``kernels/csrc/makespan.cu``).
+* ``cuda`` — the hand-written Hopper kernel (``kernels/csrc/makespan.cu``)
+  through its wrapper, which alone chooses by the tensors' device: the
+  kernel on a CUDA device, the plain version on the CPU.
 
-All three are bit-for-bit equivalent in f32 (``exact_f32``).  ``auto``
-resolves by device: ``cuda`` on a CUDA device, ``torch`` elsewhere.  The
-device is always the caller's choice; it defaults to ``"cuda"`` and is never
-guessed from what the machine has.
+All three are bit-for-bit equivalent in f32 (``exact_f32``).  ``auto`` is
+``cuda``.  The device is always the caller's choice; it defaults to
+``"cuda"`` and is never guessed from what the machine has.
 """
 
 from __future__ import annotations
@@ -26,10 +27,9 @@ import torch
 
 from repro_torch.core.workload_model import BIG_PENALTY, ScheduleProblem
 from repro_torch.engine.packed import PackedProblem, pack, stack_packed
-from repro_torch.kernels import ops
 from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
 
-_ALIASES = {"numpy": "oracle"}
+_ALIASES = {"numpy": "oracle", "auto": "cuda"}
 
 
 def _weights(weights):
@@ -62,11 +62,25 @@ def _budget_overage(arrays, assignments: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(x: float, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``x * y + z`` in f32 with one rounding, for an f32-valued scalar
-    ``x``.  The product of two f32 values is exact in f64, and so is the
-    sum at the magnitudes an objective takes, so rounding the f64 result
-    once equals a fused multiply-add on any device."""
-    return (x * y.double() + z.double()).to(torch.float32)
+    """``x * y + z`` for an f32-valued scalar ``x`` and f32 tensors, rounded
+    once to f32, as a fused multiply-add rounds it on any device.
+
+    The product of two f32 values is exact in f64.  Their f64 sum ``s`` need
+    not be, and rounding an inexact ``s`` to f32 could round twice (when
+    ``s`` lands on a midpoint of f32 values).  So ``s`` is rounded to odd
+    instead: where the error of the sum (Knuth's TwoSum) is not zero and
+    ``s`` is even, ``s`` steps one f64 ulp towards the exact sum.  A value
+    rounded to odd with 53 bits rounds to nearest at 24 bits exactly as the
+    exact value does (Boldo and Melquiond, IEEE Trans. Computers 57(4),
+    2008)."""
+    p, zd = x * y.double(), z.double()
+    s = p + zd
+    pv = s - zd
+    err = (p - pv) + (zd - (s - pv))
+    even = (s.view(torch.int64) & 1) == 0
+    towards = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, towards), s)
+    return s.to(torch.float32)
 
 
 def _objective(alpha: float, beta: float, usage, makespan, violations, usage_mode: str) -> torch.Tensor:
@@ -92,7 +106,7 @@ def population_fitness_from_arrays(
     usage_mode: str,
     constrained: bool = False,
     *,
-    makespan_fn: Callable = ops.population_makespan,
+    makespan_fn: Callable,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fitness over packed arrays: ``assignments [P, T]`` with one
     instance's arrays, or ``[B, P, T]`` with a stacked family's, →
@@ -100,7 +114,7 @@ def population_fitness_from_arrays(
 
     ``constrained=True`` counts late tasks inside the makespan pass and adds
     the budget overage, each worth ``BIG_PENALTY``.  ``makespan_fn`` is the
-    makespan implementation (default: dispatch by device)."""
+    makespan implementation, an engine's."""
     batched = assignments.dim() == 3
     if not batched:
         assignments = assignments[None]
@@ -194,8 +208,8 @@ class EngineRegistry:
     def unregister(self, name: str) -> None:
         self._entries.pop(name, None)
 
-    def get(self, name: str, device="cuda") -> ScheduleEngine:
-        resolved = resolve_engine(name, device)
+    def get(self, name: str) -> ScheduleEngine:
+        resolved = resolve_engine(name)
         try:
             return self._entries[resolved]
         except KeyError:
@@ -209,21 +223,14 @@ ENGINES = EngineRegistry()
 """The default process-wide engine registry (built-ins below)."""
 
 
-def register_engine(name: str, *, registry: EngineRegistry | None = None, overwrite: bool = False):
+def register_engine(name: str, *, overwrite: bool = False):
     """Decorator: register a :class:`ScheduleEngine` subclass under ``name``."""
-    return (registry if registry is not None else ENGINES).register(name, overwrite=overwrite)
+    return ENGINES.register(name, overwrite=overwrite)
 
 
-def default_engine(device="cuda") -> str:
-    """What ``auto`` means on ``device``: the kernel on CUDA, else the plain
-    PyTorch version."""
-    return "cuda" if torch.device(device).type == "cuda" else "torch"
-
-
-def resolve_engine(name: str, device="cuda") -> str:
-    """Resolve aliases (``numpy`` → ``oracle``) and ``auto``."""
-    if name in ("auto", ""):
-        return default_engine(device)
+def resolve_engine(name: str) -> str:
+    """Resolve aliases (``numpy`` → ``oracle``, ``auto`` → ``cuda``)."""
+    name = name or "auto"
     return _ALIASES.get(name, name)
 
 
@@ -304,7 +311,8 @@ class TorchEngine(_PackedEngine):
 
 @register_engine("cuda")
 class CudaEngine(_PackedEngine):
-    """The hand-written Hopper makespan kernel; CUDA tensors only."""
+    """The hand-written Hopper makespan kernel through its wrapper (the
+    plain version for CPU tensors)."""
 
     makespan_fn = staticmethod(population_makespan_cuda)
 
@@ -316,12 +324,10 @@ def population_fitness_fn(
     engine: str = "auto",
     core_cap: int | None = None,
     device="cuda",
-    registry: EngineRegistry | None = None,
 ) -> Callable:
     """Registry-routed ``fitness(assignments [P, T]) -> (obj [P], mk [P])``
     on ``device``."""
-    reg = registry if registry is not None else ENGINES
-    return reg.get(engine, device).population_fitness(
+    return ENGINES.get(engine).population_fitness(
         problem, weights, core_cap=core_cap, device=device
     )
 
@@ -332,12 +338,10 @@ def batched_population_fitness_fn(
     *,
     engine: str = "auto",
     device="cuda",
-    registry: EngineRegistry | None = None,
 ) -> Callable:
     """Registry-routed fitness over one stacked instance family (needs a
     backend with ``supports_batch``)."""
-    reg = registry if registry is not None else ENGINES
-    eng = reg.get(engine, device)
+    eng = ENGINES.get(engine)
     if not eng.capabilities.supports_batch:
         raise ValueError(f"engine {eng.name!r} does not support batched families")
     return eng.batched_fitness(problems, weights, device=device)  # type: ignore[attr-defined]

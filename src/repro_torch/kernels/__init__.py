@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels, each beside its plain PyTorch version, and
-the dispatch between them (:mod:`repro_torch.kernels.ops`)."""
+"""Hand-written Hopper kernels, each beside its plain PyTorch version; a
+kernel's wrapper runs the plain version for tensors on the CPU."""

@@ -7,10 +7,11 @@
 // population_makespan_ref in src/repro_torch/kernels/makespan.py; the two
 // agree bit for bit.
 //
-// What bounds it on an H100.  The work is P*T*CMAX^2 rank compares plus one
-// divide-add-max per dependency edge and candidate, on a few MB of inputs:
-// at the Table IX shapes (P=64, T=500, N=500, CMAX=64) the roofline bound
-// is a few microseconds.  What that bound leaves out is the chain: task j
+// What bounds it on an H100.  The function needs an O(CMAX) selection and
+// overwrite per (candidate, task) and one divide-add-max per dependency edge
+// and candidate, and reads about a megabyte of the tables: at the Table IX
+// shapes (P=64, T=500, N=500, CMAX=64) the roofline bound is under a
+// microsecond, by bytes.  What that bound leaves out is the chain: task j
 // needs the finish times of its predecessors and the core-free row left by
 // every earlier task on its node, so each candidate walks T dependent steps,
 // each a gather from device memory, two reductions and block barriers.  The
@@ -159,6 +160,20 @@ extern "C" int population_makespan_threads(int C) { return ((C > 32 ? C : 32) + 
 extern "C" long long population_makespan_smem(int T, int threads) {
   return static_cast<long long>(T) * (sizeof(int) + sizeof(float)) +
          static_cast<long long>(threads) * sizeof(float);
+}
+
+// Most dynamic shared memory a block of this kernel may ask for on the
+// current device: the opt-in limit less the kernel's static shared memory.
+// A CUDA error comes back negated.
+extern "C" long long population_makespan_max_smem() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, population_makespan_kernel);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
 }
 
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.

@@ -11,7 +11,10 @@ semantics):
   CPU runs;
 * :func:`population_makespan_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/makespan.cu``, which replaces the reference's Pallas kernel.
-  ``population_makespan_cuda.launches`` counts its launches.
+  It is the one place that chooses an implementation, by the tensors'
+  device alone: on CPU tensors it runs the plain version, on CUDA tensors
+  it launches the kernel or raises.  ``population_makespan_cuda.launches``
+  counts its kernel launches.
 
 Both take one instance (``assignments [P, T]``, arrays without an instance
 axis) or a stacked family (``assignments [B, P, T]``, every array with a
@@ -29,10 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.select import kth_from_ranks, stable_ranks, update_from_ranks
 
 _NEG = -1e30
-# the kernel's launch limits on Hopper: threads per block, and dynamic shared
-# memory per block (227 KB less the kernel's 8 bytes of static shared memory)
-_MAX_THREADS = 1024
-_MAX_SMEM = 232448 - 8
+_MAX_THREADS = 1024  # threads per block on Hopper
 
 
 def _default_node_cores(init_free: torch.Tensor) -> torch.Tensor:
@@ -129,6 +129,8 @@ def _library() -> ctypes.CDLL:
     lib.population_makespan_threads.restype = i32
     lib.population_makespan_smem.argtypes = [i32, i32]
     lib.population_makespan_smem.restype = ctypes.c_longlong
+    lib.population_makespan_max_smem.argtypes = []
+    lib.population_makespan_max_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -154,12 +156,13 @@ def population_makespan_cuda(
     node_cores: torch.Tensor | None = None,
     deadline: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel ``csrc/makespan.cu`` on PyTorch's current stream.
+    """The CUDA kernel ``csrc/makespan.cu`` on PyTorch's current stream, or,
+    for tensors on the CPU, :func:`population_makespan_ref`.
 
     Takes exactly the kernel's types (assignments and the integer arrays
-    int32, ``feasible`` uint8, the rest float32), contiguous, on one CUDA
-    device, and raises on anything else and on shapes beyond the kernel's
-    launch limits.  Same results as :func:`population_makespan_ref`."""
+    int32, ``feasible`` uint8, the rest float32), contiguous, all on one
+    device, on the CPU as on the card, and raises on anything else and on
+    shapes beyond the kernel's launch limits.  Same results either way."""
     if node_cores is None:
         node_cores = _default_node_cores(init_free)
     batched, a, arr = _batched(assignments, dict(
@@ -176,8 +179,8 @@ def population_makespan_cuda(
         "dtr": (B, N, N), "init_free": (B, N, C), "node_cores": (B, N),
     }
     device = a.device
-    if device.type != "cuda":
-        raise ValueError(f"population_makespan_cuda needs CUDA tensors, got {device}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"population_makespan_cuda takes CUDA or CPU tensors, got {device}")
     if a.dtype != torch.int32 or not a.is_contiguous():
         raise ValueError("assignments must be contiguous int32")
     for k, t in arr.items():
@@ -190,6 +193,12 @@ def population_makespan_cuda(
             )
         if tuple(t.shape) != shapes[k]:
             raise ValueError(f"{k}: shape {tuple(t.shape)} != {shapes[k]}")
+    if device.type == "cpu":
+        return population_makespan_ref(
+            assignments, durations=durations, cores=cores, data=data, feasible=feasible,
+            release=release, pred_matrix=pred_matrix, dtr=dtr, init_free=init_free,
+            node_cores=node_cores, deadline=deadline,
+        )
     if B > 65535:
         raise ValueError(f"{B} instances exceed the kernel grid's 65535")
 
@@ -198,8 +207,11 @@ def population_makespan_cuda(
     smem = lib.population_makespan_smem(T, threads)
     if threads > _MAX_THREADS:
         raise ValueError(f"CMAX={C} needs {threads} threads per block (> {_MAX_THREADS})")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"T={T} needs {smem} B of shared memory per block (> {_MAX_SMEM})")
+    max_smem = lib.population_makespan_max_smem()  # the card's opt-in limit less static smem
+    if max_smem < 0:
+        _build.check(lib, int(-max_smem), "population_makespan shared-memory query")
+    if smem > max_smem:
+        raise ValueError(f"T={T} needs {smem} B of shared memory per block (> {max_smem})")
 
     makespan = torch.empty(B, P, dtype=torch.float32, device=device)
     violations = torch.empty(B, P, dtype=torch.float32, device=device)

@@ -28,7 +28,7 @@ from repro_torch.core import (
     synthetic_system,
 )
 from repro_torch.engine import pack, stack_packed
-from repro_torch.kernels import _build, ops, select
+from repro_torch.kernels import _build, select
 from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
 
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr", "init_free")
@@ -190,22 +190,33 @@ def test_batched_family_equals_each_instance():
 
 
 def test_dispatch_sends_cpu_tensors_to_the_plain_version():
+    """The kernel's wrapper runs the plain version on CPU tensors, and only
+    then; no kernel launch is counted."""
     prob = _problem(12, 4, 2)
     arrays = pack(prob, pad=False).device_arrays("cpu")
     A = torch.from_numpy(np.random.default_rng(0).integers(0, 4, (5, 12)).astype(np.int32))
     before = population_makespan_cuda.launches
-    mk, v = ops.population_makespan(A, **{k: arrays[k] for k in KEYS})
+    mk, v = population_makespan_cuda(A, **{k: arrays[k] for k in KEYS})
     mk_ref, v_ref = population_makespan_ref(A, **{k: arrays[k] for k in KEYS})
     assert torch.equal(mk, mk_ref) and torch.equal(v, v_ref)
     assert population_makespan_cuda.launches == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
+    """On the CPU the wrapper holds its inputs to the kernel's contract as
+    on the card: other types, shapes or devices are refused, not converted."""
     prob = _problem(5, 2, 1)
     arrays = pack(prob, pad=False).device_arrays("cpu")
+    kw = {k: arrays[k] for k in KEYS}
     A = torch.zeros(3, 5, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        population_makespan_cuda(A, **{k: arrays[k] for k in KEYS})
+    with pytest.raises(ValueError, match="int32"):
+        population_makespan_cuda(A.long(), **kw)
+    with pytest.raises(ValueError, match="dtr"):
+        population_makespan_cuda(A, **{**kw, "dtr": kw["dtr"].double()})
+    with pytest.raises(ValueError, match="shape"):
+        population_makespan_cuda(A, **{**kw, "release": kw["release"][:-1]})
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        population_makespan_cuda(A.to("meta"), **{k: v.to("meta") for k, v in kw.items()})
 
 
 def test_build_raises_without_a_compiler(tmp_path, monkeypatch):
