@@ -17,7 +17,22 @@ result line:
    kernel, with the same checks;
 5. the same GA through the plain version, and a ``torch.profiler`` pass
    over the kernel GA that splits its wall time into device kernel time by
-   kernel name and the rest.
+   kernel name and the rest;
+6. the flash and decode attention kernels against their plain versions on
+   the card, at the shapes the serving path gives them (qwen2.5-3b prefill
+   at the engine's prompt lengths, a chunked prefill, gemma2-2b's head width
+   256 with its window and softcap, decode at the serving run's lockstep
+   length and with mixed lengths), in bf16 and f32, timed beside their
+   plain versions and one PyTorch call that computes the same function
+   (``scaled_dot_product_attention``);
+7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
+   served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
+   each, every prefill layer through the flash kernel and every decode
+   layer through the decode kernel; request 0 served alone must equal a
+   manual greedy prefill + decode loop; a 2-layer cut of the same width is
+   held against the CPU (the wrappers take the plain versions there); time
+   to first token, output tokens/s over the serving window, decode-tick
+   tokens/s and a ``torch.profiler`` split.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -38,12 +53,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and f32
-# operations/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, f32
+# operations/s outside the tensor cores and bf16 operations/s in them
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 GA = {"pop_size": 64, "generations": 60}
 SWEEP_SEEDS = range(8)
+SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr",
         "init_free", "node_cores")
 
@@ -129,11 +146,12 @@ def makespan_bound_ms(A: torch.Tensor, kw: dict) -> tuple[float, str, int, int]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations", nbytes, ops
 
 
-def device_time_breakdown(run) -> dict:
+def device_time_breakdown(run, classify=None) -> dict:
     """Run ``run()`` under ``torch.profiler`` and split its wall time into
-    the device's kernel time, by kernel name, and the rest (host work and
-    device idle).  Kernels of one stream run one at a time, so their
-    durations add up to the device's busy time."""
+    the device's kernel time, by kernel name (and by ``classify(name)``
+    where given), and the rest (host work and device idle).  Kernels of one
+    stream run one at a time, so their durations add up to the device's
+    busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,12 +168,290 @@ def device_time_breakdown(run) -> dict:
             row[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    return {
+    out = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if by_name else None,  # None: the profiler saw no kernel
         "device_idle_share": 1 - busy_ms / wall_ms if by_name else None,
         "kernels": [{"name": n[:80], "count": c, "ms": ms} for n, (c, ms) in top],
     }
+    if classify is not None:
+        classes: dict[str, list] = {}
+        for name, (c, ms) in by_name.items():
+            row = classes.setdefault(classify(name), [0, 0.0])
+            row[0] += c
+            row[1] += ms
+        out["by_class"] = {k: {"count": c, "ms": ms} for k, (c, ms) in classes.items()}
+    return out
+
+
+def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int) -> tuple[float, str]:
+    """Least time an H100 could take for an attention call (flash or decode):
+    q read and the output written once, the ``kv_rows`` rows of k and v that
+    some visible pair touches read once, against 4 * D operations per
+    visible (query head, key) pair at the rate of the dtype (bf16 tensor
+    cores, or f32 outside them)."""
+    D, size = q.shape[-1], q.element_size()
+    nbytes = 2 * q.numel() * size + 2 * kv_rows * D * size
+    ops = 4 * D * pairs
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def attention_phase(prompt_lens: list[int]) -> dict:
+    """Phase 6: each attention kernel against its plain version on the card
+    at the serving path's shapes, timed beside the plain version and
+    ``scaled_dot_product_attention``; returns the kernels' records.
+
+    Each output is held against the plain version run on the same inputs in
+    f32, the kernel's own arithmetic, unrounded: within atol = rtol = 2e-5
+    for f32 tensors, and for bf16 tensors within 2e-5 + 2**-8 * |y|, half a
+    bf16 step at y plus the f32 summation-order slack, since a bf16 output
+    is the f32 result rounded once to nearest."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tol = {torch.bfloat16: (2e-5, 2**-8), torch.float32: (2e-5, 2e-5)}  # (atol, rtol)
+    records: dict[str, dict] = {}
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(name, label, out, plain, plain32, dtype):
+        """Max abs diff of the kernel's output from the plain version in its
+        dtype (recorded) and in f32 (held to ``tol``)."""
+        torch.cuda.synchronize()
+        err = float((out.float() - plain.float()).abs().max())
+        err32 = float((out.float() - plain32).abs().max())
+        atol, rtol = tol[dtype]
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: finite output")
+        check(torch.allclose(out.float(), plain32, atol=atol, rtol=rtol),
+              f"{label}: kernel == plain in f32 within atol {atol} rtol {rtol} (max abs diff {err32})")
+        max_err[name] = max(max_err[name], err)
+        return err, err32
+
+    # (label, B, H, Hkv, Sq, Skv, D, options); qwen2.5-3b: H 16, Hkv 2, D 128
+    flash_cases = [(f"qwen prefill S={n}", 1, 16, 2, n, n, 128, {}) for n in prompt_lens]
+    flash_cases += [
+        ("qwen chunked prefill Sq=256 Skv=1280", 1, 16, 2, 256, 1280, 128, {}),
+        ("gemma2 S=5000 window 4096 softcap 50", 1, 8, 4, 5000, 5000, 256,
+         {"window": 4096, "softcap": 50.0}),
+    ]
+    main_flash = f"qwen prefill S={max(prompt_lens)}"
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases:
+            q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
+            err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
+                                 flash_attention_ref(q, k, v, **kw),
+                                 flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
+            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3, warmup=1)
+            mask = attention_mask(Sq, Skv, causal=True, window=kw.get("window"), device=dev)
+            library_ms = None
+            if "softcap" not in kw:
+                if Sq == Skv and "window" not in kw:
+                    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+                else:
+                    lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                library_ms = cuda_ms(lib, reps=20)
+            pairs = B * H * int(mask.sum())
+            kv_rows = B * Hkv * int(mask.any(dim=0).sum())
+            bound_ms, bound_by = attention_bound_ms(q, k, pairs, kv_rows)
+            print(f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain "
+                  f"{err32:.3g}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+                  f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            if label == main_flash and dtype == torch.bfloat16:
+                records["flash_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                              "bound_by": bound_by, "library_ms": library_ms}
+
+    # (label, B, H, Hkv, S, D, lengths, softcap); the engine decodes its slots
+    # in lockstep, so the serving run's first tick has every length at the
+    # longest prompt + 1
+    lockstep = max(prompt_lens) + 1
+    main_decode = "qwen decode 4 slots lockstep, cache 2048"
+    decode_cases = [
+        (main_decode, 4, 16, 2, 2048, 128, [lockstep] * 4, None),
+        ("qwen decode 4 slots mixed, cache 2048", 4, 16, 2, 2048, 128, [1, 517, 1024, 2048], None),
+        ("gemma2 decode, cache 4096, softcap 50", 4, 8, 4, 4096, 256, [4096, 1, 2000, 3000], 50.0),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, S, D, lens, softcap in decode_cases:
+            q, k, v = normal((B, H, D), dtype), normal((B, Hkv, S, D), dtype), normal((B, Hkv, S, D), dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err, err32 = compare("decode_attention", label, decode_attention_cuda(q, k, v, lengths, softcap=softcap),
+                                 decode_attention_ref(q, k, v, lengths, softcap=softcap),
+                                 decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap),
+                                 dtype)
+            ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=softcap), reps=50)
+            plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, softcap=softcap), reps=10)
+            library_ms = None
+            if softcap is None:
+                valid = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=valid, enable_gqa=True), reps=50)
+            bound_ms, bound_by = attention_bound_ms(q, k, H * sum(lens), Hkv * sum(lens))
+            print(f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain "
+                  f"{err32:.3g}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+                  f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            if label == main_decode and dtype == torch.bfloat16:
+                records["decode_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                               "bound_by": bound_by, "library_ms": library_ms}
+    for name in records:
+        records[name]["max_abs_err"] = max_err[name]
+    return records
+
+
+def serve_prompts(vocab: int) -> list[np.ndarray]:
+    """The serving run's prompts: lengths drawn from 128-1024, then tokens,
+    from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, SERVE["requests"])
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def kernel_class(name: str) -> str:
+    """The serving path's kernels by kind, for the profile."""
+    low = name.lower()
+    if "flash_attention_kernel" in name:
+        return "flash_attention (ours)"
+    if "decode_attention_kernel" in name:
+        return "decode_attention (ours)"
+    if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
+        return "matmul (cuBLAS)"
+    return "other PyTorch kernels"
+
+
+def serve_phase() -> dict:
+    """Phase 7: qwen2.5-3b at full width served by the engine on the card.
+    Returns the launches of each attention kernel in the main run."""
+    import dataclasses
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    api = get_model("qwen2.5-3b")
+    cfg = api.config
+    ecfg = EngineConfig(max_slots=SERVE["slots"], max_len=SERVE["max_len"])
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(), f"{n_params} parameters, the config counts {cfg.param_count()}")
+    print(f"serve: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model}, {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16) made on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    prompts = serve_prompts(cfg.vocab)
+    lens = np.array([len(p) for p in prompts])
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=SERVE["new_tokens"]) for i, p in enumerate(prompts)]
+
+    # warm-up: cuBLAS handles, the kernels' first launches, allocator pools
+    warm = ServeEngine(api, cfg, params, ecfg)
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new_tokens=4))
+    warm.run_until_done()
+    del warm
+
+    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+    engine = ServeEngine(api, cfg, params, ecfg)
+    reqs = requests()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    st = engine.stats
+    check(all(r.done and len(r.output) == SERVE["new_tokens"] for r in reqs),
+          f"every request done with {SERVE['new_tokens']} tokens")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.output), "tokens in the vocabulary")
+    check(launches["flash_attention"] == cfg.num_layers * len(reqs),
+          f"flash launches {launches['flash_attention']} == {cfg.num_layers} layers x {len(reqs)} prefills")
+    check(launches["decode_attention"] == cfg.num_layers * st.decode_ticks,
+          f"decode launches {launches['decode_attention']} == {cfg.num_layers} layers x {st.decode_ticks} ticks")
+    ttft = [r.first_token_at - t0 for r in reqs]
+    out_tokens = sum(len(r.output) for r in reqs)  # the prefills' first tokens too
+    print(f"serve: {len(reqs)} requests (prompts {lens.tolist()}), {SERVE['new_tokens']} new tokens each, "
+          f"{SERVE['slots']} slots, max_len {SERVE['max_len']}: wall {wall:.3f} s, "
+          f"{out_tokens} output tokens ({out_tokens / wall:.1f} tokens/s over the wall); "
+          f"prefill {st.prefills} x in {st.prefill_s:.3f} s ({int(lens.sum()) / st.prefill_s:.0f} prompt tokens/s); "
+          f"decode {st.decode_ticks} ticks, {st.decode_tokens} tokens in {st.decode_s:.3f} s "
+          f"({st.decode_tokens / st.decode_s:.1f} tokens/s, {1e3 * st.decode_s / st.decode_ticks:.2f} ms/tick); "
+          f"launches {launches}", flush=True)
+    print(json.dumps({"serve_ttft_s": [round(t, 4) for t in ttft],
+                      "output_tokens_per_s": out_tokens / wall,
+                      "decode_tick_tokens_per_s": st.decode_tokens / st.decode_s,
+                      "wall_s": wall}), flush=True)
+
+    # request 0 alone: one slot, against a manual greedy prefill + decode loop
+    alone = ServeEngine(api, cfg, params, EngineConfig(max_slots=1, max_len=SERVE["max_len"]))
+    r0 = Request(rid=0, prompt=prompts[0], max_new_tokens=SERVE["new_tokens"])
+    alone.submit(r0)
+    alone.run_until_done()
+    cache = api.init_cache(1, SERVE["max_len"], cfg)
+    logits, cache = api.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None], cache, cfg)
+    manual = [int(logits[0].argmax())]
+    for _ in range(SERVE["new_tokens"] - 1):
+        logits, cache = api.decode_step(params, torch.tensor([manual[-1]], device="cuda"), cache, cfg)
+        manual.append(int(logits[0].argmax()))
+    check(r0.output == manual, "request 0 served alone == manual greedy prefill + decode loop")
+    same4 = sum(a == b for a, b in zip(reqs[0].output, manual))
+    print(f"serve: request 0 alone == manual loop ({len(manual)} tokens); in the 4-slot run "
+          f"{same4}/{len(manual)} tokens agree with it", flush=True)
+
+    # the same width, 2 layers, on the card and on the CPU with the same weights
+    cut = dataclasses.replace(cfg, num_layers=2)
+    t0 = time.perf_counter()
+    on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
+    on_gpu = api.init(torch.Generator().manual_seed(1), cut, device="cuda")
+    worst, agree, total = 0.0, 0, 0
+    for n in (128, 1000):
+        toks = np.random.default_rng(n).integers(0, cfg.vocab, n).astype(np.int32)
+        caches = {d: api.init_cache(1, SERVE["max_len"], cut, device=d) for d in ("cpu", "cuda")}
+        lg, caches["cuda"] = api.prefill(on_gpu, torch.as_tensor(toks, device="cuda")[None], caches["cuda"], cut)
+        lc, caches["cpu"] = api.prefill(on_cpu, torch.as_tensor(toks)[None], caches["cpu"], cut)
+        for step in range(5):  # the prefill logits, then 4 decode steps on the CPU's tokens
+            lg = lg.cpu()
+            diff = float((lg - lc).abs().max())
+            check(torch.allclose(lg, lc, atol=5e-2, rtol=5e-2),
+                  f"2-layer full width, prompt {n}, step {step}: card == CPU within 5e-2 (max abs diff {diff})")
+            worst = max(worst, diff)
+            agree += int(lg.argmax()) == int(lc.argmax())
+            total += 1
+            tok = lc.argmax(dim=-1).to(torch.int32)
+            if step < 4:
+                lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cut)
+                lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cut)
+    print(f"serve: 2-layer full-width card vs CPU, prompts 128 and 1000, prefill + 4 decode steps: "
+          f"max abs logit diff {worst:.4g} (bf16, tolerance 5e-2), greedy tokens agree {agree}/{total} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del on_gpu
+
+    # where the time goes: one wave of 4 requests under the profiler
+    def one_wave():
+        eng = ServeEngine(api, cfg, params, ecfg)
+        for r in requests()[: SERVE["slots"]]:
+            eng.submit(r)
+        eng.run_until_done()
+
+    print(json.dumps({"serve_profile": device_time_breakdown(one_wave, classify=kernel_class)}), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -188,6 +484,13 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    clock = [time.perf_counter()]
+
+    def phase_done(n: int, what: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {n} ({what}): {now - clock[0]:.2f} s", flush=True)
+        clock[0] = now
+
     # 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
     seconds = _build.build()
@@ -195,8 +498,9 @@ def main() -> int:
           f"(per source: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})", flush=True)
     for name in seconds:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    phase_done(1, "build")
 
     # 2. kernel against plain version -----------------------------------------
     def table9(seed: int):
@@ -261,6 +565,8 @@ def main() -> int:
           f"kernel {batch_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)",
           flush=True)
 
+    phase_done(2, "makespan kernel against its plain version")
+
     # 3. single GA: the main path -----------------------------------------------
     population_makespan_cuda.launches = 0
     t0 = time.perf_counter()
@@ -279,6 +585,8 @@ def main() -> int:
           f"makespan {res.schedule.makespan:.4f}, {launches} kernel launches, "
           f"history {res.history[0]:.2f} -> {res.history[-1]:.2f}", flush=True)
 
+    phase_done(3, "Table IX GA")
+
     # 4. batched sweep ------------------------------------------------------------
     population_makespan_cuda.launches = 0
     t0 = time.perf_counter()
@@ -296,7 +604,9 @@ def main() -> int:
           f"{sweep_s:.3f} s wall, {sweep_launches} kernel launches, makespans "
           f"{[round(r.schedule.makespan, 2) for r in results]}", flush=True)
 
-    # the same GA through the plain version, as a yardstick of the path
+    phase_done(4, "ga_sweep")
+
+    # 5. the same GA through the plain version, as a yardstick of the path
     t0 = time.perf_counter()
     plain_res = ga(table9_main, backend="torch", device="cuda", seed=0, **GA)
     torch.cuda.synchronize()
@@ -312,6 +622,18 @@ def main() -> int:
     )
     breakdown["oracle_rescore_ms"] = oracle_ms
     print(json.dumps({"ga_profile": breakdown}), flush=True)
+    phase_done(5, "plain GA and profile")
+
+    # 6. attention kernels against their plain versions ------------------------
+    from repro_torch.models.registry import get_model
+
+    vocab = get_model("qwen2.5-3b").config.vocab
+    attention = attention_phase([len(p) for p in serve_prompts(vocab)])
+    phase_done(6, "attention kernels against their plain versions")
+
+    # 7. qwen2.5-3b served at full width: the serving path ------------------------
+    serve_launches = serve_phase()
+    phase_done(7, "qwen2.5-3b served at full width")
 
     kernels = [{
         "name": "population_makespan",
@@ -327,6 +649,16 @@ def main() -> int:
         "bound_by": record["bound_by"],
         "library_ms": None,
     }]
+    for name, replaces in (("flash_attention", "src/repro/kernels/flash_attention.py:117"),
+                           ("decode_attention", "src/repro/kernels/decode_attention.py:90")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": serve_launches[name],
+            **attention[name],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

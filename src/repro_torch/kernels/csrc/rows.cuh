@@ -1,0 +1,54 @@
+// Row loads and stores shared by the attention kernels: rows of float32 or
+// bfloat16 read with 16-byte vector loads into float32 shared memory, and
+// float32 results stored as either type (bf16 rounded to nearest even).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ void unpack(const uint4& raw, float* x, const float*) {
+  const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = f[e];
+}
+
+__device__ __forceinline__ void unpack(const uint4& raw, float* x, const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// `rows` rows of D elements of src (row-major, each row starting on a
+// 16-byte boundary) into dst as f32 times `mul`, with row stride `stride`;
+// rows at or past `valid` are zero.  Every thread of the block takes part.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int rows, int D,
+                                          int valid, float mul) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = D / kVec;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * kVec;
+    float x[kVec];
+    if (r < valid) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
+      unpack(raw, x, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[r * stride + c + e] = x[e] * mul;
+  }
+}
+
+}  // namespace

@@ -1,0 +1,250 @@
+"""Model-layer primitives: RMSNorm, RoPE, linear, embedding, GQA attention
+(prefill and decode) and the SwiGLU/GELU MLPs.
+
+Ported from the reference's ``repro/models/layers.py``.  Parameters live in
+small ``nn.Module`` containers whose attribute names are the reference's
+pytree keys (``Linear.w`` is ``[d_in, d_out]`` as in JAX, so ``x @ w``);
+the arithmetic lives in plain functions that take those containers, as the
+reference's take dicts.  The numerics are the reference's: RMSNorm in f32
+with the ``(1 + scale)`` convention, RoPE in f32, the embedding scale
+rounded to the activation dtype before the product, the unembedding as a
+product in the weights' dtype, then an upcast, then the final softcap, and
+``jax.nn.gelu``'s default, the tanh approximation.
+
+Attention calls the kernel wrappers directly: a wrapper is the only code
+that chooses an implementation, by the device of its tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models.config import ModelConfig
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16``, and so on."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def truncated_normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
+                     generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], drawn in f32 on the generator's
+    device, times ``scale``, then cast and moved: the reference's
+    ``truncated_normal_init`` in distribution (not in its numbers)."""
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, bias: bool, dtype: torch.dtype,
+                 device: torch.device | str):
+        super().__init__()
+        self.w = _param(torch.empty(d_in, d_out, dtype=dtype, device=device))
+        self.b = _param(torch.empty(d_out, dtype=dtype, device=device)) if bias else None
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.w.copy_(truncated_normal(tuple(self.w.shape), self.w.shape[0] ** -0.5,
+                                      self.w.dtype, generator, self.w.device))
+        if self.b is not None:
+            self.b.zero_()
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        self.scale = _param(torch.empty(d, dtype=dtype, device=device))  # (1 + scale)
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.scale.zero_()
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.q = Linear(d, h * hd, bias=cfg.qkv_bias, **kw)
+        self.k = Linear(d, hkv * hd, bias=cfg.qkv_bias, **kw)
+        self.v = Linear(d, hkv * hd, bias=cfg.qkv_bias, **kw)
+        self.o = Linear(h * hd, d, bias=False, **kw)
+
+
+class MLP(nn.Module):
+    """SwiGLU (``gate``, ``up``, ``down``) or, for ``mlp_act == "gelu"``, a
+    plain two-matrix MLP with biases (``up``, ``down``)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        d, ff = cfg.d_model, cfg.d_ff
+        kw = dict(dtype=dtype, device=device)
+        gelu = cfg.mlp_act == "gelu"
+        self.gate = None if gelu else Linear(d, ff, bias=False, **kw)
+        self.up = Linear(d, ff, bias=gelu, **kw)
+        self.down = Linear(ff, d, bias=gelu, **kw)
+
+
+class Embed(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        self.tok = _param(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
+        self.unembed = (None if cfg.tie_embeddings else
+                        _param(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype, device=device)))
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.tok.copy_(truncated_normal(tuple(self.tok.shape), 0.02, self.tok.dtype, generator,
+                                        self.tok.device))
+        if self.unembed is not None:
+            d = self.unembed.shape[0]
+            self.unembed.copy_(truncated_normal(tuple(self.unembed.shape), d**-0.5,
+                                                self.unembed.dtype, generator, self.unembed.device))
+
+
+def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + p.scale.float())).to(x.dtype)
+
+
+# -----------------------------------------------------------------------------
+# RoPE (GPT-NeoX rotate-half convention, as llama/qwen/gemma)
+# -----------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [...]; returns (sin, cos) with shape [..., head_dim//2], f32."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta**exponent)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D] with sin/cos [S, D/2] or [B, S, D/2] (broadcast over
+    the heads)."""
+    half = x.shape[-1] // 2
+    s = sin[..., None, :] if x.dim() == 4 else sin
+    c = cos[..., None, :] if x.dim() == 4 else cos
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out1 = xf1 * c - xf2 * s
+    out2 = xf2 * c + xf1 * s
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# -----------------------------------------------------------------------------
+# Attention (GQA): prefill and decode
+# -----------------------------------------------------------------------------
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = linear(p.q, x).reshape(B, S, h, hd)
+    k = linear(p.k, x).reshape(B, S, hkv, hd)
+    v = linear(p.v, x).reshape(B, S, hkv, hd)
+    return q, k, v
+
+
+def attention_forward(
+    p: Attention,
+    x: torch.Tensor,  # [B, S, d]
+    cfg: ModelConfig,
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Causal full-sequence attention (prefill) at positions ``0 .. S-1``.
+    Returns (out, (k, v)) with k, v in the cache layout ``[B, Hkv, S, D]``."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    sin, cos = rope_tables(torch.arange(S, device=x.device), cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    kc = k.transpose(1, 2).contiguous()  # [B, Hkv, S, D]
+    vc = v.transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()  # [B, H, S, D]
+    o = flash_attention_cuda(qh, kc, vc, window=window, softcap=cfg.attn_softcap)
+    o = o.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(p.o, o), (kc, vc)
+
+
+def attention_decode(
+    p: Attention,
+    x: torch.Tensor,  # [B, 1, d]: one new token
+    cfg: ModelConfig,
+    k_cache: torch.Tensor,  # [B, Hkv, S, D]
+    v_cache: torch.Tensor,
+    pos: int | torch.Tensor,  # [] or [B]: the position of the new token
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a KV cache; returns (out, k_cache, v_cache).
+
+    The new token's k and v are written into the caches in place (the
+    reference returns updated copies; writing in place saves a copy of the
+    cache per layer and step).  A window-sized cache is a ring buffer: the
+    token goes to slot ``pos % S`` and at most ``S`` keys are visible."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)  # S == 1
+    posb = torch.as_tensor(pos, device=x.device).broadcast_to((B,))
+    sin, cos = rope_tables(posb[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)  # q, k [B, 1, H, D]; sin, cos [B, 1, D/2]
+    k = apply_rope(k, sin, cos)
+    S = k_cache.shape[2]
+    slot = posb % S
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
+    lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
+    o = decode_attention_cuda(q[:, 0].contiguous(), k_cache, v_cache, lengths,
+                              softcap=cfg.attn_softcap)
+    o = o.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(p.o, o), k_cache, v_cache
+
+
+# -----------------------------------------------------------------------------
+# MLP, embedding, unembedding
+# -----------------------------------------------------------------------------
+
+
+def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if p.gate is not None:
+        return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
+    return linear(p.down, F.gelu(linear(p.up, x), approximate="tanh"))
+
+
+def embed(p: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = p.tok[tokens]
+    if cfg.scale_embedding:
+        # the scale is first rounded to the activation dtype, as
+        # jnp.asarray(d ** 0.5, x.dtype) does
+        x = x * float(torch.tensor(cfg.d_model**0.5, dtype=x.dtype))
+    return x
+
+
+def unembed(p: Embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = p.tok.T if p.unembed is None else p.unembed
+    logits = (x @ w).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits

@@ -1,0 +1,77 @@
+"""Architecture registry: ``--arch <id>`` resolution for the serving CLI.
+
+Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
+on the CPU, and its family module.  The port has the dense family; the
+reference's other architectures raise :class:`KeyError` naming the ROADMAP
+item that ports them.  The reference's dry-run specs (``batch_specs``,
+``param_specs``, ``cache_specs``) belong to ``launch/dryrun``, not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_MODULES: dict[str, str] = {
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+}
+
+ALL_ARCHS = tuple(ARCH_MODULES)
+
+# the reference's other architectures, and where ROADMAP ports them
+NOT_PORTED: dict[str, str] = {
+    "deepseek-67b": "Queue A item 8 (dense, but 134 GB in bf16: needs the sharded path)",
+    "mamba2-780m": "Queue B item 3 (the SSD scan) with the ssm family",
+    "zamba2-7b": "Queue B item 3 (the SSD scan) with the hybrid family",
+    "qwen3-moe-30b-a3b": "Queue A item 8 (the MoE family)",
+    "mixtral-8x7b": "Queue A item 8 (the MoE family)",
+    "whisper-base": "Queue A item 8 (the encdec family)",
+    "internvl2-76b": "Queue A item 8 (the vlm family)",
+}
+
+_FAMILY_MODULES = {"dense": "repro_torch.models.transformer"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    name: str
+    config: ModelConfig
+    reduced: ModelConfig
+    module: Any  # family module
+
+    def init(self, generator: torch.Generator, cfg: ModelConfig | None = None,
+             device: torch.device | str = "cuda"):
+        return self.module.init_params(generator, cfg or self.config, device)
+
+    def forward(self, params, batch: dict, cfg: ModelConfig | None = None):
+        return self.module.forward(params, cfg or self.config, batch)
+
+    def init_cache(self, batch: int, max_len: int, cfg: ModelConfig | None = None,
+                   device: torch.device | str = "cuda") -> dict:
+        return self.module.init_cache(cfg or self.config, batch, max_len, device)
+
+    def prefill(self, params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig | None = None):
+        return self.module.prefill(params, cfg or self.config, tokens, cache)
+
+    def decode_step(self, params, token: torch.Tensor, cache: dict,
+                    cfg: ModelConfig | None = None):
+        return self.module.decode_step(params, cfg or self.config, token, cache)
+
+
+def get_model(arch: str) -> ModelApi:
+    if arch not in ARCH_MODULES:
+        if arch in NOT_PORTED:
+            raise KeyError(f"arch {arch!r} is not ported yet: ROADMAP {NOT_PORTED[arch]}")
+        raise KeyError(f"unknown arch {arch!r}; options: {sorted(ARCH_MODULES)}")
+    cfg_mod = importlib.import_module(ARCH_MODULES[arch])
+    config: ModelConfig = cfg_mod.CONFIG
+    fam_mod = importlib.import_module(_FAMILY_MODULES[config.family])
+    return ModelApi(name=arch, config=config, reduced=cfg_mod.REDUCED, module=fam_mod)

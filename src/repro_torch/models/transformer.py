@@ -1,0 +1,190 @@
+"""Decoder-only transformer LM, dense family.
+
+Ported from the reference's ``repro/models/transformer.py``.  The reference
+stacks each window slot's layers along a leading axis and runs them with
+``lax.scan``; here the blocks are an ``nn.ModuleList`` per window slot
+(``params.blocks[slot][group]``) and the scan is a Python loop over layer
+groups.  gemma2's alternating local/global attention keeps its layer
+groups: slot 0 is local (window-sized ring-buffer caches), slot 1 global.
+The reference's ``hints.constrain`` sharding hint does nothing on one card
+and is left out.  The MoE family is not ported yet.
+
+API, as the reference's: ``init_params`` / ``forward`` / ``init_cache`` /
+``prefill`` / ``decode_step``.  The cache is ``{"kv": ({"k", "v"} per
+slot, each [n_groups, B, Hkv, S, D]), "pos": int}``.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE family (moe.py) is not ported yet (ROADMAP Queue A item 8)"
+        )
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a transformer LM")
+
+
+def layer_windows(cfg: ModelConfig) -> tuple[int | None, ...]:
+    """Static per-slot window sizes within a layer group."""
+    if cfg.local_global:
+        return (cfg.window, None)  # gemma2: even layers local, odd global
+    return (cfg.window,)
+
+
+def group_size(cfg: ModelConfig) -> int:
+    return len(layer_windows(cfg))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ln_attn = L.RMSNorm(cfg.d_model, **kw)
+        self.attn = L.Attention(cfg, **kw)
+        self.ln_mlp = L.RMSNorm(cfg.d_model, **kw)
+        self.mlp = L.MLP(cfg, **kw)
+        self.ln_attn_post = L.RMSNorm(cfg.d_model, **kw) if cfg.post_norms else None
+        self.ln_mlp_post = L.RMSNorm(cfg.d_model, **kw) if cfg.post_norms else None
+
+
+class Transformer(nn.Module):
+    """The parameters: ``embed``, ``blocks[slot][group]``, ``ln_final``.
+    Layer ``i`` is ``blocks[i % g][i // g]`` for a group of ``g`` slots."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
+        super().__init__()
+        _check_family(cfg)
+        g = group_size(cfg)
+        if cfg.num_layers % g:
+            raise ValueError(f"{cfg.num_layers} layers do not divide into groups of {g}")
+        kw = dict(dtype=L.torch_dtype(cfg.dtype), device=device)
+        self.embed = L.Embed(cfg, **kw)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.num_layers // g)) for _ in range(g)
+        )
+        self.ln_final = L.RMSNorm(cfg.d_model, **kw)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: torch.device | str = "cuda") -> Transformer:
+    """Random parameters at the reference's scales: truncated normals on
+    [-2, 2] (``d_in ** -0.5`` for weights, 0.02 for the embedding,
+    ``d_model ** -0.5`` for an untied unembedding), zero biases and norm
+    scales.  Drawn from ``generator`` on its own device, then moved to
+    ``device``: the same generator state gives the same weights anywhere."""
+    params = Transformer(cfg, torch.device("meta")).to_empty(device=device)
+    for m in params.modules():
+        if hasattr(m, "init_"):
+            m.init_(generator)
+    return params
+
+
+def _layers(params: Transformer, cfg: ModelConfig) -> Iterator[tuple[int, int, int | None, Block]]:
+    """(group, slot, window, block) in layer order."""
+    windows = layer_windows(cfg)
+    for grp in range(cfg.num_layers // len(windows)):
+        for s, w in enumerate(windows):
+            yield grp, s, w, params.blocks[s][grp]
+
+
+def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
+    if p.ln_mlp_post is not None:
+        h = L.rmsnorm(p.ln_mlp_post, h, cfg.norm_eps)
+    return x + h
+
+
+def _attn_residual(p: Block, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if p.ln_attn_post is not None:
+        h = L.rmsnorm(p.ln_attn_post, h, cfg.norm_eps)
+    return x + h
+
+
+def _block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, window: int | None):
+    """Full-sequence block; returns (x, (k, v))."""
+    h, kv = L.attention_forward(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg, window=window)
+    x = _attn_residual(p, x, h, cfg)
+    return _mlp_residual(p, x, cfg), kv
+
+
+def forward(params: Transformer, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0})."""
+    x = L.embed(params.embed, batch["tokens"], cfg)
+    for _, _, w, p in _layers(params, cfg):
+        x, _ = _block_forward(p, x, cfg, w)
+    x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
+    logits = L.unembed(params.embed, x, cfg)
+    return logits, {"aux_loss": torch.zeros((), device=logits.device)}
+
+
+# -----------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# -----------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device | str = "cuda") -> dict:
+    """Zeroed KV caches per window slot, in the model's dtype; windowed slots
+    are ring buffers of ``min(max_len, window)`` positions."""
+    _check_family(cfg)
+    dtype = L.torch_dtype(cfg.dtype)
+    n_groups = cfg.num_layers // group_size(cfg)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    caches = []
+    for w in layer_windows(cfg):
+        s = min(max_len, w) if w is not None else max_len
+        shape = (n_groups, batch, hkv, s, hd)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return {"kv": tuple(caches), "pos": 0}
+
+
+def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: dict) -> tuple[torch.Tensor, dict]:
+    """Run the whole prompt ``tokens [B, S]`` and write its keys and values
+    into ``cache`` in place (a window slot keeps the last ``window``
+    positions, laid out as its ring buffer).  Returns (last-position logits
+    [B, V] f32, the cache at position S)."""
+    S = tokens.shape[1]
+    x = L.embed(params.embed, tokens, cfg)
+    for grp, s, w, p in _layers(params, cfg):
+        x, (kc, vc) = _block_forward(p, x, cfg, w)
+        for dst, src in ((cache["kv"][s]["k"][grp], kc), (cache["kv"][s]["v"][grp], vc)):
+            cap = dst.shape[2]
+            if S >= cap:  # keep the last `cap` positions, ring-consistently
+                dst.copy_(torch.roll(src[:, :, S - cap:], S % cap, dims=2))
+            else:
+                dst[:, :, :S].copy_(src)
+    x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
+    logits = L.unembed(params.embed, x[:, -1:], cfg)[:, 0]
+    return logits, {"kv": cache["kv"], "pos": S}
+
+
+def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step: token [B] -> (logits [B, V] f32, the cache one
+    position on).  Every sequence sits at ``cache["pos"]``; the caches are
+    updated in place."""
+    B = token.shape[0]
+    x = L.embed(params.embed, token[:, None], cfg)
+    pos = cache["pos"]
+    posb = torch.as_tensor(pos, device=x.device).broadcast_to((B,))  # once, not per layer
+    for grp, s, w, p in _layers(params, cfg):
+        kv = cache["kv"][s]
+        h, _, _ = L.attention_decode(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg,
+                                     kv["k"][grp], kv["v"][grp], posb, window=w)
+        x = _attn_residual(p, x, h, cfg)
+        x = _mlp_residual(p, x, cfg)
+    x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
+    logits = L.unembed(params.embed, x, cfg)[:, 0]
+    return logits, {"kv": cache["kv"], "pos": pos + 1}
