@@ -32,7 +32,15 @@ result line:
    manual greedy prefill + decode loop; a 2-layer cut of the same width is
    held against the CPU (the wrappers take the plain versions there); time
    to first token, output tokens/s over the serving window, decode-tick
-   tokens/s and a ``torch.profiler`` split.
+   tokens/s and a ``torch.profiler`` split;
+8. the SSD chunked-scan kernel against its plain version on the card at
+   mamba2-780m's prefill shapes (the engine's prompt lengths, one length a
+   multiple of the chunk and one under it, and cases with 4 groups and a
+   batch of 4, per-head A and dt drawn at random), in bf16 and f32, timed
+   beside its plain version (no single PyTorch call computes it);
+9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
+   served as in phase 7, every prefill layer through the SSD kernel, with
+   the same checks and readings.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -327,22 +335,25 @@ def kernel_class(name: str) -> str:
         return "flash_attention (ours)"
     if "decode_attention_kernel" in name:
         return "decode_attention (ours)"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan (ours)"
     if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
     return "other PyTorch kernels"
 
 
-def serve_phase() -> dict:
-    """Phase 7: qwen2.5-3b at full width served by the engine on the card.
-    Returns the launches of each attention kernel in the main run."""
+def serve_phase(arch: str, kernels: dict) -> dict:
+    """Phases 7 and 9: ``arch`` at full width served by the engine on the
+    card.  ``kernels`` maps each kernel of the path to its wrapper and what
+    it launches once per layer: every ``"prefill"`` or every decode
+    ``"tick"``.  Returns the launches of each kernel in the main run."""
     import dataclasses
 
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.kvcache import merge_slot
 
-    api = get_model("qwen2.5-3b")
+    api = get_model(arch)
     cfg = api.config
     ecfg = EngineConfig(max_slots=SERVE["slots"], max_len=SERVE["max_len"])
     t0 = time.perf_counter()
@@ -365,7 +376,8 @@ def serve_phase() -> dict:
     warm.run_until_done()
     del warm
 
-    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+    for wrapper, _ in kernels.values():
+        wrapper.launches = 0
     engine = ServeEngine(api, cfg, params, ecfg)
     reqs = requests()
     torch.cuda.synchronize()
@@ -375,16 +387,15 @@ def serve_phase() -> dict:
     engine.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention_cuda.launches,
-                "decode_attention": decode_attention_cuda.launches}
+    launches = {name: wrapper.launches for name, (wrapper, _) in kernels.items()}
     st = engine.stats
     check(all(r.done and len(r.output) == SERVE["new_tokens"] for r in reqs),
           f"every request done with {SERVE['new_tokens']} tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output), "tokens in the vocabulary")
-    check(launches["flash_attention"] == cfg.num_layers * len(reqs),
-          f"flash launches {launches['flash_attention']} == {cfg.num_layers} layers x {len(reqs)} prefills")
-    check(launches["decode_attention"] == cfg.num_layers * st.decode_ticks,
-          f"decode launches {launches['decode_attention']} == {cfg.num_layers} layers x {st.decode_ticks} ticks")
+    for name, (_, per) in kernels.items():
+        count = len(reqs) if per == "prefill" else st.decode_ticks
+        check(launches[name] == cfg.num_layers * count,
+              f"{name} launches {launches[name]} == {cfg.num_layers} layers x {count} {per}s")
     ttft = [r.first_token_at - t0 for r in reqs]
     out_tokens = sum(len(r.output) for r in reqs)  # the prefills' first tokens too
     print(f"serve: {len(reqs)} requests (prompts {lens.tolist()}), {SERVE['new_tokens']} new tokens each, "
@@ -394,9 +405,11 @@ def serve_phase() -> dict:
           f"decode {st.decode_ticks} ticks, {st.decode_tokens} tokens in {st.decode_s:.3f} s "
           f"({st.decode_tokens / st.decode_s:.1f} tokens/s, {1e3 * st.decode_s / st.decode_ticks:.2f} ms/tick); "
           f"launches {launches}", flush=True)
-    print(json.dumps({"serve_ttft_s": [round(t, 4) for t in ttft],
+    print(json.dumps({"arch": arch, "serve_ttft_s": [round(t, 4) for t in ttft],
                       "output_tokens_per_s": out_tokens / wall,
                       "decode_tick_tokens_per_s": st.decode_tokens / st.decode_s,
+                      "decode_ms_per_tick": 1e3 * st.decode_s / st.decode_ticks,
+                      "prefill_s": st.prefill_s,
                       "wall_s": wall}), flush=True)
 
     # request 0 alone: one slot, against a manual greedy prefill + decode loop
@@ -406,14 +419,37 @@ def serve_phase() -> dict:
     alone.run_until_done()
     cache = api.init_cache(1, SERVE["max_len"], cfg)
     logits, cache = api.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None], cache, cfg)
-    manual = [int(logits[0].argmax())]
-    for _ in range(SERVE["new_tokens"] - 1):
-        logits, cache = api.decode_step(params, torch.tensor([manual[-1]], device="cuda"), cache, cfg)
+    manual, gaps = [], []  # greedy tokens, and the gap between each step's two best logits
+    for step in range(SERVE["new_tokens"]):
+        top2 = logits[0].topk(2).values
         manual.append(int(logits[0].argmax()))
+        gaps.append(float(top2[0] - top2[1]))
+        if step < SERVE["new_tokens"] - 1:
+            logits, cache = api.decode_step(params, torch.tensor([manual[-1]], device="cuda"), cache, cfg)
     check(r0.output == manual, "request 0 served alone == manual greedy prefill + decode loop")
     same4 = sum(a == b for a, b in zip(reqs[0].output, manual))
+    first = next((i for i, (a, b) in enumerate(zip(reqs[0].output, manual)) if a != b), None)
     print(f"serve: request 0 alone == manual loop ({len(manual)} tokens); in the 4-slot run "
-          f"{same4}/{len(manual)} tokens agree with it", flush=True)
+          f"{same4}/{len(manual)} tokens agree with it"
+          + ("" if first is None else f", first apart at token {first}, where the alone run's two best "
+             f"logits are {gaps[first]:.4g} apart"), flush=True)
+
+    # the batch's own rounding: request 0's prefill state in all 4 slots, one
+    # decode step, against the same step at batch 1
+    one = api.init_cache(1, SERVE["max_len"], cfg)
+    _, one = api.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None], one, cfg)
+    four = api.init_cache(SERVE["slots"], SERVE["max_len"], cfg)
+    states = [k for k in one if k != "pos"]
+    for slot in range(SERVE["slots"]):
+        merge_slot({k: four[k] for k in states}, {k: one[k] for k in states}, slot, SERVE["slots"])
+    four["pos"] = one["pos"]
+    tok = torch.full((SERVE["slots"],), manual[0], dtype=torch.int32, device="cuda")
+    l4, _ = api.decode_step(params, tok, four, cfg)
+    l1, _ = api.decode_step(params, tok[:1], one, cfg)
+    print(f"serve: one decode step of request 0's state at batch {SERVE['slots']} against batch 1: max abs "
+          f"logit diff {float((l4[0] - l1[0]).abs().max()):.4g} (rows of the batch equal: "
+          f"{bool((l4 == l4[:1]).all())}); smallest gap between the alone run's two best logits "
+          f"{min(gaps):.4g}", flush=True)
 
     # the same width, 2 layers, on the card and on the CPU with the same weights
     cut = dataclasses.replace(cfg, num_layers=2)
@@ -450,8 +486,82 @@ def serve_phase() -> dict:
             eng.submit(r)
         eng.run_until_done()
 
-    print(json.dumps({"serve_profile": device_time_breakdown(one_wave, classify=kernel_class)}), flush=True)
+    print(json.dumps({"arch": arch, "serve_profile": device_time_breakdown(one_wave, classify=kernel_class)}),
+          flush=True)
     return launches
+
+
+def ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
+    """Least time an H100 could take for an SSD scan of ``x [B, L, H, P]``
+    with B and C of ``G`` groups of width ``N``: x, B, C, dt and A read
+    once, y and the f32 final state written once, against the recurrence's
+    4 * P * N operations per (batch, step, head) (a multiply-add each for the
+    state update and the read of y) at the rate of x's dtype (bf16 tensor
+    cores, or f32 outside them)."""
+    Bsz, L, H, P = x.shape
+    size = x.element_size()
+    nbytes = 2 * x.numel() * size + 2 * Bsz * L * G * N * size + Bsz * L * H * 4 + H * 4 + Bsz * H * P * N * 4
+    ops = 4 * P * N * Bsz * L * H
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def ssd_phase(prompt_lens: list[int]) -> dict:
+    """Phase 8: the SSD kernel against its plain version on the card at
+    mamba2-780m's prefill shapes (H 48, P 64, N 128, G 1, chunk 128), timed
+    beside the plain version; returns the kernel's record.
+
+    f32 inputs: y and the final state within atol = rtol = 3e-4 of the plain
+    version, the reference's own chunked-against-sequential limit
+    (tests/test_kernels_ssd.py).  bf16 inputs: y within 3e-4 + 2**-8 * |y| of
+    the plain version run in f32 on the same (bf16) values, half a bf16 step
+    at y plus the f32 limit, since the kernel rounds its f32 result once; the
+    final state (f32 in both) within 3e-4."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, P, N = 48, 64, 128
+    # (label, B, L, G); per-head A and dt at the reference test's scales
+    cases = [(f"mamba2 prefill L={n}", 1, n, 1) for n in prompt_lens]
+    cases += [("L=1024 (8 whole chunks)", 1, 1024, 1), ("L=64 (under one chunk)", 1, 64, 1),
+              ("G=4 L=891", 1, 891, 4), ("B=4 L=512", 4, 512, 1)]
+    main = f"mamba2 prefill L={max(prompt_lens)}"
+    record, max_err = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, L, G in cases:
+            x = torch.randn(B, L, H, P, generator=gen, device=dev).to(dtype)
+            dt = torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1 + 0.01
+            A = -(torch.randn(H, generator=gen, device=dev).abs() + 0.2)
+            Bm = (torch.randn(B, L, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+            Cm = (torch.randn(B, L, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+            args = (x, dt, A, Bm, Cm)
+            y, state = ssd_scan_cuda(*args)
+            y_p, state_p = ssd_scan_ref(*args)
+            y32, state32 = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float())
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all()), f"ssd {label}: finite")
+            rtol = 2**-8 if dtype == torch.bfloat16 else 3e-4
+            err_y32 = float((y.float() - y32).abs().max())
+            err_s32 = float((state - state32).abs().max())
+            check(torch.allclose(y.float(), y32, atol=3e-4, rtol=rtol),
+                  f"ssd {label} {dtype}: y == plain in f32 within atol 3e-4 rtol {rtol} (max abs diff {err_y32})")
+            check(torch.allclose(state, state32, atol=3e-4, rtol=3e-4),
+                  f"ssd {label} {dtype}: final state == plain within 3e-4 (max abs diff {err_s32})")
+            err = max(float((y.float() - y_p.float()).abs().max()), float((state - state_p).abs().max()))
+            max_err = max(max_err, err)
+            ms = cuda_ms(lambda: ssd_scan_cuda(*args), reps=20)
+            plain_ms = cuda_ms(lambda: ssd_scan_ref(*args), reps=20)
+            bound_ms, bound_by = ssd_bound_ms(x, G, N)
+            print(f"ssd {label} B={B} G={G} {str(dtype)[6:]}: max abs diff {err:.3g} (y from f32 plain "
+                  f"{err_y32:.3g}, state {err_s32:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            if label == main and dtype == torch.bfloat16:
+                record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": None}
+    record["max_abs_err"] = max_err
+    return record
 
 
 def main() -> int:
@@ -632,8 +742,21 @@ def main() -> int:
     phase_done(6, "attention kernels against their plain versions")
 
     # 7. qwen2.5-3b served at full width: the serving path ------------------------
-    serve_launches = serve_phase()
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    serve_launches = serve_phase("qwen2.5-3b", {"flash_attention": (flash_attention_cuda, "prefill"),
+                                                "decode_attention": (decode_attention_cuda, "tick")})
     phase_done(7, "qwen2.5-3b served at full width")
+
+    # 8. the SSD kernel against its plain version ------------------------------------
+    ssd = ssd_phase([len(p) for p in serve_prompts(get_model("mamba2-780m").config.vocab)])
+    phase_done(8, "SSD kernel against its plain version")
+
+    # 9. mamba2-780m served at full width: the ssm family's serving path -------------
+    serve_launches.update(serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill")}))
+    phase_done(9, "mamba2-780m served at full width")
 
     kernels = [{
         "name": "population_makespan",
@@ -659,6 +782,14 @@ def main() -> int:
             "launches": serve_launches[name],
             **attention[name],
         })
+    kernels.append({
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:96",
+        "launches": serve_launches["ssd_scan"],
+        **ssd,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Row loads and stores shared by the attention kernels: rows of float32 or
+// Row loads and stores shared by the kernels: rows of float32 or
 // bfloat16 read with 16-byte vector loads into float32 shared memory, and
 // float32 results stored as either type (bf16 rounded to nearest even).
 
@@ -28,19 +28,21 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* x, const __nv_bf
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// `rows` rows of D elements of src (row-major, each row starting on a
-// 16-byte boundary) into dst as f32 times `mul`, with row stride `stride`;
-// rows at or past `valid` are zero.  Every thread of the block takes part.
+// `rows` rows of D elements, row r at src + r * src_stride (each row starting
+// on a 16-byte boundary), into dst as f32 times `mul`, with row stride
+// `stride`; rows at or past `valid` are zero.  Every thread of the block
+// takes part.
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int rows, int D,
-                                          int valid, float mul) {
+__device__ __forceinline__ void load_rows_strided(float* dst, int stride, const T* src,
+                                                  size_t src_stride, int rows, int D, int valid,
+                                                  float mul) {
   constexpr int kVec = 16 / sizeof(T);
   const int per_row = D / kVec;
   for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
     const int r = i / per_row, c = (i % per_row) * kVec;
     float x[kVec];
     if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * src_stride + c);
       unpack(raw, x, src);
     } else {
 #pragma unroll
@@ -49,6 +51,13 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, 
 #pragma unroll
     for (int e = 0; e < kVec; ++e) dst[r * stride + c + e] = x[e] * mul;
   }
+}
+
+// The same for rows that follow each other in src (row stride D).
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int rows, int D,
+                                          int valid, float mul) {
+  load_rows_strided(dst, stride, src, static_cast<size_t>(D), rows, D, valid, mul);
 }
 
 }  // namespace

@@ -1,0 +1,208 @@
+"""Mamba2 SSD (state-space duality) scan.
+
+One function, ``(x [B, L, H, P], dt [B, L, H], A [H], B [B, L, G, N],
+C [B, L, G, N]) -> (y [B, L, H, P] in x's dtype, final state [B, H, P, N]
+f32)``, the recurrence
+
+    S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_tᵀ ;   y_t = S_t C_t
+
+from a zero state, with head ``h`` reading group ``h // (H // G)`` of B and
+C and all arithmetic in f32:
+
+* :func:`ssd_scan_ref` — the plain PyTorch version, the chunked (duality)
+  form of the reference's ``kernels/ref.py::ssd_scan_chunked_ref``, taken to
+  any L;
+* :func:`ssd_scan_cuda` — the wrapper of the hand-written Hopper kernel
+  ``csrc/ssd_scan.cu``, which replaces the reference's Pallas kernel
+  ``repro/kernels/ssd_scan.py::ssd_scan_pallas``.  It is the one place that
+  chooses an implementation, by the tensors' device alone: on CPU tensors it
+  runs the plain version, on CUDA tensors it launches the kernel or raises.
+  ``ssd_scan_cuda.launches`` counts its kernel launches;
+* :func:`ssd_scan_sequential` — the step-by-step recurrence, the reference's
+  ``ssd_scan_ref``, an oracle for the tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import check_alignment
+
+DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_CHUNK = 128  # the chunk the kernel is built for
+KERNEL_STATES = (64, 128)  # state widths N the kernel is built for
+KERNEL_P_TILE = 32  # head widths P must be multiples of it
+_MAX_GRID_YZ = 65535
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H] f32, > 0
+    A: torch.Tensor,  # [H] f32, < 0
+    B_mat: torch.Tensor,  # [B, L, G, N]
+    C_mat: torch.Tensor,  # [B, L, G, N]
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan in plain PyTorch: within a chunk of ``Q =
+    min(chunk, L)`` steps, ``y_i = sum_{j<=i} (C_i·B_j) exp(acs_i - acs_j)
+    dt_j x_j + exp(acs_i) C_i S`` with ``acs`` the in-chunk inclusive cumsum
+    of ``dt·A``; between chunks ``S <- exp(acs_Q) S + sum_j exp(acs_Q -
+    acs_j) dt_j x_j B_jᵀ``.
+
+    Any L: the tail chunk is padded with ``x = B = C = 0`` and ``dt = 0``.
+    A padded step then decays by ``exp(0·A) = 1`` and adds ``0``, so the
+    final state is exact, not approximate, and the padded rows of y are
+    dropped.  Returns ``(y [B, L, H, P] in x.dtype, final_state [B, H, P,
+    N] f32)``."""
+    Bsz, L, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    state = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    if L == 0:
+        return torch.empty_like(x), state
+    Q = min(chunk, L)
+    nC = -(-L // Q)
+    pad = nC * Q - L
+    rep = H // G
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:  # [B, L, ...] -> [nC, B, Q, ...] f32
+        t = t.float()
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nC, Q, *t.shape[2:]).transpose(0, 1)
+
+    xq = chunks(x)
+    dq = chunks(dt)
+    Bq = chunks(B_mat.repeat_interleave(rep, dim=2))
+    Cq = chunks(C_mat.repeat_interleave(rep, dim=2))
+    acs = torch.cumsum(dq * A.float(), dim=2)  # [nC, B, Q, H], inclusive
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[None, :, :, None]
+    ys = []
+    for c in range(nC):
+        a = acs[c]
+        seg = a[:, :, None, :] - a[:, None, :, :]  # [B, Qi, Qj, H]
+        decay = torch.where(tril, torch.exp(torch.where(tril, seg, 0.0)), 0.0)
+        m = torch.einsum("bihn,bjhn->bijh", Cq[c], Bq[c]) * decay
+        y_intra = torch.einsum("bijh,bjhp->bihp", m, xq[c] * dq[c][..., None])
+        y_inter = torch.einsum("bihn,bhpn->bihp", Cq[c], state) * torch.exp(a)[..., None]
+        a_tot = a[:, -1, :]  # [B, H]
+        w = torch.exp(a_tot[:, None, :] - a) * dq[c]  # [B, Q, H]
+        ds = torch.einsum("bjhp,bjhn->bhpn", xq[c], Bq[c] * w[..., None])
+        state = state * torch.exp(a_tot)[..., None, None] + ds
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bsz, nC * Q, H, P)[:, :L]
+    return y.to(x.dtype), state
+
+
+def ssd_scan_sequential(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch.Tensor, C_mat: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence one step at a time, in f32 (the reference's
+    ``ssd_scan_ref``): an oracle for the tests, slow at any real L."""
+    Bsz, L, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    rep = H // G
+    Bh = B_mat.repeat_interleave(rep, dim=2).float()
+    Ch = C_mat.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t] * Af[None, :])  # [B, H]
+        state = state * dA[..., None, None] + (
+            dtf[:, t, :, None, None] * xf[:, t, :, :, None] * Bh[:, t, :, None, :]
+        )
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(Bsz, 0, H, P)
+    return y.to(x.dtype), state
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its C signature declared."""
+    lib = _build.load("ssd_scan")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.ssd_scan.restype = i32
+    return lib
+
+
+def check_ssd_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch.Tensor,
+                   C_mat: torch.Tensor) -> None:
+    """Raise unless all five are contiguous tensors on one CPU or CUDA
+    device; x, B and C of one dtype, f32 or bf16; dt and A f32; x ``[B, L,
+    H, P]``, dt ``[B, L, H]``, A ``[H]``, B and C alike ``[B, L, G, N]``
+    with ``H % G == 0``."""
+    device = x.device
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the SSD scan takes CUDA or CPU tensors, got {device}")
+    for name, t, dtype in (("x", x, x.dtype), ("dt", dt, torch.float32), ("A", A, torch.float32),
+                           ("B", B_mat, x.dtype), ("C", C_mat, x.dtype)):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: need {dtype} on {device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"x, B and C must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or B_mat.dim() != 4 or C_mat.shape != B_mat.shape:
+        raise ValueError(f"need x [B, L, H, P] and B, C alike [B, L, G, N], got "
+                         f"{tuple(x.shape)}, {tuple(B_mat.shape)}, {tuple(C_mat.shape)}")
+    Bsz, L, H, _ = x.shape
+    G = B_mat.shape[2]
+    if tuple(B_mat.shape[:2]) != (Bsz, L) or tuple(dt.shape) != (Bsz, L, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)} and "
+                         f"B {tuple(B_mat.shape)} disagree on batch, length or heads")
+    if G == 0 or H % G:
+        raise ValueError(f"{H} heads are not a multiple of {G} groups")
+
+
+def ssd_scan_cuda(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H] f32
+    A: torch.Tensor,  # [H] f32
+    B_mat: torch.Tensor,  # [B, L, G, N]
+    C_mat: torch.Tensor,  # [B, L, G, N]
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel ``csrc/ssd_scan.cu`` on PyTorch's current stream, or,
+    for tensors on the CPU, :func:`ssd_scan_ref`.  Returns ``(y [B, L, H, P]
+    in x.dtype, final_state [B, H, P, N] f32)``.
+
+    Checks its arguments (:func:`check_ssd_args`) on the CPU as on the card;
+    on the card it also raises on a chunk other than 128, a state width N
+    other than 64 or 128, a head width P that is not a multiple of 32, and
+    grids beyond the launch limits."""
+    check_ssd_args(x, dt, A, B_mat, C_mat)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
+    Bsz, L, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    if chunk != KERNEL_CHUNK:
+        raise ValueError(f"the SSD kernel is built for chunk {KERNEL_CHUNK}, not {chunk}")
+    if N not in KERNEL_STATES or P % KERNEL_P_TILE:
+        raise ValueError(f"the SSD kernel takes N in {KERNEL_STATES} and P a multiple of "
+                         f"{KERNEL_P_TILE}, not N={N}, P={P}")
+    if Bsz > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"batch {Bsz} or heads {H} exceed the kernel grid's {_MAX_GRID_YZ}")
+    lib = _library()
+    check_alignment(x, B_mat, C_mat)
+    y = torch.empty_like(x)
+    state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    if state.numel() == 0:
+        return y, state
+    err = lib.ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
+        y.data_ptr(), state.data_ptr(), Bsz, L, H, G, P, N, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "ssd_scan launch")
+    ssd_scan_cuda.launches += 1
+    return y, state
+
+
+ssd_scan_cuda.launches = 0

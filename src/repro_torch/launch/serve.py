@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --device cpu
 
 Runs on the card unless ``--device cpu`` asks for the CPU.
 """

@@ -1,11 +1,14 @@
 """The reference's parameters as the port's modules.
 
-The reference keeps a dense transformer's parameters as a pytree:
-``{"embed": {"tok", "unembed"?}, "blocks": (one dict per window slot, each
-leaf with a leading layer-group axis), "ln_final": {"scale"}}``.  The port's
-modules name their parameters by the same keys, and
-:class:`~repro_torch.models.transformer.Transformer` gives the group as a
-module index: ``blocks.<slot>.<group>.<path>``.
+The reference keeps a model's parameters as a pytree, ``{"embed": {"tok",
+"unembed"?}, "blocks": ..., "ln_final": {"scale"}}``, with the layers
+stacked on a leading axis of each leaf: for a dense transformer ``blocks``
+is one dict per window slot, each leaf with a leading layer-group axis; for
+the ssm family it is one dict ``{"ln", "mamba"}`` with a leading layer axis.
+The port's modules name their parameters by the same keys and give the
+stacked axis as a module index: ``blocks.<slot>.<group>.<path>``
+(:class:`~repro_torch.models.transformer.Transformer`) or
+``blocks.<layer>.<path>`` (:class:`~repro_torch.models.ssm.Mamba2LM`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
 
 
@@ -32,26 +36,38 @@ def flatten(tree: Mapping, prefix: str = "") -> Iterator[tuple[str, object]]:
 def load_arrays(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy the leaves of ``tree`` (numpy arrays, or anything ``np.asarray``
     takes, in f32 or bf16) into the parameters of ``module`` that carry
-    their key paths, cast to each parameter's dtype and device.  Raises if a
-    key is missing or left over, or a shape differs."""
-    ref = next(module.parameters())
-    module.load_state_dict(
-        {k: torch.from_numpy(np.asarray(v).astype(np.float32)).to(device=ref.device, dtype=ref.dtype)
-         for k, v in flatten(tree)},
-        strict=True,
-    )
+    their key paths, each cast to the dtype and device of its own parameter
+    (a bf16 model keeps its f32 parameters f32).  Raises if a key is missing
+    or left over, or a shape differs."""
+    params = dict(module.named_parameters())
+
+    def leaf(key: str, value) -> torch.Tensor:
+        t = torch.from_numpy(np.asarray(value).astype(np.float32))
+        p = params.get(key)  # a key left over is load_state_dict's to refuse
+        return t if p is None else t.to(device=p.device, dtype=p.dtype)
+
+    module.load_state_dict({k: leaf(k, v) for k, v in flatten(tree)}, strict=True)
     return module
 
 
+def _unstack(stack: Mapping) -> dict:
+    """A pytree whose leaves share a leading axis -> ``{"<i>": the i-th
+    slice of every leaf}``."""
+    leaves = dict(flatten(stack))
+    n = len(next(iter(leaves.values())))
+    return {str(i): {k: np.asarray(v)[i] for k, v in leaves.items()} for i in range(n)}
+
+
 def params_from_arrays(tree: Mapping, cfg: ModelConfig,
-                       device: torch.device | str = "cuda") -> Transformer:
+                       device: torch.device | str = "cuda") -> Transformer | Mamba2LM:
     """The port's parameters holding the values of the reference pytree
-    ``tree``, in ``cfg.dtype`` on ``device``."""
-    flat = {"embed": tree["embed"], "ln_final": tree["ln_final"], "blocks": {}}
-    for slot, stack in enumerate(tree["blocks"]):
-        n_groups = len(next(iter(dict(flatten(stack)).values())))
-        flat["blocks"][str(slot)] = {
-            str(grp): {k: np.asarray(v)[grp] for k, v in flatten(stack)} for grp in range(n_groups)
-        }
-    params = Transformer(cfg, torch.device("meta")).to_empty(device=device)
-    return load_arrays(params, flat)
+    ``tree`` of a dense or ssm model, in ``cfg.dtype`` on ``device`` (f32
+    where the model keeps a parameter in f32)."""
+    flat = {"embed": tree["embed"], "ln_final": tree["ln_final"]}
+    if cfg.family == "ssm":
+        flat["blocks"] = _unstack(tree["blocks"])
+        params = Mamba2LM(cfg, torch.device("meta"))
+    else:
+        flat["blocks"] = {str(slot): _unstack(stack) for slot, stack in enumerate(tree["blocks"])}
+        params = Transformer(cfg, torch.device("meta"))
+    return load_arrays(params.to_empty(device=device), flat)

@@ -44,16 +44,26 @@ def truncated_normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
     return (x * scale).to(device=device, dtype=dtype)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that takes no gradient (the port serves; it does not train)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def init_modules(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``module`` from ``generator``, each submodule
+    by its own ``init_``, in the order of ``module.modules()``."""
+    for m in module.modules():
+        if hasattr(m, "init_"):
+            m.init_(generator)
+    return module
 
 
 class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, *, bias: bool, dtype: torch.dtype,
                  device: torch.device | str):
         super().__init__()
-        self.w = _param(torch.empty(d_in, d_out, dtype=dtype, device=device))
-        self.b = _param(torch.empty(d_out, dtype=dtype, device=device)) if bias else None
+        self.w = param(torch.empty(d_in, d_out, dtype=dtype, device=device))
+        self.b = param(torch.empty(d_out, dtype=dtype, device=device)) if bias else None
 
     def init_(self, generator: torch.Generator) -> None:
         self.w.copy_(truncated_normal(tuple(self.w.shape), self.w.shape[0] ** -0.5,
@@ -65,7 +75,7 @@ class Linear(nn.Module):
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, dtype: torch.dtype, device: torch.device | str):
         super().__init__()
-        self.scale = _param(torch.empty(d, dtype=dtype, device=device))  # (1 + scale)
+        self.scale = param(torch.empty(d, dtype=dtype, device=device))  # (1 + scale)
 
     def init_(self, generator: torch.Generator) -> None:
         self.scale.zero_()
@@ -99,9 +109,9 @@ class MLP(nn.Module):
 class Embed(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype, device: torch.device | str):
         super().__init__()
-        self.tok = _param(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
+        self.tok = param(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
         self.unembed = (None if cfg.tie_embeddings else
-                        _param(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype, device=device)))
+                        param(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype, device=device)))
 
     def init_(self, generator: torch.Generator) -> None:
         self.tok.copy_(truncated_normal(tuple(self.tok.shape), 0.02, self.tok.dtype, generator,

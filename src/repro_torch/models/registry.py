@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the serving CLI.
 
 Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
-on the CPU, and its family module.  The port has the dense family; the
-reference's other architectures raise :class:`KeyError` naming the ROADMAP
-item that ports them.  The reference's dry-run specs (``batch_specs``,
+on the CPU, and its family module.  The port has the dense and ssm
+families; the reference's other architectures raise :class:`KeyError`
+naming the ROADMAP item that ports them.  The reference's dry-run specs (``batch_specs``,
 ``param_specs``, ``cache_specs``) belong to ``launch/dryrun``, not ported
 yet.
 """
@@ -22,6 +22,7 @@ ARCH_MODULES: dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
@@ -29,15 +30,18 @@ ALL_ARCHS = tuple(ARCH_MODULES)
 # the reference's other architectures, and where ROADMAP ports them
 NOT_PORTED: dict[str, str] = {
     "deepseek-67b": "Queue A item 8 (dense, but 134 GB in bf16: needs the sharded path)",
-    "mamba2-780m": "Queue B item 3 (the SSD scan) with the ssm family",
-    "zamba2-7b": "Queue B item 3 (the SSD scan) with the hybrid family",
+    "zamba2-7b": ("Queue A item 8 (the hybrid family; its shared attention's head width 112 "
+                  "is not one the flash and decode kernels are built for)"),
     "qwen3-moe-30b-a3b": "Queue A item 8 (the MoE family)",
     "mixtral-8x7b": "Queue A item 8 (the MoE family)",
     "whisper-base": "Queue A item 8 (the encdec family)",
     "internvl2-76b": "Queue A item 8 (the vlm family)",
 }
 
-_FAMILY_MODULES = {"dense": "repro_torch.models.transformer"}
+_FAMILY_MODULES = {
+    "dense": "repro_torch.models.transformer",
+    "ssm": "repro_torch.models.ssm",
+}
 
 
 @dataclasses.dataclass(frozen=True)

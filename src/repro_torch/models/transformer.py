@@ -82,11 +82,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``d_model ** -0.5`` for an untied unembedding), zero biases and norm
     scales.  Drawn from ``generator`` on its own device, then moved to
     ``device``: the same generator state gives the same weights anywhere."""
-    params = Transformer(cfg, torch.device("meta")).to_empty(device=device)
-    for m in params.modules():
-        if hasattr(m, "init_"):
-            m.init_(generator)
-    return params
+    return L.init_modules(Transformer(cfg, torch.device("meta")).to_empty(device=device), generator)
 
 
 def _layers(params: Transformer, cfg: ModelConfig) -> Iterator[tuple[int, int, int | None, Block]]:

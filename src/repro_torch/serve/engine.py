@@ -2,11 +2,12 @@
 prefill and decode steps.
 
 Ported from the reference's ``repro/serve/engine.py``.  The engine owns
-``max_slots`` sequence slots backed by one shared KV cache.  A request is
-admitted when a slot frees: its prompt is prefilled at batch 1 and merged
-into the slot's row of the cache; then every slot decodes in lockstep, one
-token per tick, at one shared position ``max(slot_pos)``, as the reference
-does.
+``max_slots`` sequence slots backed by one shared cache (the family's: KV
+caches, or recurrent states).  A request is admitted when a slot frees: its
+prompt is prefilled at batch 1 and every entry of its cache but the
+position is merged into the slot's row; then every slot decodes in
+lockstep, one token per tick, at one shared position ``max(slot_pos)``, as
+the reference does.
 """
 
 from __future__ import annotations
@@ -95,7 +96,9 @@ class ServeEngine:
         logits, tmp_cache = self.api.prefill(self.params, toks, tmp_cache, self.cfg)
         req.output.append(int(torch.argmax(logits[0])))
         req.first_token_at = time.perf_counter()
-        merge_slot(self.cache["kv"], tmp_cache["kv"], slot, self.ecfg.max_slots)
+        states = [k for k in self.cache if k != "pos"]  # the family's caches: kv, or layers
+        merge_slot({k: self.cache[k] for k in states}, {k: tmp_cache[k] for k in states}, slot,
+                   self.ecfg.max_slots)
         self.slot_req[slot] = req
         self.slot_pos[slot] = len(req.prompt)
         self.slot_remaining[slot] = req.max_new_tokens - 1

@@ -233,7 +233,7 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     fake.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert _build.sources() == ["decode_attention", "flash_attention", "makespan"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "makespan", "ssd_scan"]
     with pytest.raises(_build.KernelBuildError, match="refused"):
         _build.build()
     assert not list((tmp_path / "build").glob("*.so"))
