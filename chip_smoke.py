@@ -5,9 +5,13 @@
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
-1. build every kernel under src/repro_torch/kernels/csrc with nvcc (sm_90a);
+1. build every kernel under src/repro_torch/kernels/csrc with nvcc (sm_90a),
+   print each kernel instance's registers, static shared memory and spills
+   from ``-Xptxas -v``, require no spills in the attention kernels and
+   ``HGMMA`` (wgmma) instructions in the flash kernel's SASS;
 2. hold each kernel against its plain PyTorch version on the card, exactly,
-   at the shapes the main path gives it, and time both with CUDA events;
+   at the shapes the main path gives it, and time both (device time per
+   call, ``cuda_ms``);
 3. the Table IX GA: ``ga`` on a 500-node x 500-task problem at the ``ga()``
    defaults (population 64, 60 generations), engine ``auto`` on ``cuda``;
    every generation's fitness must go through the kernel, the schedule must
@@ -22,7 +26,8 @@ result line:
    the card, at the shapes the serving path gives them (qwen2.5-3b prefill
    at the engine's prompt lengths, a chunked prefill, gemma2-2b's head width
    256 with its window and softcap, decode at the serving run's lockstep
-   length and with mixed lengths), in bf16 and f32, timed beside their
+   length, with mixed lengths and at one slot of 2048 keys), in bf16 and
+   f32, each kernel's dynamic shared memory printed, timed beside their
    plain versions and one PyTorch call that computes the same function
    (``scaled_dot_product_attention``);
 7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
@@ -50,6 +55,7 @@ CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -78,8 +84,39 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the current stream, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 5) -> float:
+    """Device milliseconds per ``fn()``: the median over ``rounds`` of
+    ``reps`` calls enqueued back to back behind a spin kernel that keeps the
+    device busy while the host enqueues them, timed with CUDA events and
+    divided by ``reps``.  So the host's own time per call (Python, checks,
+    launches) is not counted, unless ``fn`` waits for the device itself or
+    takes so long on the host that the spin (at most a quarter second) ends
+    first: then its host gaps count, as before."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # one call's enqueueing, at least
+    torch.cuda.synchronize()
+    spin_cycles = int(min(0.25, 2 * reps * host_s + 1e-3) * 2e9)  # SM clocks stay under 2 GHz
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of one ``fn()`` alone on an idle stream, by CUDA
+    events around it: the device time plus whatever host time the device
+    waits for (how every kernel was timed before ``cuda_ms``)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -154,6 +191,48 @@ def makespan_bound_ms(A: torch.Tensor, kw: dict) -> tuple[float, str, int, int]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations", nbytes, ops
 
 
+def ptxas_resources(log: str) -> list[dict]:
+    """Each kernel instance in a build's ``-Xptxas -v`` report: its
+    (demangled) name, registers, static shared memory, stack frame and
+    spill bytes."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"kernel": m.group(1), "registers": None, "static_smem": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[-1]["static_smem"] = int(m[1])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in out), check=True,
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, name in zip(out, names):
+            r["kernel"] = re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", name)
+    except (FileNotFoundError, subprocess.CalledProcessError):
+        pass  # mangled names
+    return out
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many ``opcode`` instructions the library's SASS holds, by
+    ``cuobjdump -sass`` from the toolkit of the build's nvcc."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
+
+
 def device_time_breakdown(run, classify=None) -> dict:
     """Run ``run()`` under ``torch.profiler`` and split its wall time into
     the device's kernel time, by kernel name (and by ``classify(name)``
@@ -218,6 +297,8 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     is the f32 result rounded once to nearest."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_ref
     from repro_torch.kernels.flash_attention import (
         attention_mask,
@@ -255,6 +336,13 @@ def attention_phase(prompt_lens: list[int]) -> dict:
          {"window": 4096, "softcap": 50.0}),
     ]
     main_flash = f"qwen prefill S={max(prompt_lens)}"
+    flash_lib, decode_lib = flash_mod._library(), decode_mod._library()
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("dynamic shared memory per block: " + ", ".join(
+        [f"flash {t} D={D} {flash_lib.flash_attention_smem(D, int(t == 'bf16'))} B"
+         for t in ("bf16", "f32") for D in (64, 128, 256)]
+        + [f"decode {t} G={G} D={D} {decode_lib.decode_attention_smem(G, D, int(t == 'bf16'))} B"
+           for t in ("bf16", "f32") for G, D in ((8, 128), (2, 256))]), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases:
             q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
@@ -262,6 +350,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                                  flash_attention_ref(q, k, v, **kw),
                                  flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
             ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
+            one_call_ms = call_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
             plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3, warmup=1)
             mask = attention_mask(Sq, Skv, causal=True, window=kw.get("window"), device=dev)
             library_ms = None
@@ -275,12 +364,29 @@ def attention_phase(prompt_lens: list[int]) -> dict:
             kv_rows = B * Hkv * int(mask.any(dim=0).sum())
             bound_ms, bound_by = attention_bound_ms(q, k, pairs, kv_rows)
             print(f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain "
-                  f"{err32:.3g}); kernel {ms:.4f} ms, "
+                  f"{err32:.3g}); kernel {ms:.4f} ms (one call with its host work {one_call_ms:.4f} ms), "
                   f"plain {plain_ms:.4f} ms, sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
                   f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
             if label == main_flash and dtype == torch.bfloat16:
-                records["flash_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                              "bound_by": bound_by, "library_ms": library_ms}
+                records["flash_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
+                                              "bound_ms": bound_ms, "bound_by": bound_by,
+                                              "library_ms": library_ms}
+
+    # the masks' and shapes' edges, held as above and not timed
+    flash_edges = [
+        ("ragged S=37 D=64 B=2", 2, 4, 2, 37, 37, 64, {}),
+        ("not causal S=77", 1, 4, 2, 77, 77, 64, {"causal": False}),
+        ("rows that see nothing Sq=100 Skv=40", 1, 4, 2, 100, 40, 128, {}),
+        ("window 16 softcap 30 S=300 D=256", 1, 4, 2, 300, 300, 256, {"window": 16, "softcap": 30.0}),
+        ("one row Sq=1 Skv=1000", 1, 16, 2, 1, 1000, 128, {}),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, Sq, Skv, D, kw in flash_edges:
+            q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
+            err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
+                                 flash_attention_ref(q, k, v, **kw),
+                                 flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
+            print(f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain {err32:.3g})", flush=True)
 
     # (label, B, H, Hkv, S, D, lengths, softcap); the engine decodes its slots
     # in lockstep, so the serving run's first tick has every length at the
@@ -290,6 +396,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     decode_cases = [
         (main_decode, 4, 16, 2, 2048, 128, [lockstep] * 4, None),
         ("qwen decode 4 slots mixed, cache 2048", 4, 16, 2, 2048, 128, [1, 517, 1024, 2048], None),
+        ("qwen decode 1 slot, 2048 keys", 1, 16, 2, 2048, 128, [2048], None),
         ("gemma2 decode, cache 4096, softcap 50", 4, 8, 4, 4096, 256, [4096, 1, 2000, 3000], 50.0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
@@ -301,6 +408,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                                  decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap),
                                  dtype)
             ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=softcap), reps=50)
+            one_call_ms = call_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=softcap), reps=50)
             plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, softcap=softcap), reps=10)
             library_ms = None
             if softcap is None:
@@ -308,13 +416,30 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], k, v, attn_mask=valid, enable_gqa=True), reps=50)
             bound_ms, bound_by = attention_bound_ms(q, k, H * sum(lens), Hkv * sum(lens))
-            print(f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain "
-                  f"{err32:.3g}); kernel {ms:.4f} ms, "
+            splits, chunk = decode_mod.decode_split_plan(B, Hkv, S, sm_count)
+            print(f"decode {label} lengths {lens} (splits {splits} of {chunk} keys) {str(dtype)[6:]}: "
+                  f"max abs diff {err:.3g} (from f32 plain "
+                  f"{err32:.3g}); kernel {ms:.4f} ms (one call with its host work {one_call_ms:.4f} ms), "
                   f"plain {plain_ms:.4f} ms, sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
                   f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
             if label == main_decode and dtype == torch.bfloat16:
-                records["decode_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                               "bound_by": bound_by, "library_ms": library_ms}
+                records["decode_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
+                                               "bound_ms": bound_ms, "bound_by": bound_by,
+                                               "library_ms": library_ms}
+    decode_edges = [
+        ("lengths 0 to S, softcap 30, D=64", 6, 16, 4, 2048, 64, [0, 1, 63, 64, 65, 2000], 30.0),
+        ("cache of 100, D=256", 3, 8, 4, 100, 256, [100, 37, 0], None),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, S, D, lens, softcap in decode_edges:
+            q, k, v = normal((B, H, D), dtype), normal((B, Hkv, S, D), dtype), normal((B, Hkv, S, D), dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err, err32 = compare("decode_attention", label, decode_attention_cuda(q, k, v, lengths, softcap=softcap),
+                                 decode_attention_ref(q, k, v, lengths, softcap=softcap),
+                                 decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap),
+                                 dtype)
+            print(f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} "
+                  f"(from f32 plain {err32:.3g})", flush=True)
     for name in records:
         records[name]["max_abs_err"] = max_err[name]
     return records
@@ -606,10 +731,19 @@ def main() -> int:
     seconds = _build.build()
     print(f"build: {sorted(seconds)} in {time.perf_counter() - t0:.2f} s "
           f"(per source: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})", flush=True)
-    for name in seconds:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+    resources = {name: ptxas_resources(_build.build_log(name)) for name in seconds}
+    for name, rows in resources.items():
+        for r in rows:
+            print(f"  ptxas[{name}] {r['kernel']}: {r['registers']} registers, {r['static_smem']} B static "
+                  f"shared memory, {r.get('stack')} B stack, {r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads")
+    print(json.dumps({"ptxas": resources}), flush=True)
+    for name in ("flash_attention", "decode_attention"):
+        for r in resources[name]:
+            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"{r['kernel']}: no register spills")
+    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
+    print(f"sass: flash_attention holds {hgmma} HGMMA (wgmma) instructions", flush=True)
+    check(hgmma > 0, "the bf16 flash kernel runs its products on wgmma")
     phase_done(1, "build")
 
     # 2. kernel against plain version -----------------------------------------

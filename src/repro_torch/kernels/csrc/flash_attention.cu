@@ -3,47 +3,81 @@
 //
 // Replaces the TPU kernel flash_attention_pallas (_flash_kernel) in
 // src/repro/kernels/flash_attention.py.  Its plain PyTorch version is
-// flash_attention_ref in src/repro_torch/kernels/flash_attention.py; the two
-// agree to f32 rounding (the sums run in another order).
+// flash_attention_ref in src/repro_torch/kernels/flash_attention.py.
 //
 // What it computes, for q [B, H, Sq, D] and k, v [B, Hkv, Skv, D]: query row
 // r sits at kv position r + (Skv - Sq); it sees column c when c <= r + off
 // (causal) and c > r + off - window (window); logits are q.k / sqrt(D), then
 // softcap * tanh(s / softcap); the running max, sum and accumulator are f32;
 // a row that sees nothing (l == 0) gives zeros.  Unlike the TPU kernel it
-// takes any Sq and Skv: the ragged last tiles are masked here.
+// takes any Sq and Skv.  Fully masked kv tiles are skipped, as the TPU
+// kernel's pl.when does.
 //
 // What bounds it on an H100.  The function needs 4 * D operations per
-// visible (query, key) pair and each head, and reads q, k, v once and writes
-// o once.  At a prefill of qwen2.5-3b (H 16, Hkv 2, D 128) the operations at
-// the bf16 tensor-core rate outweigh the bytes from about 600 tokens up, so
-// the bound is operations.  This first kernel runs its products on the f32
-// CUDA cores (67 TFLOP/s peak, a fifteenth of the tensor cores' bf16 rate),
-// so it stays well above the bound; wgmma tiles fed by TMA are later work.
+// visible (query, key) pair and head, and reads q, k, v once and writes o
+// once.  At a prefill of qwen2.5-3b (H 16, Hkv 2, D 128) the operations at
+// the bf16 tensor-core rate (989 TFLOP/s) outweigh the bytes from about 600
+// tokens up, so the bound is operations, and only the tensor cores can
+// approach it: the f32 CUDA cores peak at 67 TFLOP/s.
 //
-// What the design does about it.  One block of 128 threads per (query tile,
-// head, batch): the TPU's sequential kv grid axis becomes a loop inside the
-// block, over only the kv tiles that the causal and window masks leave
-// visible (fully masked tiles are skipped, as the TPU kernel's pl.when
-// does).  The query tile is loaded once, scaled, into shared memory as f32;
-// each kv tile is loaded with 16-byte vector loads and converted to f32.
-// Threads form 16 row groups of 8 lanes: each thread owns RM rows, BK/8
-// score columns and D/8 output columns, so a row's max and sum are three
-// shuffles inside one warp and the probabilities only need a warp barrier.
-// The f32 accumulator stays in registers (64 per thread at D 128 and 256);
-// D 256 halves the tile height to fit them.  Rows of q and k in shared
-// memory are padded by one float so the lanes of a warp hit distinct banks.
+// bfloat16: wgmma fed by TMA (flash_attention_kernel_bf16_wgmma).  A block
+// is one consumer warpgroup, which owns 64 query rows, and one producer
+// warp.  At D 64 and 128 two blocks share an SM, so one block's softmax
+// overlaps the other's products; at D 256 the O accumulator (128 registers
+// a thread) leaves room for one.  The producer loads the query tile once
+// and then each visible 64-key tile of k and v with TMA
+// (cp.async.bulk.tensor, 128-byte swizzle) into a ring of two stages,
+// signalled by mbarriers, so the next tile's loads overlap the current
+// tile's products.  The tensor maps are built over the 3-D views
+// [B*H, Sq, D] and [B*Hkv, Skv, D]: rows past Sq or Skv arrive as zeros and
+// never as the next head's rows.  The consumer computes
+// S = Q K^T with wgmma m64n64k16 (q and k are both K-major, D contiguous),
+// D/16 steps, each 128-byte box of a row reached through the descriptor's
+// start address.  The f32 S fragment holds, per thread, two rows' values at
+// the columns of the next product's register A fragment, so a row's max and
+// sum are two shuffles across a quad, and P goes to O += P V straight from
+// registers; V [keys, D] is the MN-major B operand (wgmma's transpose bit).
+// O stays in f32 registers, 32 per thread for each 64 columns of D.  Tiles
+// wholly inside the visible band skip the per-element mask.  Blocks start
+// with the last query tiles, which under the causal mask see the most keys.
+//
+// Precision.  chip_smoke.py holds a bf16 output within 2e-5 + 2^-8 |y| of
+// the plain version run in f32, and rounding the output to bf16 alone takes
+// up to 2^-8 |y|, so the f32 result before that rounding has to agree to
+// about 2e-5.  Products of bf16 values are exact in the f32 accumulator, so
+// q is not pre-scaled in bf16 (1/sqrt(128) is no power of two): the f32
+// logits are scaled after the product, which differs from the plain
+// version's (q * scale) . k by f32 rounding only.  P is not rounded to bf16
+// alone (2^-9 relative per element, the order of the bound): it is split as
+// p_hi = bf16(p), p_lo = bf16(p - p_hi), and O += p_hi V + p_lo V holds p to
+// about 2^-17, at 1.5 times the products of a single-P kernel, still on the
+// tensor cores.  Max, sum and accumulator stay f32; expf with no fast math.
+//
+// float32: the CUDA-core kernel (flash_attention_kernel), unchanged.  TF32
+// tensor cores keep about 10 bits and cannot meet the f32 bound of 2e-5.  One
+// block of 128 threads per (query tile, head, batch) loops over the visible
+// kv tiles; tiles are loaded with 16-byte vector loads into f32 shared memory
+// (rows padded by one float); threads form 16 row groups of 8 lanes, so a
+// row's max and sum are three shuffles inside one warp; the accumulator
+// stays in registers, and D 256 halves the tile height to fit it.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 #include "rows.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 128;  // 16 row groups x 8 lanes
 
 template <int D>
@@ -197,36 +231,415 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                   int Sq, int Skv, int causal, int window, float softcap, cudaStream_t stream) {
-  using C = Tile<D>;
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;              // query rows per block: one warpgroup's wgmma M
+constexpr int kBK = 64;              // keys per tile
+constexpr int kStages = 2;           // k/v tiles in flight
+constexpr int kBox = 64;             // bf16 columns per 128-byte TMA box
+constexpr int kTcThreads = 128 + 32;  // the consumer warpgroup, then the producer warp
+
+template <int D>
+struct TcTile {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;  // one k or v tile
+  // [q][k0][v0][k1][v1] from a 1024-byte boundary (the swizzle's period),
+  // then the mbarriers
+  static constexpr int kBars = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t smem = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the phase of the given parity has completed.  A wait that
+// lasts 2^32 cycles (about 2 s) traps, so a fault in the pipeline ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > (1ll << 32))
+      __trap();
+  }
+}
+
+// One box [64 columns of D][64 rows][1 plane] of a 3-D tensor map into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (both the 1024-byte span of 8 rows here:
+// each instruction touches one 64-column swizzle atom), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t k8Rows = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (k8Rows << 16) | (k8Rows << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products' issue and wait.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32(d)                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define WG_REGS32                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, both
+// K-major; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B from shared
+// memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_attention_kernel_bf16_wgmma(
+    const __grid_constant__ CUtensorMap q_map,  // [B*H, Sq, D]
+    const __grid_constant__ CUtensorMap k_map,  // [B*Hkv, Skv, D]
+    const __grid_constant__ CUtensorMap v_map,  // [B*Hkv, Skv, D]
+    __nv_bfloat16* __restrict__ o,              // [B, H, Sq, D]
+    int H, int Hkv, int Sq, int Skv, int causal, int window, float softcap, float scale) {
+  using C = TcTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  auto sk = [&](int s) { return base + C::kQBytes + 2u * s * C::kKVBytes; };
+  auto sv = [&](int s) { return sk(s) + C::kKVBytes; };
+  const uint32_t q_full = base + C::kBars;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + kStages + s); };
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // the longest rows first
+  const int off = Skv - Sq;  // kv position of query row 0
+
+  // the kv columns any real row of this tile can see
+  const int row_first = q0 + off;
+  const int row_last = min(q0 + kBQ, Sq) - 1 + off;
+  const int col_begin = window > 0 ? max(0, row_first - window + 1) : 0;
+  const int col_end = causal ? min(Skv, row_last + 1) : Skv;
+  const int kt_begin = col_begin / kBK;
+  const int n_tiles = col_end > col_begin ? (col_end + kBK - 1) / kBK - kt_begin : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: one lane issues every load
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_load(sq + x * kBQ * 128, &q_map, q_full, x * kBox, q0, b * H + h);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * C::kKVBytes);
+        const int c0 = (kt_begin + it) * kBK;
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(sk(s) + x * kBK * 128, &k_map, full(s), x * kBox, c0, b * Hkv + hk);
+          tma_load(sv(s) + x * kBK * 128, &v_map, full(s), x * kBox, c0, b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t holds rows r and r + 8 of the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = 16 * warp + lane / 4;
+  const int quad = 2 * (lane % 4);  // first of this thread's two columns in each 8
+  const int pos0 = q0 + r + off, pos1 = pos0 + 8;
+
+  float acc[C::kBoxes][32];
+#pragma unroll
+  for (int x = 0; x < C::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int c0 = (kt_begin + it) * kBK;
+    mbar_wait(full(s), (it / kStages) & 1);
+
+    // S = Q K^T over D / 16 steps
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32u;  // 16 columns into the 128-byte box
+      wgmma_ss(sc, smem_desc(sq + (kk / 4) * kBQ * 128 + step),
+               smem_desc(sk(s) + (kk / 4) * kBK * 128 + step), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // scale after the product, softcap, then the mask where the tile needs it
+    const bool inside = c0 + kBK <= Skv && (!causal || c0 + kBK - 1 <= row_first) &&
+                        (window <= 0 || c0 > row_last - window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = sc[i] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      if (!inside) {
+        const int col = c0 + 8 * (i / 4) + quad + (i & 1);
+        const int pos = (i & 2) ? pos1 : pos0;
+        bool ok = col < Skv;
+        if (causal) ok = ok && col <= pos;
+        if (window > 0) ok = ok && col > pos - window;
+        if (!ok) x = -INFINITY;
+      }
+      sc[i] = x;
+      if (i & 2)
+        mx1 = fmaxf(mx1, x);
+      else
+        mx0 = fmaxf(mx0, x);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: m starts at kNeg
+    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p = exp(s - m) (0 where masked), its row sums, and P as two bf16
+    // register fragments: p_hi + p_lo
+    float ps0 = 0.f, ps1 = 0.f;
+    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float a = expf(sc[i] - ((i & 2) ? mn1 : mn0));
+      const float c = expf(sc[i + 1] - ((i & 2) ? mn1 : mn0));
+      if (i & 2)
+        ps1 += a + c;
+      else
+        ps0 += a + c;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[i / 8][(i % 8) / 2] = bf16x2_bits(hi);
+      p_lo[i / 8][(i % 8) / 2] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
+    }
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+    l0 = corr0 * l0 + ps0;
+    l1 = corr1 * l1 + ps1;
+
+    // O = corr O + p_hi V + p_lo V, 64 columns of D at a time
+#pragma unroll
+    for (int x = 0; x < C::kBoxes; ++x) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[x][i] *= (i & 2) ? corr1 : corr0;
+      fence_regs(acc[x]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < C::kBoxes; ++x) {
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        const uint64_t vd = smem_desc(sv(s) + x * kBK * 128 + kc * 16 * 128);
+        wgmma_rs(acc[x], p_hi[kc], vd);
+        wgmma_rs(acc[x], p_lo[kc], vd);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int x = 0; x < C::kBoxes; ++x) fence_regs(acc[x]);
+    mbar_arrive(empty(s));  // this thread's products have read the stage
+  }
+
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const int row0 = q0 + r, row1 = row0 + 8;
+#pragma unroll
+  for (int x = 0; x < C::kBoxes; ++x) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = (i & 2) ? row1 : row0;
+      const float inv = (i & 2) ? inv1 : inv0;
+      if (row < Sq) {
+        const int col = x * kBox + 8 * (i / 4) + quad;
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(row) * D + col) =
+            __floats2bfloat162_rn(acc[x][i] * inv, acc[x][i + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
+// query, so the library needs no -lcuda.  Null where CUDA lacks it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                    : nullptr;
+  }();
+  return fn;
+}
+
+// A map of the bf16 tensor [planes, rows, D] in boxes of 64 rows x 64
+// columns, 128-byte swizzled; rows past the end read as zeros.
+bool bf16_map(CUtensorMap* map, const void* base, int D, int rows, int planes) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {kBox, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Hkv, int Sq, int Skv, int causal, int window, float softcap,
+                        cudaStream_t stream) {
+  using C = TcTile<D>;
+  if (Skv == 0)  // no row sees a key
+    return cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Sq * D * 2, stream);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!bf16_map(&qm, q, D, Sq, B * H) || !bf16_map(&km, k, D, Skv, B * Hkv) ||
+      !bf16_map(&vm, v, D, Skv, B * Hkv))
+    return cudaErrorInvalidValue;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::smem));
+  const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel_bf16_wgmma<D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(C::smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, C::smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, Sq, Skv, causal, window, softcap, scale);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_attention_kernel_bf16_wgmma<D><<<grid, kTcThreads, C::smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Skv, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int Hkv, int Sq, int Skv, int causal, int window, float softcap,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+                       int Sq, int Skv, int causal, int window, float softcap, cudaStream_t stream) {
+  using C = Tile<D>;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+  flash_attention_kernel<float, D><<<grid, kThreads, C::smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, Hkv, Sq, Skv, causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int bf16, const void* q, const void* k, const void* v, void* o, int B, int H,
+                   int Hkv, int Sq, int Skv, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream)
+              : launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream);
 }
 
 }  // namespace
@@ -234,16 +647,31 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 // Head widths the kernel is built for.
 extern "C" int flash_attention_supports(int D) { return D == 64 || D == 128 || D == 256; }
 
+// Dynamic shared memory of one block at head width D, for bf16 (wgmma) or
+// f32 (CUDA cores) tensors; 0 for a width the kernel is not built for.
+extern "C" long long flash_attention_smem(int D, int bf16) {
+  switch (D) {
+    case 64: return bf16 ? TcTile<64>::smem : Tile<64>::smem;
+    case 128: return bf16 ? TcTile<128>::smem : Tile<128>::smem;
+    case 256: return bf16 ? TcTile<256>::smem : Tile<256>::smem;
+    default: return 0;
+  }
+}
+
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
-// bf16 != 0: bfloat16 tensors, else float32.  window <= 0: no window;
-// softcap <= 0: no softcap.
+// bf16 != 0: bfloat16 tensors (the wgmma kernel), else float32 (the
+// CUDA-core kernel).  window <= 0: no window; softcap <= 0: no softcap.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
                                int Hkv, int Sq, int Skv, int D, int bf16, int causal, int window,
                                float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s)
-           : launch_d<float>(D, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s);
+  cudaError_t e;
+  switch (D) {
+    case 64: e = launch<64>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
+    case 128: e = launch<128>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
+    case 256: e = launch<256>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 

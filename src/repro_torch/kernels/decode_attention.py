@@ -13,8 +13,12 @@ logits are softcapped where asked, and the softmax state is f32:
   kernel ``csrc/decode_attention.cu``.  It is the one place that chooses an
   implementation, by the tensors' device alone: on CPU tensors it runs the
   plain version, on CUDA tensors it launches the kernel or raises.
-  ``decode_attention_cuda.launches`` counts its kernel launches.
+  ``decode_attention_cuda.launches`` counts its calls that launch: one per
+  call, though each launches two device kernels (the split-KV pass and its
+  combine).
 
+:func:`decode_split_plan` is how the wrapper spreads the keys over blocks;
+it reads only shapes and the SM count, never the lengths on the device.
 Keys are unordered, so a ring-buffered window cache needs only its length.
 """
 
@@ -28,7 +32,51 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _NEG, check_alignment, check_attention_args
 
-_MAX_GRID_Y = 65535
+_MAX_GRID_YZ = 65535
+SPLIT_RANGE = 64  # keys per split are a multiple of this
+BLOCKS_PER_SM = 2  # the split pass aims at this many blocks per SM
+
+
+def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple[int, int]:
+    """``(splits, chunk)``: the split-KV kernel's grid is ``(splits, Hkv,
+    B)``, and split ``i`` of a sequence walks keys ``[i * chunk, (i + 1) *
+    chunk)`` cut at its length.  ``chunk`` is a multiple of
+    :data:`SPLIT_RANGE`, there are about ``BLOCKS_PER_SM * sm_count`` blocks
+    where ``S`` allows, and the ranges cover ``[0, S)`` exactly once (one
+    empty range when ``S == 0``).  Depends on shapes only: the lengths stay
+    on the device."""
+    ranges = max(1, -(-S // SPLIT_RANGE))
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, B * Hkv)))
+    chunk = -(-ranges // min(ranges, want)) * SPLIT_RANGE
+    return max(1, -(-S // chunk)), chunk
+
+
+def check_decode_launch(B: int, Hkv: int, D: int) -> None:
+    """Raise on what the split-KV kernel is not built for: head widths other
+    than 64, 128 and 256, and a batch or kv-head count beyond the grid's
+    y and z limits."""
+    if D not in (64, 128, 256):
+        raise ValueError(f"the decode kernel is built for head widths 64, 128 and 256, not {D}")
+    if B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
+        raise ValueError(f"batch {B} or kv heads {Hkv} exceed the kernel grid's {_MAX_GRID_YZ}")
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(B: int, H: int, Hkv: int, S: int, D: int, bf16: bool, device: int) -> tuple[int, int]:
+    """The split plan of one shape on one card, after the checks that need
+    the built library (the block's shared memory); kept per shape, so a
+    decode step does these once and not per layer."""
+    check_decode_launch(B, Hkv, D)
+    lib = _library()
+    smem = lib.decode_attention_smem(H // Hkv, D, int(bf16))
+    max_smem = lib.decode_attention_max_smem()
+    if max_smem < 0:
+        _build.check(lib, int(-max_smem), "decode_attention shared-memory query")
+    if smem > max_smem:
+        raise ValueError(f"group {H // Hkv} x head width {D} needs {smem} B of shared memory "
+                         f"per block (> {max_smem})")
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return decode_split_plan(B, Hkv, S, sm_count)
 
 
 def decode_attention_ref(
@@ -67,9 +115,9 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared."""
     lib = _build.load("decode_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_attention.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
+    lib.decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [f32, ptr]
     lib.decode_attention.restype = i32
-    lib.decode_attention_smem.argtypes = [i32, i32]
+    lib.decode_attention_smem.argtypes = [i32, i32, i32]
     lib.decode_attention_smem.restype = ctypes.c_longlong
     lib.decode_attention_max_smem.argtypes = []
     lib.decode_attention_max_smem.restype = ctypes.c_longlong
@@ -89,9 +137,10 @@ def decode_attention_cuda(
 
     Takes contiguous float32 or bfloat16 tensors of one dtype and contiguous
     int32 lengths, all on one device, on the CPU as on the card, and raises
-    on anything else; on the card also on a GQA group or head width whose
-    tiles exceed the card's shared memory and on grids beyond the launch
-    limits."""
+    on anything else; on the card also on head widths the kernel is not
+    built for (64, 128, 256), on a GQA group whose tiles exceed the card's
+    shared memory and on grids beyond the launch limits.  The partial
+    softmax states of the splits go to f32 scratch allocated here."""
     check_attention_args(q, k_cache, v_cache, q_dims=3, window=None, softcap=softcap)
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
@@ -103,23 +152,16 @@ def decode_attention_cuda(
         )
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap)
-    lib = _library()
-    if B > _MAX_GRID_Y:
-        raise ValueError(f"batch {B} exceeds the kernel grid's {_MAX_GRID_Y}")
-    smem = lib.decode_attention_smem(H // Hkv, D)
-    max_smem = lib.decode_attention_max_smem()
-    if max_smem < 0:
-        _build.check(lib, int(-max_smem), "decode_attention shared-memory query")
-    if smem > max_smem:
-        raise ValueError(f"group {H // Hkv} x head width {D} needs {smem} B of shared memory "
-                         f"per block (> {max_smem})")
+    splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
     check_alignment(q, k_cache, v_cache)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    lib = _library()
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        B, H, Hkv, S, D, int(q.dtype == torch.bfloat16),
+        scratch.data_ptr(), B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16),
         0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention launch")

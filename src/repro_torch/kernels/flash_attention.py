@@ -11,9 +11,10 @@ and a logit softcap (``c * tanh(s / c)``), all in f32:
   reference's jnp oracle, where the two differ: a row with no visible key
   gives zeros (the kernel's ``l == 0 -> 1`` rule), not the mean of v;
 * :func:`flash_attention_cuda` — the wrapper of the hand-written Hopper
-  kernel ``csrc/flash_attention.cu``.  It is the one place that chooses an
-  implementation, by the tensors' device alone: on CPU tensors it runs the
-  plain version, on CUDA tensors it launches the kernel or raises.
+  kernel ``csrc/flash_attention.cu`` (bf16 on the tensor cores through
+  ``wgmma`` fed by TMA, f32 on the CUDA cores).  It is the one place that
+  chooses an implementation, by the tensors' device alone: on CPU tensors it
+  runs the plain version, on CUDA tensors it launches the kernel or raises.
   ``flash_attention_cuda.launches`` counts its kernel launches.
 
 Unlike the TPU kernel, both take any ``Sq`` and ``Skv``.
@@ -88,6 +89,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention.restype = i32
     lib.flash_attention_supports.argtypes = [i32]
     lib.flash_attention_supports.restype = i32
+    lib.flash_attention_smem.argtypes = [i32, i32]
+    lib.flash_attention_smem.restype = ctypes.c_longlong
     return lib
 
 
