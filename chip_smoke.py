@@ -7,11 +7,15 @@ result line:
 
 1. build every kernel under src/repro_torch/kernels/csrc with nvcc (sm_90a),
    print each kernel instance's registers, static shared memory and spills
-   from ``-Xptxas -v``, require no spills in the attention kernels and
-   ``HGMMA`` (wgmma) instructions in the flash kernel's SASS;
-2. hold each kernel against its plain PyTorch version on the card, exactly,
-   at the shapes the main path gives it, and time both (device time per
-   call, ``cuda_ms``);
+   from ``-Xptxas -v``, require no spills in the attention and SSD kernels
+   and ``HGMMA`` (wgmma) instructions in the flash kernel's SASS;
+2. hold the makespan kernel against its plain PyTorch version on the card,
+   bit for bit, at the shapes the main path gives it and at four edges
+   (whole-number durations, so free times tie; a zero transfer rate and zero
+   data on used links, so makespans are inf and NaN; 100 predecessors a
+   task; a 128-slot core window), and time both (device time per call,
+   ``cuda_ms``) at Table IX and at the 8-instance sweep, each with the
+   core-free rows in shared memory and in L2;
 3. the Table IX GA: ``ga`` on a 500-node x 500-task problem at the ``ga()``
    defaults (population 64, 60 generations), engine ``auto`` on ``cuda``;
    every generation's fitness must go through the kernel, the schedule must
@@ -42,7 +46,9 @@ result line:
    mamba2-780m's prefill shapes (the engine's prompt lengths, one length a
    multiple of the chunk and one under it, and cases with 4 groups and a
    batch of 4, per-head A and dt drawn at random), in bf16 and f32, timed
-   beside its plain version (no single PyTorch call computes it);
+   beside its plain version (no single PyTorch call computes it); the bf16
+   kernels' registers and spills, their HGMMA count, and the device kernels
+   one wrapper call runs, each one's time;
 9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
    served as in phase 7, every prefill layer through the SSD kernel, with
    the same checks and readings.
@@ -82,6 +88,11 @@ KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (``torch.equal`` fails on NaN)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 5) -> float:
@@ -139,6 +150,17 @@ def random_assignments(problem, pop: int, seed: int) -> np.ndarray:
         ok = np.flatnonzero(feas[j])
         A[:, j] = rng.choice(ok, pop) if ok.size else 0
     return A
+
+
+def problem_kw(problem, dev) -> dict:
+    """The makespan function's arrays of one problem on ``dev``, unpadded,
+    without deadlines; fresh tensors, so a case may edit them."""
+    from repro_torch.engine import pack
+
+    arrays = pack(problem, pad=False).device_arrays(dev)
+    kw = {k: arrays[k].clone() for k in KEYS}
+    kw["deadline"] = None
+    return kw
 
 
 def makespan_work(A: torch.Tensor, kw: dict) -> tuple[int, int]:
@@ -460,7 +482,7 @@ def kernel_class(name: str) -> str:
         return "flash_attention (ours)"
     if "decode_attention_kernel" in name:
         return "decode_attention (ours)"
-    if "ssd_scan_kernel" in name:
+    if "ssd_scan_kernel" in name or "ssd_chunk_" in name or "ssd_state_pass" in name:
         return "ssd_scan (ours)"
     if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
@@ -643,7 +665,20 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
     the plain version run in f32 on the same (bf16) values, half a bf16 step
     at y plus the f32 limit, since the kernel rounds its f32 result once; the
     final state (f32 in both) within 3e-4."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_ref
+
+    # the bf16 kernels' resources and their tensor-core instructions
+    for r in ptxas_resources(_build.build_log("ssd_scan")):
+        if r["kernel"].startswith(("ssd_chunk_", "ssd_state_pass")):
+            print(f"ssd ptxas {r['kernel']}: {r['registers']} registers, {r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads, {r['static_smem']} B static shared memory", flush=True)
+    hgmma = sass_count(_build.library_path("ssd_scan"), "HGMMA")
+    print(f"sass: ssd_scan holds {hgmma} HGMMA (wgmma) instructions", flush=True)
+    check(hgmma > 0, "the bf16 SSD kernels run their products on wgmma")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -685,6 +720,22 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
             if label == main and dtype == torch.bfloat16:
                 record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": None}
+                # the device kernels one wrapper call runs, and each one's time
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        ssd_scan_cuda(*args)
+                    torch.cuda.synchronize()
+                per_kernel: dict[str, list] = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        m = re.search(r"ssd_\w+", e.name)
+                        row = per_kernel.setdefault(m.group(0) if m else e.name[:40], [0, 0.0])
+                        row[0] += 1
+                        row[1] += e.time_range.elapsed_us() / 1e3
+                record["device_kernels_per_call"] = len(per_kernel)  # distinct kernels, each once a call
+                print(f"ssd {label} bf16: {len(per_kernel)} device kernels per wrapper call (20 calls "
+                      f"profiled): " + ", ".join(f"{k} {c} seen, {ms / c:.4f} ms each"
+                                                 for k, (c, ms) in per_kernel.items()), flush=True)
     record["max_abs_err"] = max_err
     return record
 
@@ -738,7 +789,7 @@ def main() -> int:
                   f"shared memory, {r.get('stack')} B stack, {r.get('spill_stores')} B spill stores, "
                   f"{r.get('spill_loads')} B spill loads")
     print(json.dumps({"ptxas": resources}), flush=True)
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
         for r in resources[name]:
             check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"{r['kernel']}: no register spills")
     hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
@@ -757,39 +808,97 @@ def main() -> int:
         synthetic_workload(20, seed=5, num_workflows=2),
         Constraints(deadline={"W0": 9.0}),
     )
+    layered = build_problem(synthetic_system(8, seed=4),
+                            Workload((random_layered_workflow(40, seed=4, max_cores=8),)))
     cases = [
         ("mri", build_problem(mri_system(), mri_workload()), 16),
-        ("layered_40x8", build_problem(synthetic_system(8, seed=4),
-                                       Workload((random_layered_workflow(40, seed=4, max_cores=8),))), 64),
+        ("layered_40x8", layered, 64),
         ("deadline_20x20", constrained, 64),
         ("table9_500x500", table9_main, 64),
     ]
     print(f"problems built in {time.perf_counter() - t0:.2f} s", flush=True)
+    from repro_torch.kernels import makespan as makespan_mod
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_smem = makespan_mod._library().population_makespan_max_smem()
+
+    def both_places(A: torch.Tensor, kw: dict, reps: int) -> dict:
+        """Device ms per call with the core-free rows in shared memory and in
+        L2 (each held to the plain version by bits), and which the wrapper's
+        plan picks."""
+        a = A if A.dim() == 3 else A[None]
+        arr = kw if A.dim() == 3 else {k: None if v is None else v[None] for k, v in kw.items()}
+        B, P, T = a.shape
+        N, C = arr["init_free"].shape[-2:]
+        mk_p, v_p = population_makespan_ref(a, **arr)
+        out = {"plan": "shared" if makespan_mod.makespan_plan(B, P, T, N, C, sm_count, max_smem).rows_in_smem
+               else "L2"}
+        for place, in_smem in (("shared", True), ("L2", False)):
+            plan = makespan_mod.makespan_plan(B, P, T, N, C, sm_count, max_smem, rows_in_smem=in_smem)
+            mk, v = makespan_mod._launch(a, arr, plan)
+            torch.cuda.synchronize()
+            check(same_bits(mk, mk_p) and same_bits(v, v_p), f"rows in {place}: kernel == plain version")
+            out[place] = cuda_ms(lambda: makespan_mod._launch(a, arr, plan), reps=reps)
+        return out
+
+    # the tie case: Table IX with whole-number durations and releases, so
+    # core-free times tie; the inf/NaN case: a node that sends at rate 0
+    # (inf transfer times) and two tasks with no output on such links (0/0)
+    ties = problem_kw(table9_main, dev)
+    ties["durations"] = ties["durations"].round().clamp(min=1.0)
+    ties["release"] = ties["release"].round()
+    nan_kw = problem_kw(layered, dev)
+    nan_kw["dtr"][0, 1:] = 0.0
+    nan_kw["data"][[30, 35]] = 0.0
+    # past the kernel's usual widths: up to 100 predecessors a task (the
+    # fold past the 64 a warp prefetches) and a 128-slot core window
+    many_preds = problem_kw(table9_main, dev)
+    j = torch.arange(table9_main.num_tasks, device=dev)[:, None]
+    back = j - 1 - torch.arange(128, device=dev)[None, :]
+    many_preds["pred_matrix"] = torch.where((back >= 0) & (back >= j - 100), back, -1).to(torch.int32)
+    wide = problem_kw(layered, dev)
+    wide["init_free"] = torch.cat([wide["init_free"], torch.full_like(wide["init_free"], 1e30)], 1)
+    cases = [(name, problem, pop, None) for name, problem, pop in cases]
+    cases += [("table9 whole-number durations (ties)", table9_main, 64, ties),
+              ("layered rate 0, data 0 (inf, NaN)", layered, 64, nan_kw),
+              ("table9 with 100 predecessors a task", table9_main, 64, many_preds),
+              ("layered with CMAX 128", layered, 64, wide)]
     max_err = 0.0
     record = None
-    for name, problem, pop in cases:
-        packed = pack(problem, pad=False)
-        arrays = packed.device_arrays(dev)
-        kw = {k: arrays[k] for k in KEYS}
-        kw["deadline"] = arrays["deadline"] if packed.constrained else None
+    for name, problem, pop, given in cases:
+        if given is None:
+            packed = pack(problem, pad=False)
+            arrays = packed.device_arrays(dev)
+            kw = {k: arrays[k] for k in KEYS}
+            kw["deadline"] = arrays["deadline"] if packed.constrained else None
+        else:
+            kw = given
         A = torch.from_numpy(random_assignments(problem, pop, seed=len(name))).to(dev)
         mk_k, v_k = population_makespan_cuda(A, **kw)
         mk_p, v_p = population_makespan_ref(A, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(mk_k, mk_p) and torch.equal(v_k, v_p), f"{name}: kernel == plain version")
-        check(bool(torch.isfinite(mk_k).all()), f"{name}: finite makespans")
-        if packed.constrained:
+        check(same_bits(mk_k, mk_p) and same_bits(v_k, v_p), f"{name}: kernel == plain version, bit for bit")
+        special = {"nan": int(mk_p.isnan().sum()), "inf": int(mk_p.isinf().sum())}
+        if given is nan_kw:
+            check(special["nan"] > 0 and special["inf"] > 0, f"{name}: some makespans are NaN and some inf")
+        else:
+            check(bool(torch.isfinite(mk_k).all()), f"{name}: finite makespans")
+        if kw["deadline"] is not None:
             check(bool((v_k > 0).any()), f"{name}: some deadline is missed")
-        max_err = max(max_err, float((mk_k - mk_p).abs().max()), float((v_k - v_p).abs().max()))
-        ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=20)
-        plain_ms = cuda_ms(lambda: population_makespan_ref(A, **kw), reps=3, warmup=1)
-        bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, kw)
-        print(f"makespan {name}: P={pop} bucket={packed.bucket} kernel == plain exactly; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-              f"{nbytes} B, {ops} ops)",
-              flush=True)
+        diff = torch.where(torch.isfinite(mk_p), mk_k - mk_p, 0.0)
+        max_err = max(max_err, float(diff.abs().max()), float((v_k - v_p).abs().max()))
+        line = f"makespan {name}: P={pop} kernel == plain bit for bit (NaN {special['nan']}, inf {special['inf']})"
         if name == "table9_500x500":
-            record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: population_makespan_ref(A, **kw), reps=3, warmup=1)
+            bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, kw)
+            places = both_places(A, kw, reps=20)
+            line += (f"; kernel {ms:.4f} ms (rows in shared memory {places['shared']:.4f}, in L2 "
+                     f"{places['L2']:.4f}; the plan takes {places['plan']}), plain {plain_ms:.2f} ms, "
+                     f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)")
+            record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "ms_rows_in_shared": places["shared"], "ms_rows_in_l2": places["L2"]}
+        print(line, flush=True)
 
     sweep_problems = [table9(s) for s in SWEEP_SEEDS]
     stacked, bucket = stack_packed(sweep_problems, device=dev)
@@ -802,12 +911,16 @@ def main() -> int:
     mk_k, v_k = population_makespan_cuda(A, **kw)
     mk_p, v_p = population_makespan_ref(A, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(mk_k, mk_p) and torch.equal(v_k, v_p), "batched family: kernel == plain version")
+    check(same_bits(mk_k, mk_p) and same_bits(v_k, v_p), "batched family: kernel == plain version, bit for bit")
     batch_ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=10)
+    places = both_places(A, kw, reps=10)
     bound_ms, bound_by, nbytes, ops = makespan_bound_ms(A, kw)
-    print(f"makespan batched {len(sweep_problems)}x500x500: bucket={bucket} kernel == plain exactly; "
-          f"kernel {batch_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)",
+    print(f"makespan batched {len(sweep_problems)}x500x500: bucket={bucket} kernel == plain bit for bit; "
+          f"kernel {batch_ms:.4f} ms (rows in shared memory {places['shared']:.4f}, in L2 {places['L2']:.4f}; "
+          f"the plan takes {places['plan']}), bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)",
           flush=True)
+    record.update(sweep_ms=batch_ms, sweep_bound_ms=bound_ms, sweep_ms_rows_in_shared=places["shared"],
+                  sweep_ms_rows_in_l2=places["L2"])
 
     phase_done(2, "makespan kernel against its plain version")
 
@@ -900,10 +1013,7 @@ def main() -> int:
         "launches": launches,
         "sweep_launches": sweep_launches,
         "max_abs_err": max_err,
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-        "bound_ms": record["bound_ms"],
-        "bound_by": record["bound_by"],
+        **record,
         "library_ms": None,
     }]
     for name, replaces in (("flash_attention", "src/repro/kernels/flash_attention.py:117"),

@@ -19,11 +19,17 @@ semantics):
 Both take one instance (``assignments [P, T]``, arrays without an instance
 axis) or a stacked family (``assignments [B, P, T]``, every array with a
 leading ``B``), and agree bit for bit.
+
+:func:`makespan_plan` is how the wrapper lays the kernel out on the card
+(slots a lane, candidates a block, shared memory, and whether the
+candidates' core-free rows live in shared memory or in L2); it reads only
+shapes and the card's SM count and shared-memory limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -32,7 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.select import kth_from_ranks, stable_ranks, update_from_ranks
 
 _NEG = -1e30
-_MAX_THREADS = 1024  # threads per block on Hopper
+WARP_SLOTS = (1, 2, 4, 8, 16, 32)  # core slots a lane: CMAX up to 1024
+MAX_WARPS = 4  # candidates (one warp each) a block at most
 
 
 def _default_node_cores(init_free: torch.Tensor) -> torch.Tensor:
@@ -118,17 +125,71 @@ def population_makespan_ref(
     return makespan, violations
 
 
+@dataclasses.dataclass(frozen=True)
+class MakespanPlan:
+    """How the kernel runs one shape: ``slots`` core slots a lane (the row
+    padded to ``32 * slots``), ``warps`` candidates a block, ``blocks``
+    blocks, ``smem`` bytes of dynamic shared memory a block, and where the
+    candidates' core-free rows and their ranks live (``rows_in_smem``, else
+    a device-memory scratch ``[B, P, N, 32 * slots]`` kept in L2)."""
+
+    slots: int
+    warps: int
+    blocks: int
+    smem: int
+    rows_in_smem: bool
+
+
+def warp_smem(T: int, N: int, slots: int, rows_in_smem: bool) -> int:
+    """Bytes of shared memory one candidate's warp takes (``csrc/makespan.cu::
+    warp_floats``), rows padded to ``32 * slots`` slots: the rows and their
+    u16 ranks when they live there; a broadcast row; three prefetch slots of
+    a row and its ranks; the assignment and finish times; the ring of
+    prefetched inputs (9 steps of 64 predecessors, their data and rates, and
+    8 values); a first-written byte per node; a multiple of 16."""
+    cp = 32 * slots
+    rank_words = slots // 2 if slots > 1 else 1
+    floats = ((N * cp + -(-N * cp // 2)) if rows_in_smem else 0) + 4 * cp + 96 * rank_words \
+        + 2 * T + 9 * (3 * 64 + 8) + -(-N // 4)
+    return 4 * (-(-floats // 4) * 4)
+
+
+def makespan_plan(B: int, P: int, T: int, N: int, C: int, sm_count: int, max_smem: int,
+                  rows_in_smem: bool | None = None) -> MakespanPlan:
+    """The launch of ``B`` instances of ``P`` candidates on a card of
+    ``sm_count`` SMs that allows ``max_smem`` bytes a block.  The rows go to
+    shared memory (one warp a block) when they fit and there are no more
+    candidates than SMs; otherwise they stay in L2, and up to
+    :data:`MAX_WARPS` candidates share a block so that the candidates spread
+    evenly over the SMs.  ``rows_in_smem`` forces the place (for measuring
+    both).  Raises on a CMAX or T the kernel cannot take."""
+    slots = next((s for s in WARP_SLOTS if 32 * s >= C), None)
+    if slots is None:
+        raise ValueError(f"CMAX={C} exceeds the kernel's {32 * WARP_SLOTS[-1]} core slots")
+    cands = B * P
+    fits = warp_smem(T, N, slots, True) <= max_smem
+    if rows_in_smem is None:
+        rows_in_smem = fits and cands <= sm_count
+    if rows_in_smem and not fits:
+        raise ValueError(f"{N} rows of {32 * slots} slots and T={T} need "
+                         f"{warp_smem(T, N, slots, True)} B of shared memory (> {max_smem})")
+    per_warp = warp_smem(T, N, slots, rows_in_smem)
+    if per_warp > max_smem:
+        raise ValueError(f"T={T} needs {per_warp} B of shared memory per candidate (> {max_smem})")
+    warps = 1 if rows_in_smem else min(MAX_WARPS, max(1, -(-cands // sm_count)), max_smem // per_warp)
+    return MakespanPlan(slots=slots, warps=warps, blocks=-(-cands // warps), smem=warps * per_warp,
+                        rows_in_smem=rows_in_smem)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared."""
     lib = _build.load("makespan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.population_makespan.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.population_makespan.argtypes = [ptr] * 16 + [i32] * 9 + [ctypes.c_longlong, ptr]
     lib.population_makespan.restype = i32
-    lib.population_makespan_threads.argtypes = [i32]
-    lib.population_makespan_threads.restype = i32
-    lib.population_makespan_smem.argtypes = [i32, i32]
-    lib.population_makespan_smem.restype = ctypes.c_longlong
+    lib.population_makespan_warp_smem.argtypes = [i32] * 4
+    lib.population_makespan_warp_smem.restype = ctypes.c_longlong
     lib.population_makespan_max_smem.argtypes = []
     lib.population_makespan_max_smem.restype = ctypes.c_longlong
     return lib
@@ -199,38 +260,66 @@ def population_makespan_cuda(
             release=release, pred_matrix=pred_matrix, dtr=dtr, init_free=init_free,
             node_cores=node_cores, deadline=deadline,
         )
-    if B > 65535:
-        raise ValueError(f"{B} instances exceed the kernel grid's 65535")
+    if B * P > 2**31 - 1:
+        raise ValueError(f"{B} x {P} candidates exceed the kernel grid's 2**31 - 1 warps")
+    if max(T * N, N * N, N * 1024, T * maxp) >= 2**31:
+        raise ValueError(f"T={T}, N={N}, MAXP={maxp}: an instance's tables exceed the kernel's 32-bit indices")
 
-    lib = _library()
-    threads = lib.population_makespan_threads(C)
-    smem = lib.population_makespan_smem(T, threads)
-    if threads > _MAX_THREADS:
-        raise ValueError(f"CMAX={C} needs {threads} threads per block (> {_MAX_THREADS})")
-    max_smem = lib.population_makespan_max_smem()  # the card's opt-in limit less static smem
-    if max_smem < 0:
-        _build.check(lib, int(-max_smem), "population_makespan shared-memory query")
-    if smem > max_smem:
-        raise ValueError(f"T={T} needs {smem} B of shared memory per block (> {max_smem})")
-
-    makespan = torch.empty(B, P, dtype=torch.float32, device=device)
-    violations = torch.empty(B, P, dtype=torch.float32, device=device)
-    if B and P:
-        core_free = torch.empty(B, P, N, C, dtype=torch.float32, device=device)
-        dl = arr["deadline"]
-        err = lib.population_makespan(
-            a.data_ptr(), arr["durations"].data_ptr(), arr["cores"].data_ptr(),
-            arr["data"].data_ptr(), arr["feasible"].data_ptr(), arr["release"].data_ptr(),
-            None if dl is None else dl.data_ptr(), arr["pred_matrix"].data_ptr(),
-            arr["dtr"].data_ptr(), arr["init_free"].data_ptr(), arr["node_cores"].data_ptr(),
-            makespan.data_ptr(), violations.data_ptr(), core_free.data_ptr(),
-            B, P, T, N, C, maxp, torch.cuda.current_stream(device).cuda_stream,
-        )
-        _build.check(lib, err, "population_makespan launch")
-        population_makespan_cuda.launches += 1
+    makespan, violations = _launch(a, arr, _plan(B, P, T, N, C, device.index))
+    population_makespan_cuda.launches += int(B * P > 0)
     if not batched:
         return makespan[0], violations[0]
     return makespan, violations
 
 
 population_makespan_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(B: int, P: int, T: int, N: int, C: int, device: int) -> MakespanPlan:
+    """The plan of one shape on one card, kept per shape: the GA asks for the
+    same one every generation."""
+    lib = _library()
+    max_smem = lib.population_makespan_max_smem()  # the card's opt-in limit
+    if max_smem < 0:
+        _build.check(lib, int(-max_smem), "population_makespan shared-memory query")
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return makespan_plan(B, P, T, N, C, sm_count, max_smem)
+
+
+def _launch(a: torch.Tensor, arr: dict, plan: MakespanPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on checked CUDA tensors (``a [B, P, T]`` and
+    the batched arrays) by ``plan``; returns ``(makespan, violations)``
+    ``[B, P]``.  The wrapper's device path, and what ``chip_smoke.py`` times
+    with either place of the rows."""
+    B, P, T = a.shape
+    N, C = arr["init_free"].shape[-2:]
+    lib = _library()
+    if lib.population_makespan_warp_smem(T, N, plan.slots, int(plan.rows_in_smem)) * plan.warps != plan.smem:
+        raise ValueError(f"{plan} does not match the kernel's shared-memory layout")
+    makespan = torch.empty(B, P, dtype=torch.float32, device=a.device)
+    violations = torch.empty(B, P, dtype=torch.float32, device=a.device)
+    if B * P == 0:
+        return makespan, violations
+    # scratch: the initial rows' u16 ranks, and on the L2 path each
+    # candidate's rows and ranks, rows padded to 32 * slots
+    cp = 32 * plan.slots
+    init_rank = torch.empty(B, N, cp, dtype=torch.int16, device=a.device)
+    core_free = core_rank = None
+    if not plan.rows_in_smem:
+        core_free = torch.empty(B, P, N, cp, dtype=torch.float32, device=a.device)
+        core_rank = torch.empty(B, P, N, cp, dtype=torch.int16, device=a.device)
+    dl = arr["deadline"]
+    err = lib.population_makespan(
+        a.data_ptr(), arr["durations"].data_ptr(), arr["cores"].data_ptr(),
+        arr["data"].data_ptr(), arr["feasible"].data_ptr(), arr["release"].data_ptr(),
+        None if dl is None else dl.data_ptr(), arr["pred_matrix"].data_ptr(),
+        arr["dtr"].data_ptr(), arr["init_free"].data_ptr(), init_rank.data_ptr(),
+        arr["node_cores"].data_ptr(), makespan.data_ptr(), violations.data_ptr(),
+        None if core_free is None else core_free.data_ptr(),
+        None if core_rank is None else core_rank.data_ptr(),
+        B, P, T, N, C, arr["pred_matrix"].shape[-1], plan.slots, plan.warps, int(plan.rows_in_smem),
+        plan.smem, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _build.check(lib, err, "population_makespan launch")
+    return makespan, violations

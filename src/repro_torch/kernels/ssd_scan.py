@@ -12,12 +12,13 @@ C and all arithmetic in f32:
 * :func:`ssd_scan_ref` — the plain PyTorch version, the chunked (duality)
   form of the reference's ``kernels/ref.py::ssd_scan_chunked_ref``, taken to
   any L;
-* :func:`ssd_scan_cuda` — the wrapper of the hand-written Hopper kernel
-  ``csrc/ssd_scan.cu``, which replaces the reference's Pallas kernel
+* :func:`ssd_scan_cuda` — the wrapper of the hand-written Hopper kernels
+  ``csrc/ssd_scan.cu`` (bf16: chunk-parallel state passing on wgmma, three
+  device kernels; f32: a chunk-serial CUDA-core kernel), which replace the reference's Pallas kernel
   ``repro/kernels/ssd_scan.py::ssd_scan_pallas``.  It is the one place that
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
-  ``ssd_scan_cuda.launches`` counts its kernel launches;
+  ``ssd_scan_cuda.launches`` counts its calls that launch, one per call;
 * :func:`ssd_scan_sequential` — the step-by-step recurrence, the reference's
   ``ssd_scan_ref``, an oracle for the tests.
 """
@@ -126,7 +127,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C signature declared."""
     lib = _build.load("ssd_scan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.ssd_scan.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
     lib.ssd_scan.restype = i32
     return lib
 
@@ -195,10 +196,15 @@ def ssd_scan_cuda(
     state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
     if state.numel() == 0:
         return y, state
+    bf16 = x.dtype == torch.bfloat16
+    # the bf16 kernels' scratch: each chunk's state [N, P] and its total decay
+    chunks = -(-L // KERNEL_CHUNK) if bf16 else 0
+    states = torch.empty(Bsz, chunks, H, N, P, dtype=torch.float32, device=x.device)
+    atot = torch.empty(Bsz, chunks, H, dtype=torch.float32, device=x.device)
     err = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
-        y.data_ptr(), state.data_ptr(), Bsz, L, H, G, P, N, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        y.data_ptr(), state.data_ptr(), states.data_ptr(), atot.data_ptr(), Bsz, L, H, G, P, N,
+        int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "ssd_scan launch")
     ssd_scan_cuda.launches += 1

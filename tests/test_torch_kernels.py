@@ -29,7 +29,14 @@ from repro_torch.core import (
 )
 from repro_torch.engine import pack, stack_packed
 from repro_torch.kernels import _build, select
-from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
+from repro_torch.kernels.makespan import (
+    MAX_WARPS,
+    WARP_SLOTS,
+    makespan_plan,
+    population_makespan_cuda,
+    population_makespan_ref,
+    warp_smem,
+)
 
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr", "init_free")
 
@@ -237,3 +244,66 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(_build.KernelBuildError, match="refused"):
         _build.build()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+# -----------------------------------------------------------------------------
+# the kernel's launch plan (host side; the kernel itself runs on the card)
+# -----------------------------------------------------------------------------
+
+H100 = {"sm_count": 132, "max_smem": 232448}  # SMs and opt-in shared memory a block
+PLAN_SHAPES = {  # (B, P, T, N, CMAX)
+    "table9": (1, 64, 500, 500, 64),
+    "sweep-bucket": (8, 64, 512, 512, 64),
+    "table9-cmax128": (1, 64, 500, 500, 128),
+    "cmax1000": (2, 16, 40, 8, 1000),
+    "mri": (1, 16, 8, 3, 8),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES.values()), ids=list(PLAN_SHAPES))
+def test_makespan_plan_covers_every_candidate_within_the_cards_limits(shape):
+    B, P, T, N, C = shape
+    plan = makespan_plan(B, P, T, N, C, **H100)
+    # the fewest slots a lane that cover the row
+    assert plan.slots in WARP_SLOTS and 32 * plan.slots >= C
+    assert plan.slots == WARP_SLOTS[0] or 16 * plan.slots < C
+    # one warp per candidate, every candidate once
+    assert 1 <= plan.warps <= MAX_WARPS
+    assert plan.blocks * plan.warps >= B * P > (plan.blocks - 1) * plan.warps
+    assert plan.smem == plan.warps * warp_smem(T, N, plan.slots, plan.rows_in_smem) <= H100["max_smem"]
+    assert plan.smem % 16 == 0
+    # rows in shared memory: only when they fit, one candidate a block, and
+    # no more candidates than SMs; else spread over the SMs in L2
+    if plan.rows_in_smem:
+        assert plan.warps == 1 and B * P <= H100["sm_count"]
+    else:
+        assert plan.warps == min(MAX_WARPS, -(-B * P // H100["sm_count"]))
+
+
+def test_makespan_plan_at_the_main_paths_shapes():
+    """Table IX keeps its rows (500 x 64 free times and u16 ranks, 192,000 B)
+    in shared memory, one candidate per SM; the 8-instance sweep's 512
+    candidates keep theirs in L2, four to a block, 128 blocks; a CMAX of 128
+    doubles the rows past the card's shared memory."""
+    t9 = makespan_plan(*PLAN_SHAPES["table9"], **H100)
+    assert (t9.slots, t9.warps, t9.blocks, t9.rows_in_smem) == (2, 1, 64, True)
+    assert warp_smem(500, 500, 2, True) - warp_smem(500, 500, 2, False) == 500 * 64 * (4 + 2)
+    sweep = makespan_plan(*PLAN_SHAPES["sweep-bucket"], **H100)
+    assert (sweep.slots, sweep.warps, sweep.blocks, sweep.rows_in_smem) == (2, 4, 128, False)
+    wide = makespan_plan(*PLAN_SHAPES["table9-cmax128"], **H100)
+    assert (wide.slots, wide.rows_in_smem) == (4, False)
+    assert warp_smem(500, 500, 4, True) > H100["max_smem"]
+
+
+def test_makespan_plan_forced_places_and_limits():
+    B, P, T, N, C = PLAN_SHAPES["table9"]
+    in_l2 = makespan_plan(B, P, T, N, C, **H100, rows_in_smem=False)
+    assert not in_l2.rows_in_smem and in_l2.warps == 1  # 64 candidates: one per SM
+    shared = makespan_plan(*PLAN_SHAPES["sweep-bucket"], **H100, rows_in_smem=True)
+    assert shared.rows_in_smem and shared.warps == 1 and shared.blocks == 512
+    with pytest.raises(ValueError, match="shared memory"):
+        makespan_plan(*PLAN_SHAPES["table9-cmax128"], **H100, rows_in_smem=True)
+    with pytest.raises(ValueError, match="core slots"):
+        makespan_plan(1, 64, 500, 500, 32 * WARP_SLOTS[-1] + 1, **H100)
+    with pytest.raises(ValueError, match="per candidate"):
+        makespan_plan(1, 64, 40_000, 500, 64, **H100)
