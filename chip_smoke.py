@@ -27,12 +27,17 @@ result line:
    over the kernel GA that splits its wall time into device kernel time by
    kernel name and the rest;
 6. the flash and decode attention kernels against their plain versions on
-   the card, at the shapes the serving path gives them (qwen2.5-3b prefill
+   the card, at the shapes the serving paths give them (qwen2.5-3b prefill
    at the engine's prompt lengths, a chunked prefill, gemma2-2b's head width
    256 with its window and softcap, decode at the serving run's lockstep
-   length, with mixed lengths and at one slot of 2048 keys), in bf16 and
-   f32, each kernel's dynamic shared memory printed, timed beside their
-   plain versions and one PyTorch call that computes the same function
+   length, with mixed lengths and at one slot of 2048 keys; zamba2-7b's
+   shared attention, 32 heads of width 112, prefill at the prompt lengths
+   and decode at the lockstep and mixed lengths), at the reduced configs'
+   head width 16 and, at small shapes, at every width 16-256 in steps of
+   16, in bf16 and f32, each kernel's dynamic shared
+   memory printed, timed (qwen's and zamba2's longest prefill and their
+   4-slot decodes among others) beside their plain versions and one
+   PyTorch call that computes the same function
    (``scaled_dot_product_attention``);
 7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
    served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
@@ -45,13 +50,22 @@ result line:
 8. the SSD chunked-scan kernel against its plain version on the card at
    mamba2-780m's prefill shapes (the engine's prompt lengths, one length a
    multiple of the chunk and one under it, and cases with 4 groups and a
-   batch of 4, per-head A and dt drawn at random), in bf16 and f32, timed
+   batch of 4, per-head A and dt drawn at random) and at zamba2-7b's (112
+   heads, N 64) at L 891 and 64, in bf16 and f32, timed
    beside its plain version (no single PyTorch call computes it); the bf16
    kernels' registers and spills, their HGMMA count, and the device kernels
    one wrapper call runs, each one's time;
 9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
    served as in phase 7, every prefill layer through the SSD kernel, with
-   the same checks and readings.
+   the same checks and readings;
+10. zamba2-7b at full width (81 Mamba2 layers and 13 invocations of one
+    shared attention + MLP block, random bf16 weights from a seed) served
+    as in phase 7: every prefill layer through the SSD kernel, every shared
+    invocation through the flash kernel in prefill and the decode kernel in
+    decode; the card-against-CPU cut is 2 layers with the shared block
+    after the second;
+11. the serving CLI (``repro_torch.launch.serve``) with no ``--device``:
+    reduced qwen2.5-3b, head width 16, through both attention kernels.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -309,8 +323,10 @@ def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: in
 
 def attention_phase(prompt_lens: list[int]) -> dict:
     """Phase 6: each attention kernel against its plain version on the card
-    at the serving path's shapes, timed beside the plain version and
-    ``scaled_dot_product_attention``; returns the kernels' records.
+    at the serving paths' shapes (qwen2.5-3b's D 128, gemma2-2b's D 256,
+    zamba2-7b's D 112) and at the reduced configs' D 16, timed beside the
+    plain version and ``scaled_dot_product_attention``; returns the kernels'
+    records, with zamba2's times under ``zamba2_*`` keys.
 
     Each output is held against the plain version run on the same inputs in
     f32, the kernel's own arithmetic, unrounded: within atol = rtol = 2e-5
@@ -326,12 +342,14 @@ def attention_phase(prompt_lens: list[int]) -> dict:
         attention_mask,
         flash_attention_cuda,
         flash_attention_ref,
+        kernel_takes_head_dim,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = {torch.bfloat16: (2e-5, 2**-8), torch.float32: (2e-5, 2e-5)}  # (atol, rtol)
     records: dict[str, dict] = {}
+    zamba: dict[str, dict] = {}  # the zamba2 shapes' times, added to the records at the end
     max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
 
     def normal(shape, dtype):
@@ -357,20 +375,30 @@ def attention_phase(prompt_lens: list[int]) -> dict:
         ("gemma2 S=5000 window 4096 softcap 50", 1, 8, 4, 5000, 5000, 256,
          {"window": 4096, "softcap": 50.0}),
     ]
+    # zamba2-7b's shared attention (H 32, Hkv 32, D 112) at the engine's
+    # prompt lengths, only the longest timed
+    zamba_flash = [(f"zamba2 prefill S={n}", 1, 32, 32, n, n, 112, {}) for n in prompt_lens]
     main_flash = f"qwen prefill S={max(prompt_lens)}"
+    zamba_main_flash = f"zamba2 prefill S={max(prompt_lens)}"
     flash_lib, decode_lib = flash_mod._library(), decode_mod._library()
+    check(all(bool(flash_lib.flash_attention_supports(D)) == kernel_takes_head_dim(D) for D in range(300)),
+          "the flash library and the wrappers take the same head widths")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     print("dynamic shared memory per block: " + ", ".join(
         [f"flash {t} D={D} {flash_lib.flash_attention_smem(D, int(t == 'bf16'))} B"
-         for t in ("bf16", "f32") for D in (64, 128, 256)]
+         for t in ("bf16", "f32") for D in (16, 64, 112, 128, 256)]
         + [f"decode {t} G={G} D={D} {decode_lib.decode_attention_smem(G, D, int(t == 'bf16'))} B"
-           for t in ("bf16", "f32") for G, D in ((8, 128), (2, 256))]), flush=True)
+           for t in ("bf16", "f32") for G, D in ((8, 128), (2, 256), (1, 112), (4, 16))]), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
-        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases:
+        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases + zamba_flash:
             q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
             err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
                                  flash_attention_ref(q, k, v, **kw),
                                  flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
+            if label.startswith("zamba2") and label != zamba_main_flash:
+                print(f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain {err32:.3g})",
+                      flush=True)
+                continue
             ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
             one_call_ms = call_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
             plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3, warmup=1)
@@ -393,6 +421,10 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 records["flash_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
                                               "bound_ms": bound_ms, "bound_by": bound_by,
                                               "library_ms": library_ms}
+            if label == zamba_main_flash and dtype == torch.bfloat16:
+                zamba["flash_attention"] = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms,
+                                            "zamba2_bound_ms": bound_ms, "zamba2_bound_by": bound_by,
+                                            "zamba2_library_ms": library_ms}
 
     # the masks' and shapes' edges, held as above and not timed
     flash_edges = [
@@ -401,6 +433,9 @@ def attention_phase(prompt_lens: list[int]) -> dict:
         ("rows that see nothing Sq=100 Skv=40", 1, 4, 2, 100, 40, 128, {}),
         ("window 16 softcap 30 S=300 D=256", 1, 4, 2, 300, 300, 256, {"window": 16, "softcap": 30.0}),
         ("one row Sq=1 Skv=1000", 1, 16, 2, 1, 1000, 128, {}),
+        ("head width 16 (the reduced configs) S=200 B=2", 2, 4, 4, 200, 200, 16, {}),
+        ("head width 16 window 40 softcap 30 Sq=90 Skv=300", 1, 4, 2, 90, 300, 16,
+         {"window": 40, "softcap": 30.0}),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for label, B, H, Hkv, Sq, Skv, D, kw in flash_edges:
@@ -415,11 +450,15 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     # longest prompt + 1
     lockstep = max(prompt_lens) + 1
     main_decode = "qwen decode 4 slots lockstep, cache 2048"
+    zamba_main_decode = "zamba2 decode 4 slots lockstep, cache 2048"
     decode_cases = [
         (main_decode, 4, 16, 2, 2048, 128, [lockstep] * 4, None),
         ("qwen decode 4 slots mixed, cache 2048", 4, 16, 2, 2048, 128, [1, 517, 1024, 2048], None),
         ("qwen decode 1 slot, 2048 keys", 1, 16, 2, 2048, 128, [2048], None),
         ("gemma2 decode, cache 4096, softcap 50", 4, 8, 4, 4096, 256, [4096, 1, 2000, 3000], 50.0),
+        (zamba_main_decode, 4, 32, 32, 2048, 112, [lockstep] * 4, None),
+        ("zamba2 decode 4 slots mixed, cache 2048", 4, 32, 32, 2048, 112, [1, 517, 1024, 2048], None),
+        ("zamba2 decode 1 slot, 2048 keys", 1, 32, 32, 2048, 112, [2048], None),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for label, B, H, Hkv, S, D, lens, softcap in decode_cases:
@@ -448,9 +487,15 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 records["decode_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
                                                "bound_ms": bound_ms, "bound_by": bound_by,
                                                "library_ms": library_ms}
+            if label == zamba_main_decode and dtype == torch.bfloat16:
+                zamba["decode_attention"] = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms,
+                                             "zamba2_bound_ms": bound_ms, "zamba2_bound_by": bound_by,
+                                             "zamba2_library_ms": library_ms}
     decode_edges = [
         ("lengths 0 to S, softcap 30, D=64", 6, 16, 4, 2048, 64, [0, 1, 63, 64, 65, 2000], 30.0),
         ("cache of 100, D=256", 3, 8, 4, 100, 256, [100, 37, 0], None),
+        ("head width 16 (the reduced configs), cache 128", 4, 4, 4, 128, 16, [0, 5, 64, 128], None),
+        ("head width 16, GQA 4, softcap 30, cache 2048", 2, 8, 2, 2048, 16, [2048, 700], 30.0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for label, B, H, Hkv, S, D, lens, softcap in decode_edges:
@@ -462,8 +507,24 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                                  dtype)
             print(f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} "
                   f"(from f32 plain {err32:.3g})", flush=True)
+    # every head width the kernels take, at small shapes, held as above and
+    # not timed
+    for D in range(16, 257, 16):
+        for dtype in (torch.bfloat16, torch.float32):
+            kw = {"window": 50, "softcap": 30.0}
+            q, k, v = normal((2, 4, 77, D), dtype), normal((2, 2, 130, D), dtype), normal((2, 2, 130, D), dtype)
+            compare("flash_attention", f"flash D={D}", flash_attention_cuda(q, k, v, **kw),
+                    flash_attention_ref(q, k, v, **kw), flash_attention_ref(q.float(), k.float(), v.float(), **kw),
+                    dtype)
+            q, k, v = normal((3, 8, D), dtype), normal((3, 2, 300, D), dtype), normal((3, 2, 300, D), dtype)
+            lengths = torch.tensor([0, 150, 300], dtype=torch.int32, device=dev)
+            compare("decode_attention", f"decode D={D}", decode_attention_cuda(q, k, v, lengths, softcap=30.0),
+                    decode_attention_ref(q, k, v, lengths, softcap=30.0),
+                    decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=30.0), dtype)
+    print("flash and decode == plain at every head width 16-256 (step 16), bf16 and f32, GQA 2, "
+          "window 50 and softcap 30 (flash), lengths 0/150/300 and softcap 30 (decode)", flush=True)
     for name in records:
-        records[name]["max_abs_err"] = max_err[name]
+        records[name].update(zamba[name], max_abs_err=max_err[name])
     return records
 
 
@@ -489,11 +550,13 @@ def kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def serve_phase(arch: str, kernels: dict) -> dict:
-    """Phases 7 and 9: ``arch`` at full width served by the engine on the
-    card.  ``kernels`` maps each kernel of the path to its wrapper and what
-    it launches once per layer: every ``"prefill"`` or every decode
-    ``"tick"``.  Returns the launches of each kernel in the main run."""
+def serve_phase(arch: str, kernels: dict, cut: dict | None = None) -> dict:
+    """Phases 7, 9 and 10: ``arch`` at full width served by the engine on
+    the card.  ``kernels`` maps each kernel of the path to its wrapper, what
+    launches it (every ``"prefill"`` or every decode ``"tick"``) and how
+    many times each of those does.  ``cut`` replaces config fields for the
+    card-against-CPU check (default: 2 layers).  Returns the launches of
+    each kernel in the main run."""
     import dataclasses
 
     from repro_torch.models.registry import get_model
@@ -523,7 +586,7 @@ def serve_phase(arch: str, kernels: dict) -> dict:
     warm.run_until_done()
     del warm
 
-    for wrapper, _ in kernels.values():
+    for wrapper, _, _ in kernels.values():
         wrapper.launches = 0
     engine = ServeEngine(api, cfg, params, ecfg)
     reqs = requests()
@@ -534,15 +597,15 @@ def serve_phase(arch: str, kernels: dict) -> dict:
     engine.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: wrapper.launches for name, (wrapper, _) in kernels.items()}
+    launches = {name: wrapper.launches for name, (wrapper, _, _) in kernels.items()}
     st = engine.stats
     check(all(r.done and len(r.output) == SERVE["new_tokens"] for r in reqs),
           f"every request done with {SERVE['new_tokens']} tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output), "tokens in the vocabulary")
-    for name, (_, per) in kernels.items():
+    for name, (_, per, each) in kernels.items():
         count = len(reqs) if per == "prefill" else st.decode_ticks
-        check(launches[name] == cfg.num_layers * count,
-              f"{name} launches {launches[name]} == {cfg.num_layers} layers x {count} {per}s")
+        check(launches[name] == each * count,
+              f"{name} launches {launches[name]} == {each} a {per} x {count} {per}s")
     ttft = [r.first_token_at - t0 for r in reqs]
     out_tokens = sum(len(r.output) for r in reqs)  # the prefills' first tokens too
     print(f"serve: {len(reqs)} requests (prompts {lens.tolist()}), {SERVE['new_tokens']} new tokens each, "
@@ -598,8 +661,9 @@ def serve_phase(arch: str, kernels: dict) -> dict:
           f"{bool((l4 == l4[:1]).all())}); smallest gap between the alone run's two best logits "
           f"{min(gaps):.4g}", flush=True)
 
-    # the same width, 2 layers, on the card and on the CPU with the same weights
-    cut = dataclasses.replace(cfg, num_layers=2)
+    # the same width, cut to 2 layers, on the card and on the CPU with the
+    # same weights
+    cut = dataclasses.replace(cfg, **(cut or {"num_layers": 2}))
     t0 = time.perf_counter()
     on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
     on_gpu = api.init(torch.Generator().manual_seed(1), cut, device="cuda")
@@ -621,7 +685,7 @@ def serve_phase(arch: str, kernels: dict) -> dict:
             if step < 4:
                 lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cut)
                 lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cut)
-    print(f"serve: 2-layer full-width card vs CPU, prompts 128 and 1000, prefill + 4 decode steps: "
+    print(f"serve: {cut.num_layers}-layer full-width card vs CPU, prompts 128 and 1000, prefill + 4 decode steps: "
           f"max abs logit diff {worst:.4g} (bf16, tolerance 5e-2), greedy tokens agree {agree}/{total} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     del on_gpu
@@ -656,8 +720,9 @@ def ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
 
 def ssd_phase(prompt_lens: list[int]) -> dict:
     """Phase 8: the SSD kernel against its plain version on the card at
-    mamba2-780m's prefill shapes (H 48, P 64, N 128, G 1, chunk 128), timed
-    beside the plain version; returns the kernel's record.
+    mamba2-780m's prefill shapes (H 48, P 64, N 128, G 1, chunk 128) and at
+    zamba2-7b's (H 112, P 64, N 64, G 1), timed beside the plain version;
+    returns the kernel's record, with zamba2's times under ``zamba2_*`` keys.
 
     f32 inputs: y and the final state within atol = rtol = 3e-4 of the plain
     version, the reference's own chunked-against-sequential limit
@@ -682,15 +747,17 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    H, P, N = 48, 64, 128
-    # (label, B, L, G); per-head A and dt at the reference test's scales
-    cases = [(f"mamba2 prefill L={n}", 1, n, 1) for n in prompt_lens]
-    cases += [("L=1024 (8 whole chunks)", 1, 1024, 1), ("L=64 (under one chunk)", 1, 64, 1),
-              ("G=4 L=891", 1, 891, 4), ("B=4 L=512", 4, 512, 1)]
+    P = 64
+    # (label, B, L, G, H, N); per-head A and dt at the reference test's scales
+    cases = [(f"mamba2 prefill L={n}", 1, n, 1, 48, 128) for n in prompt_lens]
+    cases += [("L=1024 (8 whole chunks)", 1, 1024, 1, 48, 128), ("L=64 (under one chunk)", 1, 64, 1, 48, 128),
+              ("G=4 L=891", 1, 891, 4, 48, 128), ("B=4 L=512", 4, 512, 1, 48, 128)]
     main = f"mamba2 prefill L={max(prompt_lens)}"
-    record, max_err = None, 0.0
+    zamba_main = f"zamba2 prefill L={max(prompt_lens)}"
+    cases += [(zamba_main, 1, max(prompt_lens), 1, 112, 64), ("zamba2 L=64 (under one chunk)", 1, 64, 1, 112, 64)]
+    record, max_err, zamba = None, 0.0, {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, B, L, G in cases:
+        for label, B, L, G, H, N in cases:
             x = torch.randn(B, L, H, P, generator=gen, device=dev).to(dtype)
             dt = torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1 + 0.01
             A = -(torch.randn(H, generator=gen, device=dev).abs() + 0.2)
@@ -714,9 +781,12 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
             ms = cuda_ms(lambda: ssd_scan_cuda(*args), reps=20)
             plain_ms = cuda_ms(lambda: ssd_scan_ref(*args), reps=20)
             bound_ms, bound_by = ssd_bound_ms(x, G, N)
-            print(f"ssd {label} B={B} G={G} {str(dtype)[6:]}: max abs diff {err:.3g} (y from f32 plain "
+            print(f"ssd {label} B={B} G={G} H={H} N={N} {str(dtype)[6:]}: max abs diff {err:.3g} (y from f32 plain "
                   f"{err_y32:.3g}, state {err_s32:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            if label == zamba_main and dtype == torch.bfloat16:
+                zamba = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms, "zamba2_bound_ms": bound_ms,
+                         "zamba2_bound_by": bound_by, "zamba2_library_ms": None}
             if label == main and dtype == torch.bfloat16:
                 record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": None}
@@ -736,7 +806,7 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
                 print(f"ssd {label} bf16: {len(per_kernel)} device kernels per wrapper call (20 calls "
                       f"profiled): " + ", ".join(f"{k} {c} seen, {ms / c:.4f} ms each"
                                                  for k, (c, ms) in per_kernel.items()), flush=True)
-    record["max_abs_err"] = max_err
+    record.update(zamba, max_abs_err=max_err)
     return record
 
 
@@ -993,8 +1063,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    serve_launches = serve_phase("qwen2.5-3b", {"flash_attention": (flash_attention_cuda, "prefill"),
-                                                "decode_attention": (decode_attention_cuda, "tick")})
+    def layers(arch: str) -> int:
+        return get_model(arch).config.num_layers
+
+    qwen_launches = serve_phase("qwen2.5-3b", {
+        "flash_attention": (flash_attention_cuda, "prefill", layers("qwen2.5-3b")),
+        "decode_attention": (decode_attention_cuda, "tick", layers("qwen2.5-3b"))})
     phase_done(7, "qwen2.5-3b served at full width")
 
     # 8. the SSD kernel against its plain version ------------------------------------
@@ -1002,8 +1076,40 @@ def main() -> int:
     phase_done(8, "SSD kernel against its plain version")
 
     # 9. mamba2-780m served at full width: the ssm family's serving path -------------
-    serve_launches.update(serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill")}))
+    mamba_launches = serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill", layers("mamba2-780m"))})
     phase_done(9, "mamba2-780m served at full width")
+
+    # 10. zamba2-7b served at full width: the hybrid family's serving path ----------
+    from repro_torch.models.hybrid import num_shared_invocations
+
+    zamba_cfg = get_model("zamba2-7b").config
+    n_inv = num_shared_invocations(zamba_cfg)
+    zamba_launches = serve_phase("zamba2-7b", {
+        "ssd_scan": (ssd_scan_cuda, "prefill", zamba_cfg.num_layers),
+        "flash_attention": (flash_attention_cuda, "prefill", n_inv),
+        "decode_attention": (decode_attention_cuda, "tick", n_inv),
+    }, cut={"num_layers": 2, "hybrid_period": 2})  # one Mamba2 layer, then the shared block
+    phase_done(10, "zamba2-7b served at full width")
+
+    # 11. the serving CLI on the card, as a user runs it (reduced qwen2.5-3b:
+    # head width 16 through both attention kernels) -------------------------------
+    from repro_torch.launch import serve as serve_cli
+
+    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+    serve_cli.main(["--arch", "qwen2.5-3b", "--requests", "3"])
+    torch.cuda.synchronize()
+    cli_launches = {"flash_attention": flash_attention_cuda.launches,
+                    "decode_attention": decode_attention_cuda.launches}
+    check(all(n > 0 for n in cli_launches.values()), f"the CLI ran both attention kernels: {cli_launches}")
+    print(f"cli: launches {cli_launches}", flush=True)
+    phase_done(11, "the serving CLI on the card")
+
+    # each kernel's launches on each serving path, and their sum
+    by_path: dict[str, dict[str, int]] = {}
+    for path, run in (("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches),
+                      ("zamba2-7b", zamba_launches), ("cli", cli_launches)):
+        for name, n in run.items():
+            by_path.setdefault(name, {})[path] = n
 
     kernels = [{
         "name": "population_makespan",
@@ -1023,7 +1129,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": serve_launches[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             **attention[name],
         })
     kernels.append({
@@ -1031,7 +1138,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:96",
-        "launches": serve_launches["ssd_scan"],
+        "launches": sum(by_path["ssd_scan"].values()),
+        "launches_by_path": by_path["ssd_scan"],
         **ssd,
     })
     print(json.dumps({"kernels": kernels}))

@@ -46,6 +46,14 @@
 // the splits that hold keys, the first ceil(length / chunk), from the
 // lengths on the device (none: zeros).  All on the CUDA cores: the function
 // is bound by bytes.
+//
+// Head widths: every D that is a multiple of 16 from 16 to 256, as the TPU
+// kernel takes any D.  The split kernel is built for a padded width DP of
+// 64, 128, 192 or 256, the true D a runtime argument: its shared-memory
+// rows of q and k are DP wide, the pad zeroed once, so each lane reads an
+// even number of columns (DP / 32) of every row; cp.async copies only the D
+// columns of a row, and the product with v walks only D / 2 column pairs.
+// The combine runs D threads rounded up to whole warps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,23 +69,23 @@ constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T, int D>
+template <typename T, int DP>
 struct DecTile {
-  static constexpr int BK = 16384 / (D * static_cast<int>(sizeof(T))) < 64
-                                ? 16384 / (D * static_cast<int>(sizeof(T)))
+  static constexpr int BK = 16384 / (DP * static_cast<int>(sizeof(T))) < 64
+                                ? 16384 / (DP * static_cast<int>(sizeof(T)))
                                 : 64;  // keys per tile
-  static constexpr int kTileBytes = BK * D * static_cast<int>(sizeof(T));
-  static constexpr int V = D / 32;  // elements of a row per lane
+  static constexpr int kTileBytes = BK * DP * static_cast<int>(sizeof(T));
+  static constexpr int V = DP / 32;  // elements of a padded row per lane: 2, 4, 6 or 8
 };
 
 // Heads rounded up to a multiple of 4: the probabilities' row length.
 __host__ __device__ __forceinline__ int heads_padded(int G) { return (G + 3) / 4 * 4; }
 
-template <typename T, int D>
+template <typename T, int DP>
 size_t smem_bytes(int G) {
-  using C = DecTile<T, D>;
+  using C = DecTile<T, DP>;
   return 4 * static_cast<size_t>(C::kTileBytes) +
-         sizeof(float) * (2 * static_cast<size_t>(G) * D + heads_padded(G) * C::BK + 3 * G);
+         sizeof(float) * (2 * static_cast<size_t>(G) * DP + heads_padded(G) * C::BK + 3 * G);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -87,13 +95,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-// The first `rows` rows of a tile of k and of v into shared memory.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kg, const T* vg, int rows) {
-  constexpr int kPerRow = D * sizeof(T) / 16;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    cp_async16(reinterpret_cast<uint4*>(ks) + i, reinterpret_cast<const uint4*>(kg) + i);
-    cp_async16(reinterpret_cast<uint4*>(vs) + i, reinterpret_cast<const uint4*>(vg) + i);
+// The first `rows` rows of a tile of k and of v (rows of D elements) into
+// shared memory rows of DP elements.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kg, const T* vg, int rows, int D) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = D / kVec;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * kVec;
+    cp_async16(ks + r * DP + c, kg + static_cast<size_t>(r) * D + c);
+    cp_async16(vs + r * DP + c, vg + static_cast<size_t>(r) * D + c);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -121,40 +132,46 @@ __device__ __forceinline__ float2 to_float2(const __nv_bfloat16* src) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
+// Three blocks an SM, as many as their shared memory lets share one at the
+// serving shapes (75 KB at bf16, G 8, DP 128).  Without a block count ptxas
+// settled at 48 or 64 registers a thread and spilled at some widths.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 3) decode_attention_kernel(
     const T* __restrict__ q,          // [B, H, D]
     const T* __restrict__ k,          // [B, Hkv, S, D]
     const T* __restrict__ v,          // [B, Hkv, S, D]
     const int* __restrict__ lengths,  // [B]
     float* __restrict__ part_acc,     // [B, Hkv, splits, G, D]
     float* __restrict__ part_ml,      // [B, Hkv, splits, G, 2]: m, l
-    int H, int Hkv, int S, int chunk, float softcap, float scale) {
-  using C = DecTile<T, D>;
+    int H, int Hkv, int S, int D, int chunk, float softcap, float scale) {
+  using C = DecTile<T, DP>;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the combine may start
   const int G = H / Hkv, Gp = heads_padded(G);
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);                     // [2][BK][D]
-  T* vs = ks + 2 * C::BK * D;                                 // [2][BK][D]
-  float* qs = reinterpret_cast<float*>(vs + 2 * C::BK * D);  // [G][D], scaled
-  float* acc = qs + G * D;                                    // [G][D]
-  float* sp = acc + G * D;  // [BK][Gp] logits, then probabilities, heads fastest
+  T* ks = reinterpret_cast<T*>(smem_raw);                      // [2][BK][DP]
+  T* vs = ks + 2 * C::BK * DP;                                 // [2][BK][DP]
+  float* qs = reinterpret_cast<float*>(vs + 2 * C::BK * DP);  // [G][DP], scaled
+  float* acc = qs + G * DP;                                    // [G][D] (room for DP)
+  float* sp = acc + G * DP;  // [BK][Gp] logits, then probabilities, heads fastest
   float* m = sp + Gp * C::BK;  // [G]
   float* l = m + G;            // [G]
   float* corr = l + G;         // [G]
 
   const int len_raw = lengths[b];  // in flight while q loads
-  load_rows(qs, D, q + (static_cast<size_t>(b) * H + hk * G) * D, G, D, G, scale);
+  load_rows(qs, DP, q + (static_cast<size_t>(b) * H + hk * G) * D, G, D, G, scale);
   const int len = min(max(len_raw, 0), S);
   const int begin = split * chunk, end = min(begin + chunk, len);
   if (begin >= end) return;  // nothing of this sequence in the range: the combine skips it
+  const int pad = DP - D;  // the columns of a row past D: zeros in q and k
+  for (int i = threadIdx.x; i < 2 * C::BK * pad; i += kThreads) ks[(i / pad) * DP + D + i % pad] = T{};
+  for (int i = threadIdx.x; i < G * pad; i += kThreads) qs[(i / pad) * DP + D + i % pad] = 0.f;
 
   const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * S * D;
   const T* kb = k + kv_base + static_cast<size_t>(begin) * D;
   const T* vb = v + kv_base + static_cast<size_t>(begin) * D;
   const int n_tiles = (end - begin + C::BK - 1) / C::BK;
-  load_tile<T, D>(ks, vs, kb, vb, min(C::BK, end - begin));
+  load_tile<T, DP>(ks, vs, kb, vb, min(C::BK, end - begin), D);
   for (int i = threadIdx.x; i < G * D; i += kThreads) acc[i] = 0.f;
   for (int g = threadIdx.x; g < G; g += kThreads) {
     m[g] = kNeg;
@@ -165,13 +182,13 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   for (int t = 0; t < n_tiles; ++t) {
     const int c0 = begin + t * C::BK;
     const int valid = min(C::BK, end - c0);
-    const T* kt = ks + (t & 1) * C::BK * D;
-    const T* vt = vs + (t & 1) * C::BK * D;
+    const T* kt = ks + (t & 1) * C::BK * DP;
+    const T* vt = vs + (t & 1) * C::BK * DP;
     if (t + 1 < n_tiles) {  // the next tile's copies run while this one is used
       const int next = c0 + C::BK;
-      load_tile<T, D>(ks + ((t + 1) & 1) * C::BK * D, vs + ((t + 1) & 1) * C::BK * D,
-                      kb + static_cast<size_t>(next - begin) * D,
-                      vb + static_cast<size_t>(next - begin) * D, min(C::BK, end - next));
+      load_tile<T, DP>(ks + ((t + 1) & 1) * C::BK * DP, vs + ((t + 1) & 1) * C::BK * DP,
+                       kb + static_cast<size_t>(next - begin) * D,
+                       vb + static_cast<size_t>(next - begin) * D, min(C::BK, end - next), D);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -183,8 +200,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     for (int j = warp; j < valid; j += 2 * kWarps) {
       const bool two = j + kWarps < valid;  // the tile has a second key for this warp
       float k0[C::V], k1[C::V];
-      to_float(kt + j * D + lane * C::V, k0);
-      to_float(kt + (two ? j + kWarps : j) * D + lane * C::V, k1);
+      to_float(kt + j * DP + lane * C::V, k0);
+      to_float(kt + (two ? j + kWarps : j) * DP + lane * C::V, k1);
       for (int g0 = 0; g0 < G; g0 += 4) {
         float d0[4], d1[4];
 #pragma unroll
@@ -192,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
           d0[u] = d1[u] = 0.f;
           if (g0 + u < G) {
             float qx[C::V];
-            to_float(qs + (g0 + u) * D + lane * C::V, qx);
+            to_float(qs + (g0 + u) * DP + lane * C::V, qx);
 #pragma unroll
             for (int e = 0; e < C::V; ++e) {
               d0[u] = fmaf(qx[e], k0[e], d0[u]);
@@ -253,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       float a[4][2] = {};
       for (int j = 0; j < valid; ++j) {
         const float4 p = *reinterpret_cast<const float4*>(sp + j * Gp + g0);
-        const float2 x = to_float2(vt + j * D + c);
+        const float2 x = to_float2(vt + j * DP + c);
         const float pp[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -283,10 +300,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-// One block of D threads per (head, sequence): the partial states of the
-// splits that hold keys, a prefix of ceil(length / chunk), folded into the
-// output.  Their (m, l) are read in parallel into shared memory and turned
-// into weights e^(m_s - M) there; each thread then sums its column.
+// One block of D threads, rounded up to whole warps, per (head, sequence):
+// the partial states of the splits that hold keys, a prefix of
+// ceil(length / chunk), folded into the output.  Their (m, l) are read in
+// parallel into shared memory and turned into weights e^(m_s - M) there;
+// each of the first D threads then sums its column.
 template <typename T>
 __global__ void decode_attention_kernel_combine(const float* __restrict__ part_acc,
                                                 const float* __restrict__ part_ml,
@@ -320,6 +338,7 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
   for (int i = 0; i < (blockDim.x + 31) / 32; ++i) M = fmaxf(M, red[i]);
   for (int s = threadIdx.x; s < live; s += blockDim.x) w[s] = expf(w[s] - M);
   __syncthreads();
+  if (threadIdx.x >= D) return;
 
   const float* acc = part_acc + (slot0 * G + g) * D + threadIdx.x;
   float num = 0.f, den = 0.f;
@@ -331,29 +350,29 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
   store(o + (static_cast<size_t>(b) * H + h) * D + threadIdx.x, num / (den == 0.f ? 1.f : den));
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* o,
-                   float* scratch, int B, int H, int Hkv, int S, int splits, int chunk,
+                   float* scratch, int B, int H, int Hkv, int S, int D, int splits, int chunk,
                    float softcap, cudaStream_t stream) {
   const int G = H / Hkv;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const size_t smem = smem_bytes<T, D>(G);
-  cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, D>,
+  const size_t smem = smem_bytes<T, DP>(G);
+  cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   float* part_acc = scratch;
   float* part_ml = scratch + static_cast<size_t>(B) * H * splits * D;
-  decode_attention_kernel<T, D><<<dim3(splits, Hkv, B), kThreads, smem, stream>>>(
+  decode_attention_kernel<T, DP><<<dim3(splits, Hkv, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      part_acc, part_ml, H, Hkv, S, chunk, softcap, scale);
+      part_acc, part_ml, H, Hkv, S, D, chunk, softcap, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // launched while the split pass runs (programmatic dependent launch): its
   // blocks wait at griddepcontrol.wait, so its launch latency is hidden
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H, B);
-  cfg.blockDim = dim3(D);
+  cfg.blockDim = dim3((D + 31) / 32 * 32);
   cfg.dynamicSmemBytes = 2 * sizeof(float) * splits;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -372,28 +391,30 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* lengths,
                      void* o, float* scratch, int B, int H, int Hkv, int S, int splits, int chunk,
                      float softcap, cudaStream_t stream) {
-  switch (D) {
+  if (!takes_head_dim(D)) return cudaErrorInvalidValue;
+  switch (padded_width(D)) {
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, scratch, B, H, Hkv, S, splits, chunk, softcap, stream);
+      return launch<T, 64>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, scratch, B, H, Hkv, S, splits, chunk, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, lengths, o, scratch, B, H, Hkv, S, splits, chunk, softcap, stream);
+      return launch<T, 128>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
+    case 192:
+      return launch<T, 192>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch<T, 256>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
   }
 }
 
 }  // namespace
 
 // Dynamic shared memory of one block of the split kernel for a GQA group of
-// G heads of width D; 0 for a width the kernel is not built for.
+// G heads of width D; 0 for a width the kernel does not take.
 extern "C" long long decode_attention_smem(int G, int D, int bf16) {
-  switch (D) {
+  if (!takes_head_dim(D)) return 0;
+  switch (padded_width(D)) {
     case 64: return bf16 ? smem_bytes<__nv_bfloat16, 64>(G) : smem_bytes<float, 64>(G);
     case 128: return bf16 ? smem_bytes<__nv_bfloat16, 128>(G) : smem_bytes<float, 128>(G);
-    case 256: return bf16 ? smem_bytes<__nv_bfloat16, 256>(G) : smem_bytes<float, 256>(G);
-    default: return 0;
+    case 192: return bf16 ? smem_bytes<__nv_bfloat16, 192>(G) : smem_bytes<float, 192>(G);
+    default: return bf16 ? smem_bytes<__nv_bfloat16, 256>(G) : smem_bytes<float, 256>(G);
   }
 }
 

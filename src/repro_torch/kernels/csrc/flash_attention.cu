@@ -13,6 +13,15 @@
 // takes any Sq and Skv.  Fully masked kv tiles are skipped, as the TPU
 // kernel's pl.when does.
 //
+// Head widths.  The TPU kernel takes any D; this one takes every D that is
+// a multiple of 16 from 16 to 256 (wgmma's k16 steps).  Each kernel is built
+// for a padded width DP of 64, 128, 192 or 256 columns, the true D a
+// runtime argument: the columns from D to DP are zeros in shared memory and
+// are never stored.  The bf16 kernel's products both run over DP, so at
+// zamba2-7b's D 112 (DP 128) it does 8/7 of the products the function
+// needs: stopping the Q K^T steps at D on a runtime condition made ptxas
+// put warpgroup.arrive between the products and spill at DP 256.
+//
 // What bounds it on an H100.  The function needs 4 * D operations per
 // visible (query, key) pair and head, and reads q, k, v once and writes o
 // once.  At a prefill of qwen2.5-3b (H 16, Hkv 2, D 128) the operations at
@@ -22,9 +31,9 @@
 //
 // bfloat16: wgmma fed by TMA (flash_attention_kernel_bf16_wgmma).  A block
 // is one consumer warpgroup, which owns 64 query rows, and one producer
-// warp.  At D 64 and 128 two blocks share an SM, so one block's softmax
-// overlaps the other's products; at D 256 the O accumulator (128 registers
-// a thread) leaves room for one.  The producer loads the query tile once
+// warp.  At DP 64 and 128 two blocks share an SM, so one block's softmax
+// overlaps the other's products; at DP 192 the shared memory (121 KB) and
+// at DP 256 the O accumulator (128 registers a thread) leave room for one.  The producer loads the query tile once
 // and then each visible 64-key tile of k and v with TMA
 // (cp.async.bulk.tensor, 128-byte swizzle) into a ring of two stages,
 // signalled by mbarriers, so the next tile's loads overlap the current
@@ -32,14 +41,18 @@
 // [B*H, Sq, D] and [B*Hkv, Skv, D]: rows past Sq or Skv arrive as zeros and
 // never as the next head's rows.  The consumer computes
 // S = Q K^T with wgmma m64n64k16 (q and k are both K-major, D contiguous),
-// D/16 steps, each 128-byte box of a row reached through the descriptor's
-// start address.  The f32 S fragment holds, per thread, two rows' values at
-// the columns of the next product's register A fragment, so a row's max and
-// sum are two shuffles across a quad, and P goes to O += P V straight from
-// registers; V [keys, D] is the MN-major B operand (wgmma's transpose bit).
-// O stays in f32 registers, 32 per thread for each 64 columns of D.  Tiles
-// wholly inside the visible band skip the per-element mask.  Blocks start
-// with the last query tiles, which under the causal mask see the most keys.
+// DP/16 steps, each 128-byte box of a row reached through the descriptor's
+// start address.  A row of D columns arrives as ceil(D/64) boxes of 64: the
+// tensor maps' width is D, so the columns of the last box past D (all but
+// 16 of them at D 16) are filled with zeros by TMA.  The f32 S fragment
+// holds, per thread, two rows' values at the columns of the next product's
+// register A fragment, so a row's max and sum are two shuffles across a
+// quad, and P goes to O += P V straight from registers; V [keys, D] is the
+// MN-major B operand (wgmma's transpose bit).  O stays in f32 registers, 32
+// per thread for each 64 columns of DP; the store skips the columns past D.
+// Tiles wholly inside the visible band skip the per-element mask.  Blocks
+// start with the last query tiles, which under the causal mask see the most
+// keys.
 //
 // Precision.  chip_smoke.py holds a bf16 output within 2e-5 + 2^-8 |y| of
 // the plain version run in f32, and rounding the output to bf16 alone takes
@@ -53,13 +66,14 @@
 // about 2^-17, at 1.5 times the products of a single-P kernel, still on the
 // tensor cores.  Max, sum and accumulator stay f32; expf with no fast math.
 //
-// float32: the CUDA-core kernel (flash_attention_kernel), unchanged.  TF32
+// float32: the CUDA-core kernel (flash_attention_kernel).  TF32
 // tensor cores keep about 10 bits and cannot meet the f32 bound of 2e-5.  One
 // block of 128 threads per (query tile, head, batch) loops over the visible
 // kv tiles; tiles are loaded with 16-byte vector loads into f32 shared memory
 // (rows padded by one float); threads form 16 row groups of 8 lanes, so a
 // row's max and sum are three shuffles inside one warp; the accumulator
-// stays in registers, and D 256 halves the tile height to fit it.
+// stays in registers, and DP over 128 halves the tile height to fit it.  The
+// loops over D stop at the true width.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
@@ -81,16 +95,16 @@ constexpr float kNeg = -1e30f;
 
 constexpr int kThreads = 128;  // 16 row groups x 8 lanes
 
-template <int D>
+template <int DP>
 struct Tile {
-  static constexpr int BQ = D > 128 ? 32 : 64;  // query rows per block
-  static constexpr int BK = BQ;                 // kv rows per tile
-  static constexpr int RM = BQ / 16;            // rows per thread
-  static constexpr int CN = BK / 8;             // score columns per thread
-  static constexpr int DN = D / 8;              // output columns per thread
-  static constexpr int QS = D + 1;              // padded row stride of q and k
-  static constexpr int PS = BK + 1;             // padded row stride of p
-  static constexpr size_t smem = sizeof(float) * (BQ * QS + BK * QS + BK * D + BQ * PS);
+  static constexpr int BQ = DP > 128 ? 32 : 64;  // query rows per block
+  static constexpr int BK = BQ;                  // kv rows per tile
+  static constexpr int RM = BQ / 16;             // rows per thread
+  static constexpr int CN = BK / 8;              // score columns per thread
+  static constexpr int DN = DP / 8;              // output columns per thread, the first D / 8 real
+  static constexpr int QS = DP + 1;              // padded row stride of q and k
+  static constexpr int PS = BK + 1;              // padded row stride of p
+  static constexpr size_t smem = sizeof(float) * (BQ * QS + BK * QS + BK * DP + BQ * PS);
 };
 
 __device__ __forceinline__ float group_max(float x) {
@@ -105,19 +119,20 @@ __device__ __forceinline__ float group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q,  // [B, H, Sq, D]
     const T* __restrict__ k,  // [B, Hkv, Skv, D]
     const T* __restrict__ v,  // [B, Hkv, Skv, D]
     T* __restrict__ o,        // [B, H, Sq, D]
-    int H, int Hkv, int Sq, int Skv, int causal, int window, float softcap, float scale) {
-  using C = Tile<D>;
+    int H, int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap, float scale) {
+  using C = Tile<DP>;
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][QS]
   float* ks = qs + C::BQ * C::QS;   // [BK][QS]
-  float* vs = ks + C::BK * C::QS;   // [BK][D]
-  float* ps = vs + C::BK * D;       // [BQ][PS]
+  float* vs = ks + C::BK * C::QS;   // [BK][DP]
+  float* ps = vs + C::BK * DP;      // [BQ][PS]
+  const int dn = D / 8;             // this thread's real output columns
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -152,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int c0 = kt * C::BK;
     __syncthreads();  // the previous tile is consumed (and q is loaded)
     load_rows(ks, C::QS, kb + static_cast<size_t>(c0) * D, C::BK, D, Skv - c0, 1.f);
-    load_rows(vs, D, vb + static_cast<size_t>(c0) * D, C::BK, D, Skv - c0, 1.f);
+    load_rows(vs, DP, vb + static_cast<size_t>(c0) * D, C::BK, D, Skv - c0, 1.f);
     __syncthreads();
 
     float s[C::RM][C::CN];
@@ -214,7 +229,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       for (int i = 0; i < C::RM; ++i) pv[i] = ps[(rg * C::RM + i) * C::PS + c];
 #pragma unroll
       for (int j = 0; j < C::DN; ++j) {
-        const float vv = vs[c * D + cg + 8 * j];
+        if (j >= dn) break;
+        const float vv = vs[c * DP + cg + 8 * j];
 #pragma unroll
         for (int i = 0; i < C::RM; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -228,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float li = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int j = 0; j < C::DN; ++j)
-      store(ob + static_cast<size_t>(row) * D + cg + 8 * j, acc[i][j] / li);
+      if (j < dn) store(ob + static_cast<size_t>(row) * D + cg + 8 * j, acc[i][j] / li);
   }
 }
 
@@ -242,25 +258,25 @@ constexpr int kStages = 2;           // k/v tiles in flight
 constexpr int kBox = 64;             // bf16 columns per 128-byte TMA box
 constexpr int kTcThreads = 128 + 32;  // the consumer warpgroup, then the producer warp
 
-template <int D>
+template <int DP>
 struct TcTile {
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;  // one k or v tile
+  static constexpr int kBoxes = DP / kBox;
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kKVBytes = kBK * DP * 2;  // one k or v tile
   // [q][k0][v0][k1][v1] from a 1024-byte boundary (the swizzle's period),
   // then the mbarriers
   static constexpr int kBars = kQBytes + 2 * kStages * kKVBytes;
   static constexpr size_t smem = 1024 + kBars + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_kernel_bf16_wgmma(
     const __grid_constant__ CUtensorMap q_map,  // [B*H, Sq, D]
     const __grid_constant__ CUtensorMap k_map,  // [B*Hkv, Skv, D]
     const __grid_constant__ CUtensorMap v_map,  // [B*Hkv, Skv, D]
     __nv_bfloat16* __restrict__ o,              // [B, H, Sq, D]
-    int H, int Hkv, int Sq, int Skv, int causal, int window, float softcap, float scale) {
-  using C = TcTile<D>;
+    int H, int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap, float scale) {
+  using C = TcTile<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -331,11 +347,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_kernel_bf16_wgm
     const int c0 = (kt_begin + it) * kBK;
     mbar_wait(full(s), (it / kStages) & 1);
 
-    // S = Q K^T over D / 16 steps
+    // S = Q K^T over DP / 16 steps: those past D multiply zeros
     float sc[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t step = (kk % 4) * 32u;  // 16 columns into the 128-byte box
       wgmma_ss(sc, smem_desc(sq + (kk / 4) * kBQ * 128 + step),
                smem_desc(sk(s) + (kk / 4) * kBK * 128 + step), kk > 0);
@@ -399,7 +415,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_kernel_bf16_wgm
     l0 = corr0 * l0 + ps0;
     l1 = corr1 * l1 + ps1;
 
-    // O = corr O + p_hi V + p_lo V, 64 columns of D at a time
+    // O = corr O + p_hi V + p_lo V, 64 columns of DP at a time
 #pragma unroll
     for (int x = 0; x < C::kBoxes; ++x) {
 #pragma unroll
@@ -432,8 +448,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_kernel_bf16_wgm
     for (int i = 0; i < 32; i += 2) {
       const int row = (i & 2) ? row1 : row0;
       const float inv = (i & 2) ? inv1 : inv0;
-      if (row < Sq) {
-        const int col = x * kBox + 8 * (i / 4) + quad;
+      const int col = x * kBox + 8 * (i / 4) + quad;  // even, as D is: a pair is in or out
+      if (row < Sq && col < D) {
         *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(row) * D + col) =
             __floats2bfloat162_rn(acc[x][i] * inv, acc[x][i + 1] * inv);
       }
@@ -469,7 +485,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A map of the bf16 tensor [planes, rows, D] in boxes of 64 rows x 64
-// columns, 128-byte swizzled; rows past the end read as zeros.
+// columns, 128-byte swizzled; rows and columns past the end read as zeros
+// (a box is wider than D at D < 64).
 bool bf16_map(CUtensorMap* map, const void* base, int D, int rows, int planes) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(planes)};
@@ -483,11 +500,11 @@ bool bf16_map(CUtensorMap* map, const void* base, int D, int rows, int planes) {
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Hkv, int Sq, int Skv, int causal, int window, float softcap,
+                        int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap,
                         cudaStream_t stream) {
-  using C = TcTile<D>;
+  using C = TcTile<DP>;
   if (Skv == 0)  // no row sees a key
     return cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Sq * D * 2, stream);
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
@@ -496,53 +513,56 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       !bf16_map(&vm, v, D, Skv, B * Hkv))
     return cudaErrorInvalidValue;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel_bf16_wgmma<D>,
+  const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel_bf16_wgmma<DP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(C::smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel_bf16_wgmma<D><<<grid, kTcThreads, C::smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Skv, causal, window, softcap, scale);
+  flash_attention_kernel_bf16_wgmma<DP><<<grid, kTcThreads, C::smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Skv, D, causal, window, softcap,
+      scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                       int Sq, int Skv, int causal, int window, float softcap, cudaStream_t stream) {
-  using C = Tile<D>;
+                       int Sq, int Skv, int D, int causal, int window, float softcap,
+                       cudaStream_t stream) {
+  using C = Tile<DP>;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel<float, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_attention_kernel<float, D><<<grid, kThreads, C::smem, stream>>>(
+  flash_attention_kernel<float, DP><<<grid, kThreads, C::smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Hkv, Sq, Skv, causal, window, softcap, scale);
+      static_cast<float*>(o), H, Hkv, Sq, Skv, D, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch(int bf16, const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Hkv, int Sq, int Skv, int causal, int window, float softcap,
+                   int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap,
                    cudaStream_t stream) {
-  return bf16 ? launch_bf16<D>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream)
-              : launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, stream);
+  return bf16 ? launch_bf16<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, stream)
+              : launch_f32<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, stream);
 }
 
 }  // namespace
 
-// Head widths the kernel is built for.
-extern "C" int flash_attention_supports(int D) { return D == 64 || D == 128 || D == 256; }
+// Head widths the kernel takes: multiples of 16 from 16 to 256.
+extern "C" int flash_attention_supports(int D) { return takes_head_dim(D); }
 
 // Dynamic shared memory of one block at head width D, for bf16 (wgmma) or
-// f32 (CUDA cores) tensors; 0 for a width the kernel is not built for.
+// f32 (CUDA cores) tensors; 0 for a width the kernel does not take.
 extern "C" long long flash_attention_smem(int D, int bf16) {
-  switch (D) {
+  if (!flash_attention_supports(D)) return 0;
+  switch (padded_width(D)) {
     case 64: return bf16 ? TcTile<64>::smem : Tile<64>::smem;
     case 128: return bf16 ? TcTile<128>::smem : Tile<128>::smem;
-    case 256: return bf16 ? TcTile<256>::smem : Tile<256>::smem;
-    default: return 0;
+    case 192: return bf16 ? TcTile<192>::smem : Tile<192>::smem;
+    default: return bf16 ? TcTile<256>::smem : Tile<256>::smem;
   }
 }
 
@@ -553,12 +573,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int Hkv, int Sq, int Skv, int D, int bf16, int causal, int window,
                                float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flash_attention_supports(D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  switch (D) {
-    case 64: e = launch<64>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
-    case 128: e = launch<128>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
-    case 256: e = launch<256>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal, window, softcap, s); break;
-    default: e = cudaErrorInvalidValue;
+  switch (padded_width(D)) {
+    case 64: e = launch<64>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
+    case 128: e = launch<128>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
+    case 192: e = launch<192>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
+    default: e = launch<256>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s);
   }
   return static_cast<int>(e);
 }

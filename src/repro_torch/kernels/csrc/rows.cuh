@@ -1,6 +1,7 @@
-// Row loads and stores shared by the kernels: rows of float32 or
-// bfloat16 read with 16-byte vector loads into float32 shared memory, and
-// float32 results stored as either type (bf16 rounded to nearest even).
+// Row loads and stores shared by the kernels, and the head widths the
+// attention kernels take: rows of float32 or bfloat16 read with 16-byte
+// vector loads into float32 shared memory, and float32 results stored as
+// either type (bf16 rounded to nearest even).
 
 #pragma once
 
@@ -8,6 +9,12 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// Head widths the attention kernels take: multiples of 16 (wgmma's k16
+// steps) from 16 to 256, each held in a padded width of 64, 128, 192 or
+// 256 columns.
+__host__ __device__ constexpr bool takes_head_dim(int D) { return D >= 16 && D <= 256 && D % 16 == 0; }
+__host__ __device__ constexpr int padded_width(int D) { return (D + 63) / 64 * 64; }
 
 __device__ __forceinline__ void unpack(const uint4& raw, float* x, const float*) {
   const float* f = reinterpret_cast<const float*>(&raw);

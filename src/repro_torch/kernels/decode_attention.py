@@ -30,7 +30,13 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import _NEG, check_alignment, check_attention_args
+from repro_torch.kernels.flash_attention import (
+    _NEG,
+    MAX_HEAD_DIM,
+    check_alignment,
+    check_attention_args,
+    kernel_takes_head_dim,
+)
 
 _MAX_GRID_YZ = 65535
 SPLIT_RANGE = 64  # keys per split are a multiple of this
@@ -52,11 +58,12 @@ def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple[int, int
 
 
 def check_decode_launch(B: int, Hkv: int, D: int) -> None:
-    """Raise on what the split-KV kernel is not built for: head widths other
-    than 64, 128 and 256, and a batch or kv-head count beyond the grid's
-    y and z limits."""
-    if D not in (64, 128, 256):
-        raise ValueError(f"the decode kernel is built for head widths 64, 128 and 256, not {D}")
+    """Raise on what the split-KV kernel does not take: a head width that is
+    not a multiple of 16 from 16 to 256, and a batch or kv-head count beyond
+    the grid's y and z limits."""
+    if not kernel_takes_head_dim(D):
+        raise ValueError(f"the decode kernel takes head widths that are multiples of 16 from 16 "
+                         f"to {MAX_HEAD_DIM}, not {D}")
     if B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or kv heads {Hkv} exceed the kernel grid's {_MAX_GRID_YZ}")
 
@@ -137,8 +144,8 @@ def decode_attention_cuda(
 
     Takes contiguous float32 or bfloat16 tensors of one dtype and contiguous
     int32 lengths, all on one device, on the CPU as on the card, and raises
-    on anything else; on the card also on head widths the kernel is not
-    built for (64, 128, 256), on a GQA group whose tiles exceed the card's
+    on anything else; on the card also on head widths the kernel does not
+    take (:func:`check_decode_launch`), on a GQA group whose tiles exceed the card's
     shared memory and on grids beyond the launch limits.  The partial
     softmax states of the splits go to f32 scratch allocated here."""
     check_attention_args(q, k_cache, v_cache, q_dims=3, window=None, softcap=softcap)

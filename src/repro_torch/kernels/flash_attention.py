@@ -17,7 +17,9 @@ and a logit softcap (``c * tanh(s / c)``), all in f32:
   runs the plain version, on CUDA tensors it launches the kernel or raises.
   ``flash_attention_cuda.launches`` counts its kernel launches.
 
-Unlike the TPU kernel, both take any ``Sq`` and ``Skv``.
+Unlike the TPU kernel, both take any ``Sq`` and ``Skv``.  The TPU kernel
+takes any head width D; the CUDA kernel takes every multiple of 16 from 16 to
+:data:`MAX_HEAD_DIM` (:func:`kernel_takes_head_dim`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,13 @@ from repro_torch.kernels import _build
 _NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
+MAX_HEAD_DIM = 256  # the widest head the CUDA kernels take
+
+
+def kernel_takes_head_dim(D: int) -> bool:
+    """Whether the CUDA attention kernels (flash and decode) take head
+    width ``D``: a multiple of 16 (wgmma's k16 steps) from 16 to 256."""
+    return 16 <= D <= MAX_HEAD_DIM and D % 16 == 0
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int | None,
@@ -148,16 +157,17 @@ def flash_attention_cuda(
 
     Takes contiguous float32 or bfloat16 tensors of one dtype on one device,
     on the CPU as on the card, and raises on anything else; on the card also
-    on head widths the kernel is not built for (64, 128, 256) and on grids
-    beyond the launch limits."""
+    on head widths the kernel does not take (:func:`kernel_takes_head_dim`)
+    and on grids beyond the launch limits."""
     check_attention_args(q, k, v, q_dims=4, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    if not kernel_takes_head_dim(D):
+        raise ValueError(f"the flash kernel takes head widths that are multiples of 16 from 16 "
+                         f"to {MAX_HEAD_DIM}, not {D}")
     lib = _library()
-    if not lib.flash_attention_supports(D):
-        raise ValueError(f"the flash kernel is built for head widths 64, 128 and 256, not {D}")
     if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or heads {H} exceed the kernel grid's {_MAX_GRID_YZ}")
     check_alignment(q, k, v)

@@ -3,8 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
 
-Runs on the card unless ``--device cpu`` asks for the CPU.
+Runs on the card unless ``--device cpu`` asks for the CPU.  On the card the
+reduced ssm and hybrid configs (mamba2-780m, zamba2-7b) are refused by the
+SSD kernel, which takes chunk 128, state width 64 or 128 and head width a
+multiple of 32; the reduced configs have 16 for each.
 """
 
 from __future__ import annotations

@@ -4,11 +4,13 @@ The reference keeps a model's parameters as a pytree, ``{"embed": {"tok",
 "unembed"?}, "blocks": ..., "ln_final": {"scale"}}``, with the layers
 stacked on a leading axis of each leaf: for a dense transformer ``blocks``
 is one dict per window slot, each leaf with a leading layer-group axis; for
-the ssm family it is one dict ``{"ln", "mamba"}`` with a leading layer axis.
-The port's modules name their parameters by the same keys and give the
-stacked axis as a module index: ``blocks.<slot>.<group>.<path>``
+the ssm and hybrid families it is one dict ``{"ln", "mamba"}`` with a
+leading layer axis, and the hybrid's ``shared`` block is not stacked.  The
+port's modules name their parameters by the same keys and give the stacked
+axis as a module index: ``blocks.<slot>.<group>.<path>``
 (:class:`~repro_torch.models.transformer.Transformer`) or
-``blocks.<layer>.<path>`` (:class:`~repro_torch.models.ssm.Mamba2LM`).
+``blocks.<layer>.<path>`` (:class:`~repro_torch.models.ssm.Mamba2LM`,
+:class:`~repro_torch.models.hybrid.HybridLM`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
 
@@ -59,14 +62,18 @@ def _unstack(stack: Mapping) -> dict:
 
 
 def params_from_arrays(tree: Mapping, cfg: ModelConfig,
-                       device: torch.device | str = "cuda") -> Transformer | Mamba2LM:
+                       device: torch.device | str = "cuda") -> Transformer | Mamba2LM | HybridLM:
     """The port's parameters holding the values of the reference pytree
-    ``tree`` of a dense or ssm model, in ``cfg.dtype`` on ``device`` (f32
-    where the model keeps a parameter in f32)."""
+    ``tree`` of a dense, ssm or hybrid model, in ``cfg.dtype`` on ``device``
+    (f32 where the model keeps a parameter in f32)."""
     flat = {"embed": tree["embed"], "ln_final": tree["ln_final"]}
     if cfg.family == "ssm":
         flat["blocks"] = _unstack(tree["blocks"])
         params = Mamba2LM(cfg, torch.device("meta"))
+    elif cfg.family == "hybrid":
+        flat["blocks"] = _unstack(tree["blocks"])
+        flat["shared"] = tree["shared"]
+        params = HybridLM(cfg, torch.device("meta"))
     else:
         flat["blocks"] = {str(slot): _unstack(stack) for slot, stack in enumerate(tree["blocks"])}
         params = Transformer(cfg, torch.device("meta"))

@@ -198,6 +198,18 @@ def attention_forward(
     return linear(p.o, o), (kc, vc)
 
 
+def write_prompt_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write a prompt's keys or values ``src [B, Hkv, S, D]`` into the cache
+    ``dst [B, Hkv, cap, D]`` in place: positions ``0 .. S-1`` when they fit,
+    else the last ``cap`` of them laid out as the ring buffer a decode step
+    continues (position ``p`` at slot ``p % cap``)."""
+    S, cap = src.shape[2], dst.shape[2]
+    if S >= cap:
+        dst.copy_(torch.roll(src[:, :, S - cap:], S % cap, dims=2))
+    else:
+        dst[:, :, :S].copy_(src)
+
+
 def attention_decode(
     p: Attention,
     x: torch.Tensor,  # [B, 1, d]: one new token

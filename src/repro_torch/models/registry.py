@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the serving CLI.
 
 Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
-on the CPU, and its family module.  The port has the dense and ssm
-families; the reference's other architectures raise :class:`KeyError`
+on the CPU, and its family module.  The port has the dense, ssm and
+hybrid families; the reference's other architectures raise :class:`KeyError`
 naming the ROADMAP item that ports them.  The reference's dry-run specs (``batch_specs``,
 ``param_specs``, ``cache_specs``) belong to ``launch/dryrun``, not ported
 yet.
@@ -23,6 +23,7 @@ ARCH_MODULES: dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
@@ -30,8 +31,6 @@ ALL_ARCHS = tuple(ARCH_MODULES)
 # the reference's other architectures, and where ROADMAP ports them
 NOT_PORTED: dict[str, str] = {
     "deepseek-67b": "Queue A item 8 (dense, but 134 GB in bf16: needs the sharded path)",
-    "zamba2-7b": ("Queue A item 8 (the hybrid family; its shared attention's head width 112 "
-                  "is not one the flash and decode kernels are built for)"),
     "qwen3-moe-30b-a3b": "Queue A item 8 (the MoE family)",
     "mixtral-8x7b": "Queue A item 8 (the MoE family)",
     "whisper-base": "Queue A item 8 (the encdec family)",
@@ -41,6 +40,7 @@ NOT_PORTED: dict[str, str] = {
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "ssm": "repro_torch.models.ssm",
+    "hybrid": "repro_torch.models.hybrid",
 }
 
 

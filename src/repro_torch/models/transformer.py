@@ -155,12 +155,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(params.embed, tokens, cfg)
     for grp, s, w, p in _layers(params, cfg):
         x, (kc, vc) = _block_forward(p, x, cfg, w)
-        for dst, src in ((cache["kv"][s]["k"][grp], kc), (cache["kv"][s]["v"][grp], vc)):
-            cap = dst.shape[2]
-            if S >= cap:  # keep the last `cap` positions, ring-consistently
-                dst.copy_(torch.roll(src[:, :, S - cap:], S % cap, dims=2))
-            else:
-                dst[:, :, :S].copy_(src)
+        L.write_prompt_kv(cache["kv"][s]["k"][grp], kc)
+        L.write_prompt_kv(cache["kv"][s]["v"][grp], vc)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x[:, -1:], cfg)[:, 0]
     return logits, {"kv": cache["kv"], "pos": S}

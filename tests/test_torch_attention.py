@@ -52,6 +52,8 @@ def _close(port, reference, tol):
     (1, 4, 4, 128, 32),    # MHA
     (2, 4, 2, 128, 64),    # GQA 2x
     (1, 8, 2, 256, 32),    # GQA 4x
+    (2, 4, 2, 128, 16),    # the reduced configs' head width
+    (1, 4, 4, 128, 112),   # zamba2-7b's head width, no GQA
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_pallas_shapes_dtypes(B, H, Hkv, S, D, dtype):
@@ -118,6 +120,8 @@ def test_flash_plain_matches_oracle_at_ragged_lengths(Sq, Skv, kw, dtype):
 @pytest.mark.parametrize("B,H,Hkv,S,D", [
     (1, 4, 4, 256, 32),
     (3, 8, 2, 512, 64),
+    (2, 8, 2, 256, 16),    # the reduced configs' head width
+    (2, 4, 4, 256, 112),   # zamba2-7b's head width, no GQA
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas_shapes_dtypes(B, H, Hkv, S, D, dtype):

@@ -11,10 +11,14 @@ plain versions there).  What can be held here is each design's arithmetic:
   within 2e-5 + 2**-8 |y| (the bound ``chip_smoke.py`` puts on the kernel:
   the f32 summation-order slack plus half a bf16 step at y), and to the
   Pallas kernel in interpret mode within the bf16 tolerance of
-  tests/test_torch_attention.py;
+  tests/test_torch_attention.py.  A head width D under the kernel's padded
+  width DP (64, 128, 192, 256) reaches shared memory with the columns D..DP
+  zero (TMA's fill), both products run over DP and the store keeps D
+  columns; the logits stay scaled by ``D**-0.5``;
 * the split-KV decode kernel's plan (:func:`decode_split_plan`, which the
   wrapper calls) and its split-then-combine arithmetic, held to
-  ``decode_attention_ref`` within 2e-6 (f32 summation order).
+  ``decode_attention_ref`` within 2e-6 (f32 summation order), also with
+  the rows of q and k zero-padded to DP as the kernel holds them.
 """
 
 import numpy as np
@@ -43,20 +47,33 @@ def _bf16(seed, shapes):
     return xs, [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in xs]
 
 
+def padded_width(D: int) -> int:
+    """The width the kernels are built for that holds head width D."""
+    return -(-D // 64) * 64
+
+
+def zero_pad(x: torch.Tensor) -> torch.Tensor:
+    """Rows of D columns as the kernels hold them: DP columns, zeros past D."""
+    return torch.nn.functional.pad(x, (0, padded_width(x.shape[-1]) - x.shape[-1]))
+
+
 def tensor_core_flash(q, k, v, *, causal=True, window=None, softcap=None):
     """The wgmma kernel's arithmetic on bf16 q [B, H, Sq, D], k, v [B, Hkv,
-    Skv, D]; returns the f32 result before its rounding to bf16."""
-    B, H, Sq, D = q.shape
+    Skv, D]; returns the f32 result before its rounding to bf16.  The
+    products run over the padded width, the store keeps D columns."""
+    D = q.shape[-1]
+    q, k, v = zero_pad(q), zero_pad(k), zero_pad(v)
+    B, H, Sq, DP = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     idx = torch.arange(H) // (H // Hkv)
     qf, kf, vf = q.float(), k.float()[:, idx], v.float()[:, idx]
     mask = attention_mask(Sq, Skv, causal=causal, window=window)
-    out = torch.zeros(B, H, Sq, D)
+    out = torch.zeros(B, H, Sq, DP)
     for q0 in range(0, Sq, TILE):
         rows = slice(q0, q0 + TILE)
         m = torch.full((B, H, qf[:, :, rows].shape[2], 1), -1e30)
         l = torch.zeros_like(m)
-        acc = torch.zeros(B, H, m.shape[2], D)
+        acc = torch.zeros(B, H, m.shape[2], DP)
         for c0 in range(0, Skv, TILE):
             cols = slice(c0, c0 + TILE)
             vis = mask[rows, cols]
@@ -75,7 +92,7 @@ def tensor_core_flash(q, k, v, *, causal=True, window=None, softcap=None):
             acc = corr * acc + p_hi @ vf[:, :, cols] + p_lo @ vf[:, :, cols]
             m = m_new
         out[:, :, rows] = acc / torch.where(l == 0, 1.0, l)
-    return out
+    return out[..., :D]
 
 
 FLASH_CASES = {
@@ -85,6 +102,10 @@ FLASH_CASES = {
     "gemma2-like S=300 window 100 softcap 50": ((1, 4, 2, 300, 300, 256), dict(window=100, softcap=50.0)),
     # a chunked prefill: keys before the query rows
     "chunk Sq=100 Skv=356": ((2, 4, 2, 100, 356, 64), {}),
+    # zamba2-7b's shared attention at its longest serving prompt: D 112 of DP 128
+    "zamba2 S=891 D=112": ((1, 32, 32, 891, 891, 112), {}),
+    # the reduced configs' head width: D 16 of DP 64
+    "reduced S=77 D=16 window 20 softcap 30": ((2, 4, 2, 77, 77, 16), dict(window=20, softcap=30.0)),
 }
 
 
@@ -117,7 +138,9 @@ def test_rounding_p_to_bf16_alone_would_miss_the_bound():
 @pytest.mark.parametrize("case", [
     ((1, 16, 2, 256, 128), {}),                                   # qwen's heads
     ((1, 4, 2, 256, 256), dict(window=100, softcap=50.0)),        # gemma2-like
-], ids=["qwen-heads-S256", "gemma2-like-window-softcap"])
+    ((1, 4, 4, 256, 112), {}),                                    # zamba2's head width
+    ((2, 4, 2, 128, 16), {}),                                     # the reduced head width
+], ids=["qwen-heads-S256", "gemma2-like-window-softcap", "zamba2-width-112", "reduced-width-16"])
 def test_tensor_core_numerics_match_the_pallas_kernel(case):
     (B, H, Hkv, S, D), kw = case
     (q, k, v), (jq, jk, jv) = _bf16(S + D, [(B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)])
@@ -155,14 +178,18 @@ def test_split_plan_fills_the_card_at_the_serving_shape():
     assert decode_split_plan(1, 2, 2048, 132) == (32, 64)  # one slot: 64 blocks, not 2
 
 
-def split_then_combine(q, k, v, lengths, *, softcap=None, sm_count=132):
+def split_then_combine(q, k, v, lengths, *, softcap=None, sm_count=132, pad=False):
     """The split kernel's partial states over the plan's ranges and the
-    combine kernel's fold, in f32; returns the result before its rounding."""
+    combine kernel's fold, in f32; returns the result before its rounding.
+    ``pad``: the logits over rows of q and k zero-padded to the kernel's
+    width DP, as its shared memory holds them."""
     B, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
     splits, chunk = decode_split_plan(B, Hkv, S, sm_count)
     qs = (q.float() * D**-0.5).reshape(B, Hkv, G, D)
+    if pad:
+        qs, k = zero_pad(qs), zero_pad(k)
     out = torch.zeros(B, Hkv, G, D)
     for b in range(B):
         n = min(max(int(lengths[b]), 0), S)
@@ -201,24 +228,40 @@ def test_split_then_combine_equals_the_plain_version(dtype, softcap, sm_count):
     assert torch.equal(out[0], torch.zeros_like(out[0]))  # no visible key gives zeros
 
 
-@pytest.mark.parametrize("B,Hkv,D", [(2, 2, 96), (2, 2, 32), (65536, 1, 128), (1, 65536, 64)],
-                         ids=["width-96", "width-32", "batch", "kv-heads"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 32, 112), (8, 2, 16)], ids=["zamba2-width-112", "width-16"])
+def test_split_then_combine_at_padded_widths(H, Hkv, D, dtype):
+    """Rows of q and k padded with zeros to DP (128 at D 112, 64 at D 16)
+    give the plain version's logits; zamba2's 32 kv heads of one query each
+    at 4 slots, and a GQA group at the reduced width."""
+    S = 2048
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)
+               for s in [(4, H, D), (4, Hkv, S, D), (4, Hkv, S, D)])
+    lengths = torch.tensor([892, 1, 517, S], dtype=torch.int32)
+    out = split_then_combine(q, k, v, lengths, pad=True)
+    ref = decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+    torch.testing.assert_close(out, ref, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("B,Hkv,D", [(2, 2, 120), (2, 2, 8), (65536, 1, 128), (1, 65536, 64)],
+                         ids=["width-120", "width-8", "batch", "kv-heads"])
 def test_decode_launch_check_refuses(B, Hkv, D):
     with pytest.raises(ValueError):
         check_decode_launch(B, Hkv, D)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 16, 112])
 def test_decode_launch_check_takes_the_built_widths(D):
     check_decode_launch(4, 2, D)
     check_decode_launch(65535, 65535, D)
 
 
 def test_cpu_decode_wrapper_takes_widths_the_kernel_does_not():
-    """On the CPU the wrapper runs the plain version at any width; the
-    kernel's own limits apply on the card only."""
+    """On the CPU the wrapper runs the plain version at any width (here
+    40, no multiple of 16); the kernel's own limits apply on the card only."""
     rng = np.random.default_rng(12)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-               for s in [(2, 4, 32), (2, 2, 40, 32), (2, 2, 40, 32)])
+               for s in [(2, 4, 40), (2, 2, 40, 40), (2, 2, 40, 40)])
     lengths = torch.tensor([3, 40], dtype=torch.int32)
     assert torch.equal(decode_attention_cuda(q, k, v, lengths), decode_attention_ref(q, k, v, lengths))

@@ -310,7 +310,7 @@ def test_cli_serves_on_the_cpu(arch, capsys):
 
 def test_cli_and_registry_refuse_what_is_not_ported():
     with pytest.raises(SystemExit):
-        serve_cli.main(["--device", "cpu", "--arch", "zamba2-7b"])
+        serve_cli.main(["--device", "cpu", "--arch", "mixtral-8x7b"])
     for arch, item in NOT_PORTED.items():
         with pytest.raises(KeyError, match="ROADMAP"):
             get_model(arch)
