@@ -65,7 +65,23 @@ result line:
     decode; the card-against-CPU cut is 2 layers with the shared block
     after the second;
 11. the serving CLI (``repro_torch.launch.serve``) with no ``--device``:
-    reduced qwen2.5-3b, head width 16, through both attention kernels.
+    reduced qwen2.5-3b, head width 16, through both attention kernels;
+12. PSO, SA and ACO at Table IX 500x500 with the reference's defaults (PSO
+    64 particles x 60 iterations, SA 32 chains x 200 steps, ACO 48 ants x
+    60 iterations): each once through the kernel and once through the
+    plain version on the card from the same seed, which must agree bit for
+    bit in the best assignment and the history; exactly 61 / 201 / 60
+    kernel launches; a valid schedule whose f32 oracle re-score equals the
+    kernel's makespan; a ``torch.profiler`` pass over a warm run of each;
+    HEFT and OLB on the same instance beside them;
+13. the scenario path: an MRI scenario (technique ``auto``: the policy
+    routes it to the MILP) and a Table IX scenario (``auto``: GA at 500 <=
+    600 tasks) saved as JSON and run through ``python -m repro_torch run``
+    in a child process (MRI's makespan within one f64 ulp of 10; the GA
+    schedule executed, which needs it valid); the Table IX scenario again
+    in this process through ``run_scenario`` (61 launches), the
+    ``solve_problems`` GA over phase 4's 8 instances (61 batched launches)
+    and an MRI scenario whose slow node triggers a re-solve.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -75,6 +91,7 @@ CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -791,7 +808,9 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
                 record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": None}
                 # the device kernels one wrapper call runs, and each one's time
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # with the CPU activity too: with CUDA alone the profiler of
+                # torch 2.11 recorded no device kernel (the count read 0)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(20):
                         ssd_scan_cuda(*args)
                     torch.cuda.synchronize()
@@ -808,6 +827,165 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
                                                  for k, (c, ms) in per_kernel.items()), flush=True)
     record.update(zamba, max_abs_err=max_err)
     return record
+
+
+MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launches a run
+    "pso": ({"pop_size": 64, "iterations": 60}, 61),
+    "sa": ({"chains": 32, "steps": 200}, 201),
+    "aco": ({"ants": 48, "iterations": 60}, 60),
+}
+
+
+def makespan_class(name: str) -> str:
+    """The makespan kernels (``void (anonymous namespace)::population_makespan_...``)
+    against the rest."""
+    return "makespan kernel" if "population_makespan" in name else "other"
+
+
+def metaheuristics_phase(problem, ga_result) -> dict[str, int]:
+    """Phase 12: PSO, SA and ACO at Table IX through the kernel, held to
+    the same runs through the plain version on the card; each one's
+    launches, validity and a profiled warm run.  Returns the launches."""
+    from repro_torch.core import evaluate_assignment, verify_schedule
+    from repro_torch.core.heuristics import heft, olb
+    from repro_torch.core.metaheuristics import TECHNIQUES
+    from repro_torch.engine import population_fitness_fn
+    from repro_torch.kernels.makespan import population_makespan_cuda
+
+    out: dict[str, int] = {}
+    profiles: dict[str, dict] = {}
+    for tech, (opts, want) in MH.items():
+        fn = TECHNIQUES[tech]
+        population_makespan_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = fn(problem, backend="auto", device="cuda", seed=0, **opts)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        out[tech] = population_makespan_cuda.launches
+        check(out[tech] == want, f"{tech} made {out[tech]} kernel launches, expected {want}")
+        t0 = time.perf_counter()
+        plain = fn(problem, backend="torch", device="cuda", seed=0, **opts)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(np.array_equal(res.schedule.assignment, plain.schedule.assignment),
+              f"{tech}: kernel and plain version give the same best assignment")
+        check(res.history.dtype == plain.history.dtype and
+              np.array_equal(res.history.view(np.int32), plain.history.view(np.int32)),
+              f"{tech}: kernel and plain version give the same history, bit for bit")
+        check(verify_schedule(problem, res.schedule) == [], f"{tech} schedule is valid")
+        check(bool(np.isfinite(res.schedule.makespan)), f"{tech}: finite makespan")
+        _, mk_best = population_fitness_fn(problem, engine="cuda", device="cuda")(res.schedule.assignment[None])
+        oracle32 = evaluate_assignment(problem, res.schedule.assignment, dtype=np.float32).makespan
+        check(float(mk_best[0]) == oracle32, f"{tech}: f32 oracle re-scores the best to the kernel's makespan")
+        check(bool(np.isfinite(res.history).all() and (np.diff(res.history) <= 0).all()), f"{tech} history")
+        t0 = time.perf_counter()
+        fn(problem, backend="auto", device="cuda", seed=0, **opts)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        profiles[tech] = device_time_breakdown(
+            lambda: fn(problem, backend="auto", device="cuda", seed=0, **opts), classify=makespan_class
+        )
+        prof = profiles[tech]
+        prof["warm_wall_ms"] = warm_ms  # the same run without the profiler
+        kernel = prof.get("by_class", {}).get("makespan kernel", {"count": 0, "ms": 0.0})
+        print(f"{tech} 500x500 {opts}: {wall_s:.3f} s wall (first run), plain version {plain_s:.3f} s, "
+              f"{out[tech]} kernel launches, makespan {res.schedule.makespan:.4f}, history "
+              f"{res.history[0]:.2f} -> {res.history[-1]:.2f}, kernel == plain bit for bit; warm run "
+              f"{warm_ms:.2f} ms wall ({prof['wall_ms']:.2f} ms under the profiler), device busy "
+              f"{prof['device_busy_ms']:.2f} ms, makespan kernel {kernel['ms']:.2f} ms ({kernel['count']} "
+              f"device kernels), host share {1 - prof['device_busy_ms'] / warm_ms:.3f} "
+              f"({prof['device_idle_share']:.3f} under the profiler)", flush=True)
+    for fn in (heft, olb):
+        t0 = time.perf_counter()
+        sched = fn(problem)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        check(verify_schedule(problem, sched) == [], f"{fn.__name__} schedule is valid")
+        profiles[fn.__name__] = {"wall_ms": wall_ms, "makespan": sched.makespan}
+        print(f"{fn.__name__} 500x500: {wall_ms:.2f} ms wall on the host, makespan {sched.makespan:.4f} "
+              f"(GA {ga_result.schedule.makespan:.4f})", flush=True)
+    print(json.dumps({"mh_profile": profiles}), flush=True)
+    return out
+
+
+def scenario_phase(table9_main, family) -> dict[str, int]:
+    """Phase 13: scenarios through the CLI in a child process and through
+    the API in this one.  Returns the makespan kernel's launches by path."""
+    import tempfile
+
+    from repro_torch.core import (
+        api,
+        mri_system,
+        mri_workload,
+        synthetic_system,
+        synthetic_workload,
+        verify_schedule,
+    )
+    from repro_torch.kernels.makespan import population_makespan_cuda
+
+    mri = api.Scenario(name="mri", system=mri_system(), workload=mri_workload(), technique="auto")
+    table9 = api.Scenario(name="table9-500x500", system=synthetic_system(500, seed=500),
+                          workload=synthetic_workload(500, seed=500), technique="auto")
+    src = Path(__file__).resolve().parent / "src"
+    summaries = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sc in (mri, table9):
+            path, out = Path(tmp) / f"{sc.name}.json", Path(tmp) / f"{sc.name}.out.json"
+            sc.save(path)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch", "run", str(path), "--out", str(out)],
+                                  env={**os.environ, "PYTHONPATH": str(src)},
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"python -m repro_torch run {sc.name}: exit {proc.returncode}\n"
+                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            summaries[sc.name] = json.loads(out.read_text())
+            print(f"cli run {sc.name}: exit 0 in {time.perf_counter() - t0:.2f} s, technique "
+                  f"{summaries[sc.name]['technique']}, makespan {summaries[sc.name]['predicted_makespan']!r}",
+                  flush=True)
+    s = summaries["mri"]
+    check(s["technique"] == "milp[event]", "the policy routes MRI to the MILP")
+    check(abs(s["predicted_makespan"] - 10.0) <= np.spacing(10.0), "MILP's MRI makespan is 10 s")
+    s = summaries["table9-500x500"]
+    check(s["technique"] == "ga" and s["rounds"] == 1, "the policy routes Table IX to the GA, one round")
+    check(s["observed_makespan"] == s["predicted_makespan"], "the GA schedule executed as predicted")
+
+    out: dict[str, int] = {}
+    population_makespan_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = api.run_scenario(table9, device="cuda")
+    torch.cuda.synchronize()
+    out["scenario_ga"] = population_makespan_cuda.launches
+    check(out["scenario_ga"] == GA["generations"] + 1, f"run_scenario made {out['scenario_ga']} launches")
+    check(verify_schedule(table9_main, result.final_schedule) == [], "the scenario's GA schedule is valid")
+    print(f"run_scenario table9-500x500: {time.perf_counter() - t0:.3f} s wall, {out['scenario_ga']} "
+          f"kernel launches, makespan {result.final_schedule.makespan:.4f}", flush=True)
+
+    # the fallback chain keeps the GA on the kernel: no step degrades to HEFT
+    population_makespan_cuda.launches = 0
+    rep = api.solve_with_fallback(table9_main, technique="ga", chain=("heft",), device="cuda")
+    torch.cuda.synchronize()
+    out["fallback_ga"] = population_makespan_cuda.launches
+    check(rep.schedule.technique == "ga" and rep.fallbacks == (),
+          f"solve_with_fallback resolved to {rep.schedule.technique} after {rep.fallbacks}")
+    check(out["fallback_ga"] == GA["generations"] + 1, f"solve_with_fallback made {out['fallback_ga']} launches")
+    check(verify_schedule(table9_main, rep.schedule) == [], "the fallback chain's GA schedule is valid")
+
+    population_makespan_cuda.launches = 0
+    t0 = time.perf_counter()
+    reports = api.solve_problems(family, "ga", device="cuda", seed=0, **GA)
+    torch.cuda.synchronize()
+    out["solve_problems"] = population_makespan_cuda.launches
+    check(out["solve_problems"] == GA["generations"] + 1,
+          f"solve_problems made {out['solve_problems']} launches, expected one batched launch a generation")
+    for problem, rep in zip(family, reports):
+        check(verify_schedule(problem, rep.schedule) == [], "solve_problems schedule is valid")
+    print(f"solve_problems ga {len(family)}x(500x500): {time.perf_counter() - t0:.3f} s wall, "
+          f"{out['solve_problems']} kernel launches", flush=True)
+
+    drift = mri.replace(name="mri-n2-slow", perturbation=api.Perturbation(speed_factors={"N2": 0.4}))
+    summary = api.run_scenario(drift, device="cuda").summary()
+    check(summary["adapted"], "the slow node triggers a re-solve")
+    print(json.dumps({"drift_run": summary}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -1104,6 +1282,16 @@ def main() -> int:
     print(f"cli: launches {cli_launches}", flush=True)
     phase_done(11, "the serving CLI on the card")
 
+    # 12. PSO, SA and ACO on the makespan kernel at Table IX --------------------
+    mh_launches = metaheuristics_phase(table9_main, res)
+    phase_done(12, "PSO, SA and ACO at Table IX")
+
+    # 13. the scenario path: the policy, the orchestrator and the CLI ------------
+    scenario_launches = scenario_phase(table9_main, sweep_problems)
+    phase_done(13, "the scenario path on the card")
+
+    makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches}
+
     # each kernel's launches on each serving path, and their sum
     by_path: dict[str, dict[str, int]] = {}
     for path, run in (("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches),
@@ -1116,7 +1304,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:168",
-        "launches": launches,
+        "launches": sum(makespan_by_path.values()),
+        "launches_by_path": makespan_by_path,
         "sweep_launches": sweep_launches,
         "max_abs_err": max_err,
         **record,

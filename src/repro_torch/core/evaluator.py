@@ -19,6 +19,7 @@ lives in :mod:`repro_torch.engine.backends`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -51,6 +52,31 @@ class Schedule:
     technique: str = ""
     solve_time: float = 0.0
     status: str = "feasible"
+
+    def to_json(self, problem: ScheduleProblem, node_names: list[str] | None = None) -> dict:
+        """Sorted schedule JSON for the executor (paper Fig. 4, step 3)."""
+        order = np.argsort(self.start, kind="stable")
+        entries = []
+        for j in order:
+            entries.append(
+                {
+                    "workflow": problem.workflow_names[problem.workflow_of[j]],
+                    "task": problem.task_names[j],
+                    "node": int(self.assignment[j])
+                    if node_names is None
+                    else node_names[int(self.assignment[j])],
+                    "start": float(self.start[j]),
+                    "end": float(self.finish[j]),
+                }
+            )
+        return {
+            "status": self.status,
+            "technique": self.technique,
+            "makespan": float(self.makespan),
+            "resource_usage": float(self.usage),
+            "objective": float(self.objective),
+            "schedule": entries,
+        }
 
 
 def _usage_of(problem: ScheduleProblem, assignment: np.ndarray, weights: ObjectiveWeights) -> float:
@@ -116,3 +142,70 @@ def evaluate_assignment(
         violations=violations,
         technique=technique,
     )
+
+
+# -----------------------------------------------------------------------------
+# population / batched fitness — thin forwards into the engine registry
+# -----------------------------------------------------------------------------
+
+
+def fitness_from_arrays(
+    assignments, arrays: dict, alpha, beta, usage_mode: str, *, engine: str = "auto"
+):
+    """:func:`repro_torch.engine.backends.population_fitness_from_arrays`
+    with the makespan implementation of the ``engine`` named."""
+    from repro_torch.engine.backends import ENGINES, population_fitness_from_arrays
+
+    return population_fitness_from_arrays(
+        assignments, arrays, alpha, beta, usage_mode,
+        makespan_fn=type(ENGINES.get(engine)).makespan_fn,
+    )
+
+
+def make_fitness_fn(
+    problem: ScheduleProblem,
+    weights: ObjectiveWeights = ObjectiveWeights(),
+    core_cap: int | None = None,
+    backend: str = "auto",
+    *,
+    device="cuda",
+) -> Callable:
+    """``fitness(assignments [P, T]) -> (objective [P], makespan [P])`` on
+    ``device`` through the engine ``backend`` names (``auto``: the CUDA
+    kernel's wrapper).  All engines agree bit for bit."""
+    from repro_torch.engine.backends import population_fitness_fn
+
+    return population_fitness_fn(
+        problem, weights, engine=backend, core_cap=core_cap, device=device
+    )
+
+
+def make_batched_fitness_fn(
+    problems: Sequence[ScheduleProblem],
+    weights: ObjectiveWeights = ObjectiveWeights(),
+    *,
+    backend: str = "auto",
+    device="cuda",
+) -> Callable:
+    """Batched fitness over a family of instances stacked into one shape
+    bucket: ``fitness(assignments [B, P, T_bucket]) -> (objective [B, P],
+    makespan [B, P])``, one makespan call per evaluation.  Padded task
+    columns must be 0; :func:`evaluate_population_batch` pads for you."""
+    from repro_torch.engine.backends import batched_population_fitness_fn
+
+    return batched_population_fitness_fn(problems, weights, engine=backend, device=device)
+
+
+def evaluate_population_batch(
+    problems: Sequence[ScheduleProblem],
+    populations: Sequence[np.ndarray],
+    weights: ObjectiveWeights = ObjectiveWeights(),
+    *,
+    backend: str = "auto",
+    device="cuda",
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per-instance candidate populations for a list of problems — see
+    :func:`repro_torch.engine.backends.evaluate_population_batch`."""
+    from repro_torch.engine.backends import evaluate_population_batch as _batch
+
+    return _batch(problems, populations, weights, engine=backend, device=device)

@@ -59,6 +59,25 @@ class Node:
 
 
 @dataclasses.dataclass(frozen=True)
+class Cluster:
+    """A cluster ``C`` of nodes (paper Table I row 2)."""
+
+    name: str
+    nodes: tuple[Node, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataCenter:
+    """A data center ``D`` of clusters (paper Table I row 1)."""
+
+    name: str
+    clusters: tuple[Cluster, ...]
+
+    def all_nodes(self) -> tuple[Node, ...]:
+        return tuple(n for c in self.clusters for n in c.nodes)
+
+
+@dataclasses.dataclass(frozen=True)
 class System:
     """Flattened solver view of a continuum: the node set plus a pairwise
     data-transfer-rate matrix (P3, Eq. 5 denominator).
@@ -90,11 +109,26 @@ class System:
     def num_nodes(self) -> int:
         return len(self.nodes)
 
+    def index(self, name: str) -> int:
+        for i, node in enumerate(self.nodes):
+            if node.name == name:
+                return i
+        raise KeyError(name)
+
     def cores(self) -> np.ndarray:
         return np.array([n.cores for n in self.nodes], dtype=np.float64)
 
+    def memory(self) -> np.ndarray:
+        return np.array([n.memory for n in self.nodes], dtype=np.float64)
+
     def speed(self) -> np.ndarray:
         return np.array([n.processing_speed for n in self.nodes], dtype=np.float64)
+
+    def feature_matrix(self, feature_ids: Sequence[str]) -> np.ndarray:
+        """Boolean [N, F] matrix: node i provides feature f."""
+        return np.array(
+            [[f in n.features for f in feature_ids] for n in self.nodes], dtype=bool
+        )
 
 
 def make_system(nodes: Sequence[Node], dtr: np.ndarray | None = None) -> System:

@@ -115,6 +115,37 @@ class Constraints:
     def __bool__(self) -> bool:
         return bool(self.deadline or self.budget or self.cost_rate or self.placement)
 
+    def to_json(self) -> dict:
+        out: dict[str, Any] = {}
+        if self.deadline:
+            out["deadline"] = {k: float(v) for k, v in self.deadline.items()}
+        if self.budget:
+            out["budget"] = {k: float(v) for k, v in self.budget.items()}
+        if self.cost_rate:
+            out["cost_rate"] = {k: float(v) for k, v in self.cost_rate.items()}
+        if self.placement:
+            out["placement"] = {k: sorted(v) for k, v in self.placement.items()}
+        return out
+
+
+_CONSTRAINT_KEYS = ("deadline", "budget", "cost_rate", "placement")
+
+
+def constraints_from_json(obj: Mapping[str, Any] | None) -> Constraints | None:
+    if obj is None:
+        return None
+    unknown = set(obj) - set(_CONSTRAINT_KEYS)
+    if unknown:
+        raise ValueError(
+            f"constraints: unknown keys {sorted(unknown)} (known: {list(_CONSTRAINT_KEYS)})"
+        )
+    return Constraints(
+        deadline={k: float(v) for k, v in obj.get("deadline", {}).items()},
+        budget={k: float(v) for k, v in obj.get("budget", {}).items()},
+        cost_rate={k: float(v) for k, v in obj.get("cost_rate", {}).items()},
+        placement={k: tuple(v) for k, v in obj.get("placement", {}).items()},
+    )
+
 
 def topological_order(tasks: Sequence[Task]) -> list[int] | None:
     """Kahn's algorithm over intra-workflow dependency names; ties broken by
@@ -609,6 +640,21 @@ def stgs_workflows() -> dict[str, Workflow]:
         "W6_STGS2": random_layered_workflow(12, name="W6_STGS2", seed=6, comm=True, density=0.3),
         "W7_STGS3": random_layered_workflow(11, name="W7_STGS3", seed=7, comm=True, density=0.9),
     }
+
+
+def testcase1_workloads() -> dict[str, Workflow]:
+    """The seven workflows of the paper's Test Case I (Table VIII)."""
+    out = {
+        "W1_Se_(3Nx3T)": mri_w1(),
+        "W2_Pa_(3Nx4T)": mri_w2(),
+        "W3_Ra_(3Nx5T)": random_layered_workflow(5, name="W3_Ra", seed=3),
+        "W4_Ra_(3Nx10T)": random_layered_workflow(10, name="W4_Ra", seed=4),
+    }
+    stgs = stgs_workflows()
+    out["W5_STGS1_(3Nx11T)"] = stgs["W5_STGS1"]
+    out["W6_STGS2_(3Nx12T)"] = stgs["W6_STGS2"]
+    out["W7_STGS3_(3Nx11T)"] = stgs["W7_STGS3"]
+    return out
 
 
 def synthetic_workload(

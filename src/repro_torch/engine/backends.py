@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.workload_model import BIG_PENALTY, ScheduleProblem
-from repro_torch.engine.packed import PackedProblem, pack, stack_packed
+from repro_torch.engine.packed import PackedProblem, _round_up_pow2, bucket_of, pack, stack_packed
 from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
 
 _ALIASES = {"numpy": "oracle", "auto": "cuda"}
@@ -61,9 +61,10 @@ def _budget_overage(arrays, assignments: torch.Tensor) -> torch.Tensor:
     return (wf_cost > arrays["wf_budget"][:, None, :]).sum(dim=-1).to(torch.float32)
 
 
-def _fma(x: float, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``x * y + z`` for an f32-valued scalar ``x`` and f32 tensors, rounded
-    once to f32, as a fused multiply-add rounds it on any device.
+def _fma(x: float | torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``x * y + z`` for an f32-valued scalar or f32 tensor ``x`` and f32
+    tensors, rounded once to f32, as a fused multiply-add rounds it on any
+    device.
 
     The product of two f32 values is exact in f64.  Their f64 sum ``s`` need
     not be, and rounding an inexact ``s`` to f32 could round twice (when
@@ -73,7 +74,7 @@ def _fma(x: float, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     rounded to odd with 53 bits rounds to nearest at 24 bits exactly as the
     exact value does (Boldo and Melquiond, IEEE Trans. Computers 57(4),
     2008)."""
-    p, zd = x * y.double(), z.double()
+    p, zd = (x.double() if torch.is_tensor(x) else x) * y.double(), z.double()
     s = p + zd
     pv = s - zd
     err = (p - pv) + (zd - (s - pv))
@@ -185,6 +186,12 @@ class ScheduleEngine:
         """Returns ``fitness(assignments [P, T]) -> (objective [P], makespan [P])``."""
         raise NotImplementedError(f"engine {self.name!r} has no population path")
 
+    def evaluate_population(self, problem, assignments, weights=None, *, device="cuda"):
+        """``(objective [P], makespan [P])`` as numpy arrays."""
+        obj, mk = self.population_fitness(problem, weights, device=device)(assignments)
+        return obj.cpu().numpy(), mk.cpu().numpy()
+
+
 class EngineRegistry:
     """Name → engine mapping with capability metadata."""
 
@@ -217,6 +224,15 @@ class EngineRegistry:
 
     def names(self) -> tuple[str, ...]:
         return tuple(self._entries)
+
+    def capabilities(self, name: str) -> EngineCapabilities:
+        return self.get(name).capabilities
+
+    def __contains__(self, name: object) -> bool:
+        return isinstance(name, str) and resolve_engine(name) in self._entries
+
+    def __iter__(self):
+        return iter(self._entries.values())
 
 
 ENGINES = EngineRegistry()
@@ -345,3 +361,39 @@ def batched_population_fitness_fn(
     if not eng.capabilities.supports_batch:
         raise ValueError(f"engine {eng.name!r} does not support batched families")
     return eng.batched_fitness(problems, weights, device=device)  # type: ignore[attr-defined]
+
+
+def evaluate_population_batch(
+    problems: Sequence[ScheduleProblem],
+    populations: Sequence[np.ndarray],
+    weights=None,
+    *,
+    engine: str = "auto",
+    device="cuda",
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Evaluate per-instance candidate populations for a list of problems.
+
+    Instances are grouped by shape bucket; each group is padded, stacked and
+    scored by one batched fitness call.  Returns, per instance and in the
+    input order, ``(objective [P_i], makespan [P_i])`` as numpy arrays."""
+    if len(problems) != len(populations):
+        raise ValueError("need one population per problem")
+    groups: dict[tuple[int, int, int, int], list[int]] = {}
+    pops = [np.asarray(p) for p in populations]
+    for idx, problem in enumerate(problems):
+        groups.setdefault(bucket_of(problem), []).append(idx)
+
+    out: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(problems)
+    for bucket, members in groups.items():
+        pb = _round_up_pow2(max(pops[m].shape[0] for m in members))
+        batch = np.zeros((len(members), pb, bucket[0]), np.int32)
+        for row, m in enumerate(members):
+            batch[row, : pops[m].shape[0], : pops[m].shape[1]] = pops[m]
+        fitness = batched_population_fitness_fn(
+            [problems[m] for m in members], weights, engine=engine, device=device
+        )
+        obj, mk = (x.cpu().numpy() for x in fitness(batch))
+        for row, m in enumerate(members):
+            P = pops[m].shape[0]
+            out[m] = (obj[row, :P], mk[row, :P])
+    return out  # type: ignore[return-value]

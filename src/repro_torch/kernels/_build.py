@@ -31,8 +31,19 @@ NVCC_FLAGS = (
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
-class KernelBuildError(RuntimeError):
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched, or its
+    wrapper was given inputs the kernel cannot take.  Callers that degrade
+    gracefully (``core.api.solve_with_fallback``) re-raise it: a failing
+    kernel is a fault of the device layer, never a reason to solve elsewhere."""
+
+
+class KernelBuildError(KernelError):
     """``nvcc`` is missing or refused a kernel source."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A wrapper was given a device, type or shape its kernel cannot take."""
 
 
 def nvcc() -> str:
@@ -106,7 +117,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelError(f"cannot load the kernel library of csrc/{name}.cu: {e}") from e
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
@@ -117,4 +131,4 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error."""
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise KernelError(f"{what}: CUDA error {err} ({msg})")

@@ -52,7 +52,7 @@ def _batched(assignments: torch.Tensor, arrays: dict) -> tuple[bool, torch.Tenso
     if assignments.dim() == 3:
         return True, assignments, arrays
     if assignments.dim() != 2:
-        raise ValueError(f"assignments must be [P, T] or [B, P, T], got {tuple(assignments.shape)}")
+        raise _build.KernelInputError(f"assignments must be [P, T] or [B, P, T], got {tuple(assignments.shape)}")
     return False, assignments[None], {k: None if v is None else v[None] for k, v in arrays.items()}
 
 
@@ -165,17 +165,17 @@ def makespan_plan(B: int, P: int, T: int, N: int, C: int, sm_count: int, max_sme
     both).  Raises on a CMAX or T the kernel cannot take."""
     slots = next((s for s in WARP_SLOTS if 32 * s >= C), None)
     if slots is None:
-        raise ValueError(f"CMAX={C} exceeds the kernel's {32 * WARP_SLOTS[-1]} core slots")
+        raise _build.KernelInputError(f"CMAX={C} exceeds the kernel's {32 * WARP_SLOTS[-1]} core slots")
     cands = B * P
     fits = warp_smem(T, N, slots, True) <= max_smem
     if rows_in_smem is None:
         rows_in_smem = fits and cands <= sm_count
     if rows_in_smem and not fits:
-        raise ValueError(f"{N} rows of {32 * slots} slots and T={T} need "
+        raise _build.KernelInputError(f"{N} rows of {32 * slots} slots and T={T} need "
                          f"{warp_smem(T, N, slots, True)} B of shared memory (> {max_smem})")
     per_warp = warp_smem(T, N, slots, rows_in_smem)
     if per_warp > max_smem:
-        raise ValueError(f"T={T} needs {per_warp} B of shared memory per candidate (> {max_smem})")
+        raise _build.KernelInputError(f"T={T} needs {per_warp} B of shared memory per candidate (> {max_smem})")
     warps = 1 if rows_in_smem else min(MAX_WARPS, max(1, -(-cands // sm_count)), max_smem // per_warp)
     return MakespanPlan(slots=slots, warps=warps, blocks=-(-cands // warps), smem=warps * per_warp,
                         rows_in_smem=rows_in_smem)
@@ -241,19 +241,19 @@ def population_makespan_cuda(
     }
     device = a.device
     if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"population_makespan_cuda takes CUDA or CPU tensors, got {device}")
+        raise _build.KernelInputError(f"population_makespan_cuda takes CUDA or CPU tensors, got {device}")
     if a.dtype != torch.int32 or not a.is_contiguous():
-        raise ValueError("assignments must be contiguous int32")
+        raise _build.KernelInputError("assignments must be contiguous int32")
     for k, t in arr.items():
         if t is None:
             continue
         if t.device != device or t.dtype != _KERNEL_DTYPES[k] or not t.is_contiguous():
-            raise ValueError(
+            raise _build.KernelInputError(
                 f"{k}: need contiguous {_KERNEL_DTYPES[k]} on {device}, "
                 f"got {t.dtype} on {t.device}"
             )
         if tuple(t.shape) != shapes[k]:
-            raise ValueError(f"{k}: shape {tuple(t.shape)} != {shapes[k]}")
+            raise _build.KernelInputError(f"{k}: shape {tuple(t.shape)} != {shapes[k]}")
     if device.type == "cpu":
         return population_makespan_ref(
             assignments, durations=durations, cores=cores, data=data, feasible=feasible,
@@ -261,9 +261,9 @@ def population_makespan_cuda(
             node_cores=node_cores, deadline=deadline,
         )
     if B * P > 2**31 - 1:
-        raise ValueError(f"{B} x {P} candidates exceed the kernel grid's 2**31 - 1 warps")
+        raise _build.KernelInputError(f"{B} x {P} candidates exceed the kernel grid's 2**31 - 1 warps")
     if max(T * N, N * N, N * 1024, T * maxp) >= 2**31:
-        raise ValueError(f"T={T}, N={N}, MAXP={maxp}: an instance's tables exceed the kernel's 32-bit indices")
+        raise _build.KernelInputError(f"T={T}, N={N}, MAXP={maxp}: an instance's tables exceed the kernel's 32-bit indices")
 
     makespan, violations = _launch(a, arr, _plan(B, P, T, N, C, device.index))
     population_makespan_cuda.launches += int(B * P > 0)
@@ -296,7 +296,7 @@ def _launch(a: torch.Tensor, arr: dict, plan: MakespanPlan) -> tuple[torch.Tenso
     N, C = arr["init_free"].shape[-2:]
     lib = _library()
     if lib.population_makespan_warp_smem(T, N, plan.slots, int(plan.rows_in_smem)) * plan.warps != plan.smem:
-        raise ValueError(f"{plan} does not match the kernel's shared-memory layout")
+        raise _build.KernelInputError(f"{plan} does not match the kernel's shared-memory layout")
     makespan = torch.empty(B, P, dtype=torch.float32, device=a.device)
     violations = torch.empty(B, P, dtype=torch.float32, device=a.device)
     if B * P == 0:

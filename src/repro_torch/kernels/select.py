@@ -45,3 +45,8 @@ def update_from_ranks(row: torch.Tensor, ranks: torch.Tensor, c, fill) -> torch.
     fillf = torch.as_tensor(fill, dtype=row.dtype, device=row.device)
     return torch.where(ranks < cf[..., None], fillf[..., None], row)
 
+
+
+def kth_smallest(row: torch.Tensor, c) -> torch.Tensor:
+    """Stable ``c``-th smallest without reusing the ranks."""
+    return kth_from_ranks(row, stable_ranks(row), c)

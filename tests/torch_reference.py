@@ -80,6 +80,57 @@ def constraints_of(spec: dict, wm):
     )
 
 
+def scenario_of(spec: dict, api, sm, wm):
+    """A ``Scenario`` from a scenario spec (``{"name", "problem", ...}``),
+    using either package's ``core.api`` and model modules."""
+    prob = spec["problem"]
+    kw = {}
+    if "weights" in spec:
+        kw["weights"] = api.ObjectiveWeights(**spec["weights"])
+    if "perturbation" in spec:
+        kw["perturbation"] = api.Perturbation(**spec["perturbation"])
+    if "orchestration" in spec:
+        kw["orchestration"] = api.OrchestrationConfig(**spec["orchestration"])
+    if "policy" in spec:
+        kw["policy"] = api.Policy.chain(*spec["policy"])
+    return api.Scenario(
+        name=spec["name"],
+        system=system_of(prob, sm),
+        workload=workload_of(prob, wm),
+        technique=spec.get("technique", "auto"),
+        backend=spec.get("backend", "simulate"),
+        engine=spec.get("engine", "auto"),
+        solver_options=spec.get("solver_options", {}),
+        constraints=constraints_of(prob, wm),
+        **kw,
+    )
+
+
+FIG6_SNAKEFILE = """
+rule T1: # dependencies
+ input:
+ experiment.conf
+ output:
+ product1.dat
+ resources:
+ mem_mb = [1024] # memory_required, (R2)
+ features = ["F1", "F2"] # requested features
+ data = 2GiB # estimated output size, (R3)
+ duration = [1000] # usage, in seconds
+ run:
+ # Execute shell command/script
+
+rule T2:
+ input:
+ product1.dat
+ output:
+ product2.dat
+ resources:
+ features = ["F1"]
+ runtime = 0:01:30
+"""
+
+
 def name_of(spec: dict) -> str:
     return "-".join(str(spec[k]) for k in sorted(spec))
 
@@ -98,7 +149,12 @@ def run(job: str, params: dict, inputs: dict[str, np.ndarray] | None = None,
     # one CPU device, whatever an earlier test in this worker left in
     # os.environ (importing repro.launch.dryrun sets 512 devices)
     env["JAX_PLATFORMS"] = "cpu"
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
+    # and one thread: a test run may start several pytest workers side by
+    # side, and oversubscribed thread pools slow every process
+    env["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=1 --xla_cpu_multi_thread_eigen=false "
+        "intra_op_parallelism_threads=1"
+    )
     env.pop("REPRO_SHARD_DEVICES", None)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -309,7 +365,236 @@ def job_pallas(params: dict, inputs: dict) -> dict:
     return out
 
 
-JOBS = {"model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas}
+def _pso_draws(key, pop, T, N, iterations) -> dict:
+    """The draws the reference ``pso`` makes from ``key``."""
+    import jax
+
+    key, k0, _k1 = jax.random.split(key, 3)
+    r1, r2 = [], []
+    for _ in range(iterations):
+        key, kr1, kr2 = jax.random.split(key, 3)
+        r1.append(np.asarray(jax.random.uniform(kr1, (pop, T, N))))
+        r2.append(np.asarray(jax.random.uniform(kr2, (pop, T, N))))
+    return {
+        "initial": np.asarray(jax.random.normal(k0, (pop, T, N))),
+        "r1": np.stack(r1),
+        "r2": np.stack(r2),
+    }
+
+
+def _sa_draws(key, logits, chains, steps) -> dict:
+    """The draws the reference ``sa`` makes from ``key``."""
+    import jax
+
+    T = logits.shape[0]
+    key, k0 = jax.random.split(key)
+    seq: dict[str, list] = {"tsel": [], "newnode": [], "uniform": []}
+    for _ in range(steps):
+        key, kt, kn, ka = jax.random.split(key, 4)
+        tsel = jax.random.randint(kt, (chains,), 0, T)
+        seq["tsel"].append(np.asarray(tsel))
+        seq["newnode"].append(np.asarray(jax.random.categorical(kn, logits[tsel], axis=-1)))
+        seq["uniform"].append(np.asarray(jax.random.uniform(ka, (chains,))))
+    out = {k: np.stack(v) for k, v in seq.items()}
+    out["initial"] = np.asarray(jax.random.categorical(k0, logits, axis=-1, shape=(chains, T)))
+    return out
+
+
+def _aco_draws(key, ants, T, N, iterations) -> dict:
+    """The Gumbel noise behind the reference ``aco``'s per-iteration
+    ``categorical`` (``argmax(gumbel(key, (ants, T, N)) + logits)``)."""
+    import jax
+    import jax.numpy as jnp
+
+    noise = []
+    for _ in range(iterations):
+        key, ks = jax.random.split(key)
+        noise.append(np.asarray(jax.random.gumbel(ks, (ants, T, N), jnp.float32)))
+    return {"gumbel": np.stack(noise)}
+
+
+def job_mh(params: dict, inputs: dict) -> dict:
+    """Reference ``pso``, ``sa`` and ``aco`` (those in ``techniques``) on
+    each spec with the exact draws each made, and, where the inputs hold
+    them, XLA's ``log``/``exp``/``pow`` of the given values."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.evaluator import ObjectiveWeights
+    from repro.core.metaheuristics import _mask_logits, aco, pso, sa
+
+    sm, wm = _modules()
+    opts = params["opts"]
+    out: dict[str, np.ndarray] = {}
+    for spec in params["specs"]:
+        name = name_of(spec)
+        prob = build(spec, sm, wm)
+        T, N = prob.num_tasks, prob.num_nodes
+        w = ObjectiveWeights(usage_mode=spec.get("usage_mode", "fixed"))
+        seed = spec["mh_seed"]
+        key = jax.random.PRNGKey(seed)
+        runs = {
+            "pso": (pso, lambda: _pso_draws(key, opts["pso"]["pop_size"], T, N, opts["pso"]["iterations"])),
+            "sa": (sa, lambda: _sa_draws(key, _mask_logits(prob), opts["sa"]["chains"], opts["sa"]["steps"])),
+            "aco": (aco, lambda: _aco_draws(key, opts["aco"]["ants"], T, N, opts["aco"]["iterations"])),
+        }
+        for tech in params["techniques"]:
+            fn, draws = runs[tech][0], runs[tech][1]()
+            res = fn(prob, w, seed=seed, backend="jax", **opts[tech])
+            out[f"{name}/{tech}/best"] = np.asarray(res.schedule.assignment)
+            out[f"{name}/{tech}/history"] = np.asarray(res.history)
+            out[f"{name}/{tech}/makespan"] = np.array(res.schedule.makespan)
+            for k, v in draws.items():
+                out[f"{name}/{tech}/draws/{k}"] = v
+    if "log_x" in inputs:
+        out["log"] = np.asarray(jax.jit(jnp.log)(inputs["log_x"]))
+        out["exp"] = np.asarray(jax.jit(jnp.exp)(inputs["exp_x"]))
+        its = jnp.arange(params["pow_steps"])
+        for c in params["coolings"]:
+            out[f"pow/{c}"] = np.asarray(jax.jit(lambda i, c=c: c**i)(its))
+    return out
+
+
+def job_heuristics(params: dict, inputs: dict) -> dict:
+    """Reference ``heft`` and ``olb`` schedules and HEFT's upward ranks."""
+    from repro.core.heuristics import heft, olb, upward_ranks
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for spec in params["specs"]:
+        name = name_of(spec)
+        prob = build(spec, sm, wm)
+        out[f"{name}/ranks"] = upward_ranks(prob)
+        for fn in (heft, olb):
+            s = fn(prob)
+            out[f"{name}/{fn.__name__}/assignment"] = np.asarray(s.assignment)
+            _schedule_arrays(out, f"{name}/{fn.__name__}", s)
+    return out
+
+
+def job_milp(params: dict, inputs: dict) -> dict:
+    """Reference ``solve_milp`` in each capacity mode."""
+    from repro.core.milp import solve_milp
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for spec in params["specs"]:
+        name = name_of(spec)
+        prob = build(spec, sm, wm)
+        for mode in params["modes"]:
+            s = solve_milp(prob, capacity_mode=mode)
+            out[f"{name}/{mode}/assignment"] = np.asarray(s.assignment)
+            out[f"{name}/{mode}/status"] = np.array(s.status)
+            _schedule_arrays(out, f"{name}/{mode}", s)
+    return out
+
+
+def _error_of(fn) -> str:
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the message is what is compared
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def job_scenario(params: dict, inputs: dict) -> dict:
+    """The scenario API of the reference: each scenario's JSON text and
+    fingerprint, the re-serialised text of each port-written file, the
+    errors of malformed files, each run's summary and rendered artifacts,
+    policy routing by size, a replay under jitter, the Fig. 6 parse, the
+    model-layer pieces, the fitness functions, ``kth_smallest`` on rows with
+    ties, and a traced fallback chain."""
+    import tempfile
+
+    from repro.core import api
+    from repro.core.heuristics import heft
+    from repro.core.simulator import execute
+    from repro.core.snakemake_io import parse_rules
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for spec in params["scenarios"]:
+        name = spec["name"]
+        sc = scenario_of(spec, api, sm, wm)
+        out[f"{name}/json"] = np.array(json.dumps(sc.to_json(), indent=2))
+        out[f"{name}/fingerprint"] = np.array(sc.fingerprint())
+        port_text = str(inputs[f"{name}/port_json"])
+        again = api.scenario_from_json(port_text)
+        out[f"{name}/reparsed"] = np.array(json.dumps(again.to_json(), indent=2))
+        if spec.get("run"):
+            with tempfile.TemporaryDirectory() as tmp:
+                result = api.Orchestrator(sc, out_dir=tmp).run()
+                summary = result.summary()
+                arts = summary.pop("artifacts", [])
+                out[f"{name}/summary"] = np.array(json.dumps(summary, sort_keys=True))
+                out[f"{name}/artifacts"] = np.array(json.dumps(
+                    {Path(p).name: Path(p).read_text() for p in arts}, sort_keys=True
+                ))
+    for i, text in enumerate(params["bad"]):
+        out[f"bad/{i}"] = np.array(_error_of(lambda: api.scenario_from_json(text)))
+    for spec in params["route"]:
+        name = name_of(spec)
+        rep = api.route_problem(build(spec, sm, wm), technique="auto", options=params["route_options"])
+        out[f"route/{name}/technique"] = np.array(rep.schedule.technique)
+        out[f"route/{name}/fallbacks"] = np.array(json.dumps(list(rep.fallbacks)))
+        out[f"route/{name}/makespan"] = np.array(rep.schedule.makespan)
+    prob = build({"kind": "mri"}, sm, wm)
+    xrep = execute(prob, heft(prob), speed_factors=np.array([1.0, 0.5, 1.3]), jitter=0.1, seed=3)
+    out["execute/start"] = np.array([log.start for log in xrep.logs])
+    out["execute/finish"] = np.array([log.finish for log in xrep.logs])
+    out["execute/factors"] = np.array(json.dumps(xrep.observed_speed_factors(prob), sort_keys=True))
+    out["fig6"] = np.array(json.dumps(wm.workload_to_json(wm.Workload((parse_rules(FIG6_SNAKEFILE),)))))
+    # the model-layer pieces the scenario path needs
+    tc1 = wm.testcase1_workloads()
+    out["testcase1"] = np.array(json.dumps(wm.workload_to_json(wm.Workload(tuple(tc1.values())))))
+    out["testcase1/names"] = np.array(json.dumps(list(tc1)))
+    cons = constraints_of(params["constrained"], wm)
+    out["constraints"] = np.array(json.dumps(cons.to_json()))
+    out["constraints/reparsed"] = np.array(json.dumps(wm.constraints_from_json(cons.to_json()).to_json()))
+    system = system_of(params["constrained"], sm)
+    out["features"] = system.feature_matrix(["F1", "F2", "F3", "F9"])
+    out["memory"] = system.memory()
+    out["index"] = np.array(system.index(system.nodes[-1].name))
+    out["schedule_json"] = np.array(json.dumps(heft(prob).to_json(prob, [n.name for n in sm.mri_system().nodes])))
+    from repro.core.evaluator import evaluate_population_batch
+
+    fam = [build(spec, sm, wm) for spec in params["family"]]
+    for b, (o, m) in enumerate(evaluate_population_batch(fam, [inputs[f"family/{b}"] for b in range(len(fam))])):
+        out[f"family/{b}/obj"], out[f"family/{b}/mk"] = o, m
+    from repro.core.evaluator import ObjectiveWeights, fitness_from_arrays, make_fitness_fn
+    from repro.engine.packed import pack
+    from repro.kernels.select import kth_smallest
+
+    out["kth"] = np.asarray(kth_smallest(inputs["kth/rows"], inputs["kth/c"]))
+    for i, w in enumerate(params["weights"]):
+        weights = ObjectiveWeights(**w)
+        for b, prob in enumerate(fam):
+            pop = inputs[f"family/{b}"]
+            o, m = make_fitness_fn(prob, weights)(pop)
+            out[f"fitness/{i}/{b}/obj"], out[f"fitness/{i}/{b}/mk"] = np.asarray(o), np.asarray(m)
+            o, m = fitness_from_arrays(pop, pack(prob, pad=False).device_arrays(), weights.alpha,
+                                       weights.beta, weights.usage_mode)
+            out[f"arrays/{i}/{b}/obj"], out[f"arrays/{i}/{b}/mk"] = np.asarray(o), np.asarray(m)
+    # a fallback chain past a failing step, traced
+    from repro import obs
+
+    obs.TRACER.enable()
+    try:
+        rep = api.solve_with_fallback(build(params["fallback"], sm, wm), technique="milp", chain=("heft",))
+    finally:
+        obs.TRACER.disable()
+    out["fallback/trail"] = np.array(json.dumps(list(rep.fallbacks)))
+    out["fallback/spans"] = np.array(json.dumps(
+        [[s.id, s.parent, s.name, s.cat, sorted(s.args.items())] for s in obs.TRACER.spans]
+    ))
+    return out
+
+
+JOBS = {
+    "scenario": job_scenario,
+    "model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas,
+    "mh": job_mh, "heuristics": job_heuristics, "milp": job_milp,
+}
 
 
 if __name__ == "__main__":
