@@ -81,7 +81,24 @@ result line:
     schedule executed, which needs it valid); the Table IX scenario again
     in this process through ``run_scenario`` (61 launches), the
     ``solve_problems`` GA over phase 4's 8 instances (61 batched launches)
-    and an MRI scenario whose slow node triggers a re-solve.
+    and an MRI scenario whose slow node triggers a re-solve;
+14. the scheduling service: the reference's documented trace (200
+    submissions, node events) through ``python -m repro_torch serve`` in a
+    child process with no ``--device`` (200 of 200 completed, strict JSON);
+    the same trace in this process with the kernel and with the plain
+    version on the card, which must serve the same events and records
+    (one canonical hash), batch some GA admissions, degrade none, and make
+    exactly 7 kernel launches a GA call (6 generations + 1), single or
+    batched; a profiled run and a traced one (the host's time by span); the
+    chaos lane (120 submissions under failure and drift storms, fallback
+    ga -> heft), again with the kernel and with the plain version (one
+    canonical hash, 7 launches a GA call), its degraded records printed
+    with their trails and none degraded past a GA step that raised; the
+    converging and fixed
+    cycling streams, whose replay must give the pinned fingerprint; and the
+    makespan kernel against its plain version bit for bit at the service's
+    shapes (P 16, CMAX 512: an STGS workflow's exact shape and the bucket
+    of the three), timed beside its bound.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -988,6 +1005,277 @@ def scenario_phase(table9_main, family) -> dict[str, int]:
     return out
 
 
+#: the service's chaos lane (the reference's ``chaos_campaign``) and its
+#: converging/fixed cycling streams (``_CYCLING_STREAMS``, pinned replay)
+SERVICE_CHAOS = {
+    "trace": {"num_submissions": 120, "seed": 0, "rate": 4.0, "burst_prob": 0.15, "burst_size": 8,
+              "chaos": {"horizon": 1200.0, "failure_rate": 0.004, "outage_mean": 60.0, "drift_rate": 0.01,
+                        "drift_range": [0.4, 1.6]}},
+    "config": {"batch_window": 0.5, "max_batch": 32, "seed": 0, "max_retries": 4, "backoff_base": 0.5,
+               "backoff_cap": 30.0, "fallback": ("ga", "heft")},
+}
+CYCLING_STREAMS = (
+    ("s-meet", "mri-w1", {"converge": {"prob": 0.5, "min_cycles": 2, "max_cycles": 6, "seed": 3},
+                          "period": 5.0, "cycle_deadline": 12.0}),
+    ("s-miss", "mri-w2", {"converge": {"prob": 0.5, "min_cycles": 2, "max_cycles": 6, "seed": 3},
+                          "period": 5.0, "cycle_deadline": 8.0}),
+    ("s-fixed", "mri-w1", {"cycles": 3, "period": 5.0}),
+)
+CYCLING_FINGERPRINT = "820bbd5dcab25e9a644031ba39cdcd0ed4e0e34b33bf20c0e3c0d8844d2d15cb"
+
+
+def counting_registry():
+    """A copy of the solver registry whose ``ga`` fn and batch fn count the
+    calls that reach the GA (a declined batch is not one)."""
+    from repro_torch.core import api
+
+    counts = {"single": 0, "batch": 0}
+    reg = api.SolverRegistry()
+    for e in api.REGISTRY:
+        fn, batch_fn = e.fn, e.batch_fn
+        if e.name == "ga":
+            def fn(problem, weights=api.ObjectiveWeights(), _fn=e.fn, **kw):
+                counts["single"] += 1
+                return _fn(problem, weights, **kw)
+
+            def batch_fn(problems, weights=api.ObjectiveWeights(), _fn=e.batch_fn, **kw):
+                reports = _fn(problems, weights, **kw)
+                counts["batch"] += reports is not None
+                return reports
+        caps = e.capabilities
+        reg.register(e.name, fn, batch_fn=batch_fn, exact=caps.exact, max_tasks=caps.max_tasks,
+                     needs_time_limit=caps.needs_time_limit, engine_aware=caps.engine_aware,
+                     constraint_aware=caps.constraint_aware)
+    return reg, counts
+
+
+def strict_json(text: str):
+    """``json.loads`` that refuses bare NaN and Infinity."""
+    def refuse(token):
+        raise ValueError(f"bare {token} in the output")
+
+    return json.loads(text, parse_constant=refuse)
+
+
+def service_run_line(name: str, result, launches: int, counts: dict | None = None) -> str:
+    s = result.summary()
+    line = (f"service {name}: {s['completed']}/{s['submissions']} completed, {s['rejected']} rejected, "
+            f"{s['failed']} failed, {s['events']} events, wall {s['wall_seconds']:.3f} s, "
+            f"throughput_per_wall_s {s['throughput_per_wall_s']:.2f}, solver calls {s['solver_calls']}, "
+            f"batched groups {s['batched_groups']} ({s['batched_submissions']} submissions), solve cache "
+            f"hit rate {s['cache']['hit_rate']:.4f}, pack cache hit rate {s['pack_cache']['hit_rate']:.4f}, "
+            f"turnaround p50/p95 {s['turnaround']['p50']:.2f}/{s['turnaround']['p95']:.2f} virtual s, "
+            f"kernel launches {launches}")
+    if counts is not None:
+        line += f" (GA single calls {counts['single']}, GA batch calls {counts['batch']})"
+    return line
+
+
+def span_breakdown(run, top: int = 10) -> dict:
+    """Run ``run()`` with the port's tracer on and split its wall time by
+    span name (a solve's by the technique it resolved to), each span's own
+    time (its wall time less its children's): where the host spends a
+    service run, by the reference's span names."""
+    from repro_torch import obs
+
+    obs.TRACER.enable()
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        obs.TRACER.disable()
+    own = {s.id: s.wall_dur for s in obs.TRACER.spans}
+    for s in obs.TRACER.spans:
+        if s.parent is not None:
+            own[s.parent] -= s.wall_dur
+    by_name: dict[str, list] = {}
+    for s in obs.TRACER.spans:
+        # a solve's span by the technique it resolved to (GA, MILP, HEFT)
+        name = f"{s.name}[{s.args['resolved']}]" if "resolved" in s.args else s.name
+        row = by_name.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += 1e3 * own[s.id]
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_ms": wall_ms, "spans": len(obs.TRACER.spans),
+            "own_ms": [{"name": n, "count": c, "ms": ms} for n, (c, ms) in rows]}
+
+
+def serve_kernel_and_plain(trace, config, name: str):
+    """Serve ``trace`` on the card with the kernel (``engine="auto"``) and
+    with the plain version (``engine="torch"``, the same draws) through a
+    counting registry.  Both must give one fingerprint of events and records
+    (degraded records and their trails included); the kernel run must make
+    exactly (generations + 1) launches a GA call, the plain run none.
+    Returns the kernel run's result, its launches and its GA calls."""
+    from repro_torch.core import canonical_hash
+    from repro_torch.kernels.makespan import population_makespan_cuda
+    from repro_torch.service import serve_trace
+    from repro_torch.service.traces import GA_OPTIONS
+
+    per_ga = GA_OPTIONS["generations"] + 1
+    runs = {}
+    for engine in ("auto", "torch"):
+        reg, counts = counting_registry()
+        population_makespan_cuda.launches = 0
+        result = serve_trace(trace, config=config, registry=reg, device="cuda", engine=engine)
+        torch.cuda.synchronize()
+        n = population_makespan_cuda.launches
+        strict_json(json.dumps(result.summary()))
+        if engine == "auto":
+            want = per_ga * (counts["single"] + counts["batch"])
+            check(n == want, f"service {name}: {n} kernel launches, expected {per_ga} x "
+                  f"({counts['single']} + {counts['batch']}) = {want}")
+        else:
+            check(n == 0, f"service {name}: the plain-version run launched the kernel {n} times")
+        print(service_run_line(f"{name} engine={engine}", result, n, counts), flush=True)
+        fp = canonical_hash({"events": result.event_log, "records": [r.to_json() for r in result.records]})
+        runs[engine] = (result, n, dict(counts), fp)
+    check(runs["auto"][3] == runs["torch"][3], f"service {name}: kernel and plain version serve the same "
+          f"events and records ({runs['auto'][3]} against {runs['torch'][3]})")
+    print(f"service {name}: kernel and plain version give one fingerprint {runs['auto'][3]}", flush=True)
+    return runs["auto"][:3]
+
+
+def service_phase() -> tuple[dict[str, int], dict]:
+    """Phase 14: the scheduling service on the card.  The reference's
+    documented 200-submission trace through ``python -m repro_torch serve``
+    (no ``--device``), then in this process with the kernel and with the
+    plain version (the same draws: equal event logs and records), launches
+    counted against the GA calls, profiled and traced (host time by span);
+    the chaos lane, with the kernel and with the plain version; the cycling
+    streams' pinned replay; the kernel against its plain version at the service's
+    shapes (CMAX 512).  Returns the launches by path and the kernel's
+    service-shape readings."""
+    import tempfile
+
+    from repro_torch.core import Workload, build_problem, canonical_hash, mri_w1, mri_w2
+    from repro_torch.core.workload_model import stgs_workflows
+    from repro_torch.cycling import cycle_spec_from_json
+    from repro_torch.engine import pack, stack_packed
+    from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
+    from repro_torch.service import (
+        ServiceConfig,
+        Submission,
+        Trace,
+        continuum_system,
+        generate_trace,
+        serve_trace,
+    )
+    from repro_torch.service.traces import GA_OPTIONS
+
+    trace = generate_trace(200, seed=0, node_events=True)
+    src = Path(__file__).resolve().parent / "src"
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = Path(tmp) / "trace.json", Path(tmp) / "result.json"
+        trace.save(path)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", "serve", str(path), "--out", str(out)],
+                              env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"python -m repro_torch serve: exit {proc.returncode}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        cli = strict_json(out.read_text())
+        check(strict_json(proc.stdout) == cli, "the CLI printed the summary it wrote")
+    check(cli["completed"] == cli["submissions"] == 200 and cli["rejected"] == 0,
+          f"the CLI served {cli['completed']} of {cli['submissions']}, rejected {cli['rejected']}")
+    print(f"cli serve 200 (node events): exit 0 in {time.perf_counter() - t0:.2f} s, "
+          f"{cli['completed']}/{cli['submissions']} completed, wall {cli['wall_seconds']:.3f} s, "
+          f"throughput_per_wall_s {cli['throughput_per_wall_s']:.2f}, batched groups {cli['batched_groups']}",
+          flush=True)
+
+    launches: dict[str, int] = {}
+    result, launches["service_200"], ga_calls = serve_kernel_and_plain(trace, ServiceConfig(), "200 (node events)")
+    s = result.summary()
+    check(s["completed"] == s["submissions"] == 200 and s["rejected"] == 0,
+          f"{s['completed']} of 200 completed, {s['rejected']} rejected")
+    check(s["batched_groups"] > 0, "some GA admissions batch")
+    check(not any(r.fallbacks for r in result.records), "no record degraded")
+
+    population_makespan_cuda.launches = 0
+    profile = device_time_breakdown(lambda: serve_trace(trace, device="cuda"), classify=makespan_class)
+    check(population_makespan_cuda.launches == launches["service_200"], "the profiled run launches as the first")
+    kernel = profile.get("by_class", {}).get("makespan kernel", {"count": 0, "ms": 0.0})
+    print(json.dumps({"service_profile": profile}), flush=True)
+    print(f"service 200 under the profiler: wall {profile['wall_ms']:.2f} ms, device busy "
+          f"{profile['device_busy_ms']:.2f} ms, idle share {profile['device_idle_share']:.4f}, makespan kernel "
+          f"{kernel['ms']:.3f} ms ({kernel['count']} device kernels)", flush=True)
+
+    spans = span_breakdown(lambda: serve_trace(trace, device="cuda"))
+    print(json.dumps({"service_spans": spans}), flush=True)
+
+    chaos = generate_trace(**SERVICE_CHAOS["trace"])
+    result, launches["service_chaos"], _ = serve_kernel_and_plain(
+        chaos, ServiceConfig(**SERVICE_CHAOS["config"]), "chaos 120")
+    s = result.summary()
+    check(s["completed"] + s["rejected"] + s["failed"] == s["submissions"] == 120, "every chaos record ends")
+    check(all(r.status == "completed" or r.reason for r in result.records), "no chaos record ends silently")
+    check(launches["service_chaos"] > 0, "the chaos lane runs GA admissions on the kernel")
+    # the chain ga -> heft may degrade a GA schedule that is invalid while
+    # nodes are down; a GA step that raised on the card is a fault
+    degraded = {r.id: r.fallbacks for r in result.records if r.fallbacks}
+    print(f"service chaos 120: {len(degraded)} records degraded, trails {json.dumps(degraded)}; "
+          f"robustness {json.dumps(s['robustness'])}", flush=True)
+    raised = [f for trail in degraded.values() for f in trail
+              if f.startswith("ga:") and not re.fullmatch(r"ga:violations=\d+", f)]
+    check(not raised, f"a GA step raised on the card: {raised}")
+
+    wfs = {"mri-w1": mri_w1(), "mri-w2": mri_w2()}
+    streams = Trace(name="cycling", system=continuum_system(), submissions=tuple(
+        Submission(id=sid, tenant="t0", time=float(i), family=fam, workflow=wfs[fam], technique="heft",
+                   cycling=cycle_spec_from_json(dict(spec)))
+        for i, (sid, fam, spec) in enumerate(CYCLING_STREAMS)))
+    result = serve_trace(streams, config=ServiceConfig(seed=0), device="cuda")
+    fp = canonical_hash({"events": result.event_log, "records": [r.to_json() for r in result.records]})
+    check(fp == CYCLING_FINGERPRINT, f"the cycling streams replay to {fp}, pinned {CYCLING_FINGERPRINT}")
+    print(f"service cycling streams: {len(result.records)} submissions, {json.dumps(result.cycling)}, "
+          f"fingerprint == pinned {fp}", flush=True)
+
+    # the kernel at the service's shapes: an STGS workflow on the continuum
+    # (N3's 2,572 cores cap CMAX at 512: 16 slots a lane), P 16, exact shape
+    # (a single GA) and the bucket of a batched group
+    system = continuum_system()
+    stgs = [build_problem(system, Workload((wf,))) for wf in stgs_workflows().values()]
+    dev = torch.device("cuda")
+    record = {}
+    P = GA_OPTIONS["pop_size"]
+    packed = pack(stgs[0], pad=False)
+    arrays = packed.device_arrays(dev)
+    kw = {k: arrays[k] for k in KEYS}
+    kw["deadline"] = None
+    check(kw["init_free"].shape[-1] == 512, f"CMAX {kw['init_free'].shape[-1]} at the service's shapes")
+    A = torch.from_numpy(random_assignments(stgs[0], P, seed=14)).to(dev)
+    stacked, bucket = stack_packed(stgs, device=dev)
+    kw_b = {k: stacked[k] for k in KEYS}
+    kw_b["deadline"] = None
+    A_b = torch.zeros(len(stgs), P, bucket[0], dtype=torch.int32)
+    for b, problem in enumerate(stgs):
+        A_b[b, :, : problem.num_tasks] = torch.from_numpy(random_assignments(problem, P, seed=20 + b))
+    A_b = A_b.to(dev)
+    max_err = 0.0
+    for name, a, k in (("single", A, kw), ("batch", A_b, kw_b)):
+        mk_k, v_k = population_makespan_cuda(a, **k)
+        mk_p, v_p = population_makespan_ref(a, **k)
+        torch.cuda.synchronize()
+        check(same_bits(mk_k, mk_p) and same_bits(v_k, v_p), f"service {name}: kernel == plain version, bit for bit")
+        max_err = max(max_err, float((mk_k - mk_p).abs().max()), float((v_k - v_p).abs().max()))
+        ms = cuda_ms(lambda: population_makespan_cuda(a, **k), reps=50)
+        plain = cuda_ms(lambda: population_makespan_ref(a, **k), reps=3, warmup=1)
+        bound, by, nbytes, ops = makespan_bound_ms(a, k)
+        record[f"service_{name}"] = {"shape": list(a.shape), "cmax": int(k["init_free"].shape[-1]), "ms": ms,
+                                     "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+        print(f"makespan service {name} {list(a.shape)} CMAX {k['init_free'].shape[-1]}: kernel == plain bit for "
+              f"bit; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, {ops} ops)",
+              flush=True)
+    record["service_max_abs_err"] = max_err
+    record["service_ga_calls"] = ga_calls
+    record["service_device"] = {"wall_ms": profile["wall_ms"], "device_busy_ms": profile["device_busy_ms"],
+                                "device_idle_share": profile["device_idle_share"], "makespan_kernel_ms": kernel["ms"],
+                                "traced_wall_ms": spans["wall_ms"]}
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1290,7 +1578,14 @@ def main() -> int:
     scenario_launches = scenario_phase(table9_main, sweep_problems)
     phase_done(13, "the scenario path on the card")
 
-    makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches}
+    # 14. the scheduling service: tenants' GA admissions, single and batched
+    service_launches, service_record = service_phase()
+    phase_done(14, "the scheduling service on the card")
+
+    makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
+                        **service_launches}
+    record.update(service_record)
+    max_err = max(max_err, service_record["service_max_abs_err"])
 
     # each kernel's launches on each serving path, and their sum
     by_path: dict[str, dict[str, int]] = {}

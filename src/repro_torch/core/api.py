@@ -51,7 +51,7 @@ import difflib
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable, Iterable, Mapping, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -76,10 +76,19 @@ from repro_torch.core.workload_model import (
 )
 from repro_torch.kernels._build import KernelError
 
-_NOT_PORTED_CYCLING = (
-    "recurring/converging workloads (the scenario 'cycling' section) are "
-    "not ported yet: ROADMAP Queue A item 4"
-)
+if TYPE_CHECKING:  # runtime import is lazy: repro_torch.cycling imports workload_model
+    from repro_torch.cycling import CycleSpec
+
+
+def cycle_spec_from_json(obj: Any) -> "CycleSpec | None":
+    """Lazy wrapper around :func:`repro_torch.cycling.cycle_spec_from_json` —
+    imported at call time because :mod:`repro_torch.cycling` itself imports
+    :mod:`repro_torch.core.workload_model`."""
+    from repro_torch.cycling import cycle_spec_from_json as _parse
+
+    return _parse(obj)
+
+
 _NOT_PORTED_TOPOLOGY = (
     "generated continua (the scenario 'topology' section) are not ported "
     "yet: ROADMAP Queue A item 7"
@@ -640,10 +649,11 @@ class Scenario:
     ``"oracle"``, or a plugin); it reaches only engine-aware techniques.
 
     ``constraints`` layers hard deadlines/budgets/placement restrictions
-    over the workload (:class:`~repro_torch.core.workload_model.Constraints`)
-    and serializes as its own top-level section.  ``cycling`` (a recurring
-    workload in the reference) is not ported yet: a scenario that sets it
-    raises :class:`NotImplementedError`."""
+    over the workload (:class:`~repro_torch.core.workload_model.Constraints`), and
+    ``cycling`` turns it into a recurring/converging workload
+    (:class:`~repro_torch.cycling.CycleSpec`) — solved here as one unrolled DAG
+    over the bounded cycle window; the streaming expansion lives in
+    :mod:`repro_torch.service`.  Both serialize as their own top-level sections."""
 
     name: str
     system: System
@@ -657,15 +667,11 @@ class Scenario:
     orchestration: OrchestrationConfig = OrchestrationConfig()
     solver_options: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     constraints: Constraints | None = None
-    cycling: Any = None
+    cycling: CycleSpec | None = None
 
     _RESERVED_SECTIONS = (
         "scenario", "nodes", "dtr_matrix", "topology", "constraints", "cycling"
     )
-
-    def __post_init__(self) -> None:
-        if self.cycling is not None:
-            raise NotImplementedError(_NOT_PORTED_CYCLING)
 
     def to_json(self) -> dict:
         for wf in self.workload.workflows:
@@ -693,12 +699,22 @@ class Scenario:
         # scenario files (and their fingerprints) are byte-identical
         if self.constraints is not None and self.constraints:
             out["constraints"] = self.constraints.to_json()
+        if self.cycling is not None:
+            out["cycling"] = self.cycling.to_json()
         return out
 
     def expanded(self) -> tuple[Workload, Constraints | None]:
-        """The workload/constraints a solver actually sees (a cycling spec
-        would unroll here; it is refused at construction)."""
-        return self.workload, self.constraints
+        """The workload/constraints a solver actually sees: cycling specs
+        unroll into one DAG over the bounded cycle window, with per-cycle
+        deadlines merged into the constraints."""
+        if self.cycling is None:
+            return self.workload, self.constraints
+        from repro_torch.cycling import unroll_constraints, unroll_workload
+
+        return (
+            unroll_workload(self.workload, self.cycling),
+            unroll_constraints(self.workload, self.cycling, base=self.constraints),
+        )
 
     def save(self, path: str | Path) -> Path:
         path = Path(path)
@@ -777,7 +793,7 @@ def scenario_from_json(obj: Mapping[str, Any] | str) -> Scenario:
         orchestration=OrchestrationConfig.from_json(header.get("orchestration", {})),
         solver_options=dict(header.get("solver_options", {})),
         constraints=constraints_from_json(obj.get("constraints")),
-        cycling=obj.get("cycling"),
+        cycling=cycle_spec_from_json(obj.get("cycling")),
     )
 
 

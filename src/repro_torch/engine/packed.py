@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.workload_model import ScheduleProblem, problem_fingerprint
 
 _INF = 1e30  # dead links (+inf in JSON) and never-free core slots
@@ -300,6 +301,28 @@ class PackStats:
     misses: int = 0
     evictions: int = 0
 
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def snapshot(self) -> tuple[int, int, int]:
+        return (self.hits, self.misses, self.evictions)
+
+    def delta(self, before: tuple[int, int, int]) -> "PackStats":
+        """Stats accumulated since ``before`` (a :meth:`snapshot` tuple): the
+        one place the ``after - before`` idiom lives (the service summary
+        goes through here)."""
+        return PackStats(*(b - a for a, b in zip(before, self.snapshot())))
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "hit_rate": self.hit_rate,
+        }
+
 
 class PackCache:
     """Entry- and byte-bounded LRU of pack key → :class:`PackedProblem`.
@@ -356,6 +379,20 @@ _PACK_CACHE = PackCache()
 def pack_cache() -> PackCache:
     """The process-wide pack LRU (every :func:`pack` call flows through it)."""
     return _PACK_CACHE
+
+
+def _pack_cache_collector() -> dict[str, Any]:
+    """The pack LRU's counters for :data:`repro_torch.obs.METRICS`."""
+    return {
+        "hits": _PACK_CACHE.stats.hits,
+        "misses": _PACK_CACHE.stats.misses,
+        "evictions": _PACK_CACHE.stats.evictions,
+        "entries": len(_PACK_CACHE),
+        "retained_bytes": _PACK_CACHE.retained_bytes,
+    }
+
+
+obs.METRICS.register_collector("pack_cache", _pack_cache_collector)
 
 
 def pack(

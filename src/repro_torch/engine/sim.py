@@ -7,7 +7,9 @@
   (Eq. 12 with the Eq. 5 data-migration term), in f32 reciprocal rates;
 * :func:`run_schedule` — the list-scheduling replay of a fixed assignment.
   With ``dtype=float32`` its arithmetic order is that of the makespan kernel
-  and its plain version, bit for bit; with ``float64`` it is the oracle.
+  and its plain version, bit for bit; with ``float64`` it is the oracle;
+* :func:`accumulate_occupancy` — the per-node occupancy fold behind the
+  service's node frontiers.
 
 Plain numpy, as in the reference: the oracle re-scores one schedule, which
 is a sequential walk with nothing to batch.
@@ -164,3 +166,18 @@ def run_schedule(
         sim.commit(i, c, f)
         start[j], finish[j] = s, f
     return start, finish, violations
+
+
+def accumulate_occupancy(
+    frontier: np.ndarray,
+    busy: np.ndarray,
+    nodes: np.ndarray,
+    starts: np.ndarray,
+    finishes: np.ndarray,
+) -> None:
+    """Fold one execution's per-task windows into per-node occupancy state
+    in place: ``frontier[i]`` becomes the latest finish seen on node i,
+    ``busy[i]`` accumulates busy seconds.  The service's occupancy frontiers
+    are views over this (no second bookkeeping implementation)."""
+    np.maximum.at(frontier, nodes, finishes)
+    np.add.at(busy, nodes, finishes - starts)

@@ -1,11 +1,14 @@
-"""Span-based tracer: the part of the reference's ``obs/tracer.py`` that the
-solve path uses.
+"""Span-based tracer with dual clocks (wall + virtual).
 
 Every span records **wall-clock** start/duration (``time.perf_counter``,
-relative to the tracer origin), its parent, a name, a category and ``args``.
-The reference's virtual clock, ``timed`` spans, ``traced`` decorator and
-trace fingerprint serve its scheduling service and its trace export, which
-are not ported yet (ROADMAP Queue A items 4 and 5).
+relative to the tracer origin) and, when a virtual clock is installed, the
+**virtual-clock** start/duration of the deterministic event loop
+(:class:`repro_torch.service.events.EventLoop`).  The two views answer
+different questions: wall time shows where real compute went (solver,
+kernel launches); virtual time shows where the *simulated* service spent its
+deterministic clock (queueing, dispatch, retry backoff).  The reference's
+``timed`` spans, ``traced`` decorator and Perfetto export are not ported yet
+(ROADMAP Queue A item 5).
 
 Design constraints, in priority order:
 
@@ -14,8 +17,10 @@ Design constraints, in priority order:
   allocation-free the API takes ``args`` as an optional *dict* parameter,
   never ``**kwargs`` (which would allocate per call).
 * **Deterministic replay.**  Span ids are a sequential counter reset by
-  :meth:`Tracer.enable`; names, nesting and ``args`` depend only on the
-  workload + seed.  Wall times are outside the determinism contract.
+  :meth:`Tracer.enable`; names, nesting, virtual timestamps and ``args``
+  depend only on the workload + seed.  Wall times are outside the
+  determinism contract — :func:`virtual_fingerprint` hashes everything
+  *except* wall fields.
 * **Exceptions are data.**  A span exited by an exception records
   ``args["error"] = "Type: message"`` and re-raises; the fallback chain in
   :func:`repro_torch.core.api.solve_with_fallback` reads as a trail of attempt
@@ -24,17 +29,22 @@ Design constraints, in priority order:
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable, Sequence
 
-__all__ = ["Span", "Tracer", "TRACER"]
+__all__ = ["Span", "Tracer", "TRACER", "virtual_fingerprint"]
 
 
 @dataclass
 class Span:
-    """One completed (or in-flight) span; ``wall_t0``/``wall_dur`` are
-    seconds relative to the tracer origin."""
+    """One completed (or in-flight) span.
+
+    ``wall_t0``/``wall_dur`` are seconds relative to the tracer origin;
+    ``vt0``/``vdur`` are virtual-clock seconds (``None`` when no virtual
+    clock was installed at entry, e.g. outside a service run)."""
 
     id: int
     parent: int | None
@@ -42,6 +52,8 @@ class Span:
     cat: str
     wall_t0: float
     wall_dur: float = 0.0
+    vt0: float | None = None
+    vdur: float | None = None
     args: dict[str, Any] = field(default_factory=dict)
 
 
@@ -90,6 +102,8 @@ class _Active:
             wall_t0=self._t0 - tr._origin,
             args=dict(self._args) if self._args else {},
         )
+        if tr._vclock is not None:
+            span.vt0 = float(tr._vclock())
         self._span = span
         tr.spans.append(span)
         tr._stack.append(sid)
@@ -106,6 +120,8 @@ class _Active:
         if span is None:  # never entered
             return False
         span.wall_dur = time.perf_counter() - self._t0
+        if span.vt0 is not None and tr._vclock is not None:
+            span.vdur = float(tr._vclock()) - span.vt0
         if tr._stack and tr._stack[-1] == span.id:
             tr._stack.pop()
         if et is not None and "error" not in span.args:
@@ -121,6 +137,7 @@ class Tracer:
         self.spans: list[Span] = []
         self._stack: list[int] = []
         self._origin = time.perf_counter()
+        self._vclock: Callable[[], float] | None = None
         self._next_id = 0
 
     def enable(self) -> None:
@@ -134,6 +151,14 @@ class Tracer:
     def disable(self) -> None:
         self.enabled = False
 
+    def set_virtual_clock(
+        self, clock: Callable[[], float] | None
+    ) -> Callable[[], float] | None:
+        """Install (or clear) the virtual clock; returns the previous one."""
+        prev = self._vclock
+        self._vclock = clock
+        return prev
+
     def span(self, name: str, cat: str = "",
              args: dict[str, Any] | None = None) -> _Active | _Noop:
         """Open a span as a context manager; no-op singleton when disabled."""
@@ -143,3 +168,21 @@ class Tracer:
 
 
 TRACER = Tracer()
+
+
+def virtual_fingerprint(spans: Sequence[Span] | None = None) -> str:
+    """Hash of the deterministic part of a trace.
+
+    Covers span ids, nesting, names, categories, virtual timestamps and
+    args — everything except wall-clock fields, which legitimately vary
+    between runs.  Two traced replays of the same workload at the same
+    seed must produce equal fingerprints."""
+    if spans is None:
+        spans = TRACER.spans
+    payload = [
+        (s.id, s.parent, s.name, s.cat, s.vt0, s.vdur,
+         sorted(s.args.items()))
+        for s in spans
+    ]
+    blob = json.dumps(payload, sort_keys=True, default=repr)
+    return hashlib.sha256(blob.encode()).hexdigest()

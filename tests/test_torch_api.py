@@ -294,10 +294,10 @@ def test_device_reaches_engine_aware_techniques_only():
     assert "heft" not in opts
 
 
-def test_cycling_and_topology_sections_are_refused():
+def test_topology_section_is_refused():
+    """A scenario's inline generated continuum waits for Queue A item 7 (its
+    ``cycling`` section is ported: tests/test_torch_cycling.py)."""
     obj = _scenario(SCENARIOS[0]).to_json()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        api.scenario_from_json({**obj, "cycling": {"cycles": 2}})
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         api.scenario_from_json({k: v for k, v in obj.items() if k not in ("nodes", "dtr_matrix")}
                                | {"topology": "tiny"})

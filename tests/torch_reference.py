@@ -131,6 +131,52 @@ rule T2:
 """
 
 
+def standin_registry(api, heuristics):
+    """A copy of ``api.REGISTRY`` (either package's) whose ``ga`` entry is a
+    deterministic stand-in: HEFT, and HEFT mapped over a batched group.  The
+    GA's draws differ between the packages (``torch.Generator`` against
+    JAX's PRNG), so service runs that must match the reference event for
+    event solve their GA submissions with this; batching, coalescing, the
+    caches and preemption run as with the real GA."""
+    reg = api.SolverRegistry()
+    for e in api.REGISTRY:
+        if e.name == "ga":
+            continue
+        caps = e.capabilities
+        reg.register(e.name, e.fn, batch_fn=e.batch_fn, exact=caps.exact, max_tasks=caps.max_tasks,
+                     needs_time_limit=caps.needs_time_limit, engine_aware=caps.engine_aware,
+                     constraint_aware=caps.constraint_aware)
+
+    def heft_ga(problem, weights=api.ObjectiveWeights(), **kw):
+        return api.SolveReport(schedule=heuristics.heft(problem, weights), problem=problem)
+
+    def heft_batch(problems, weights=api.ObjectiveWeights(), **kw):
+        return [heft_ga(p, weights, **kw) for p in problems]
+
+    reg.register("ga", heft_ga, batch_fn=heft_batch, constraint_aware=True)
+    return reg
+
+
+#: the summary fields a replay may change (SKILL.md §4): wall time, and the
+#: process-global pack LRU's delta
+WALL_FIELDS = ("wall_seconds", "throughput_per_wall_s", "pack_cache")
+
+
+def service_outputs(result, metrics: dict) -> dict[str, str]:
+    """A served trace's deterministic outputs as JSON texts: the event log,
+    the records, the makespans, the summary without :data:`WALL_FIELDS` and
+    the counters and histograms of a metrics snapshot taken after the run
+    (the registry reset before it)."""
+    summary = {k: v for k, v in result.summary().items() if k not in WALL_FIELDS}
+    return {
+        "events": json.dumps(result.event_log, sort_keys=True),
+        "records": json.dumps([r.to_json() for r in result.records], sort_keys=True),
+        "makespans": json.dumps(result.makespans(), sort_keys=True),
+        "summary": json.dumps(summary, sort_keys=True),
+        "metrics": json.dumps({k: metrics[k] for k in ("counters", "histograms")}, sort_keys=True),
+    }
+
+
 def name_of(spec: dict) -> str:
     return "-".join(str(spec[k]) for k in sorted(spec))
 
@@ -590,7 +636,101 @@ def job_scenario(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_service(params: dict, inputs: dict) -> dict:
+    """The reference service: each generated trace's JSON text and that text
+    parsed and written again, and each serve's outputs (:func:`service_outputs`) on a generated trace or on a
+    trace file the parent wrote, with the real registry or the stand-in
+    (:func:`standin_registry`), traced (the virtual fingerprint) or not."""
+    from repro import obs
+    from repro.core import api, heuristics
+    from repro.service import ServiceConfig, SchedulingService, generate_trace, trace_from_json
+
+    out: dict[str, np.ndarray] = {}
+    for name, kw in params["traces"].items():
+        text = json.dumps(generate_trace(**kw).to_json(), indent=2)
+        out[f"trace/{name}"] = np.array(text)
+        out[f"trace/{name}/reparsed"] = np.array(json.dumps(trace_from_json(text).to_json(), indent=2))
+    for case in params["serves"]:
+        name = case["name"]
+        if "gen" in case:
+            trace = generate_trace(**case["gen"])
+        else:
+            trace = trace_from_json(str(inputs[f"{name}/trace"]))
+        reg = standin_registry(api, heuristics) if case.get("standin") else None
+        config = dict(case.get("config", {}))
+        config["fallback"] = tuple(config.get("fallback", ()))
+        obs.METRICS.reset()
+        if case.get("traced"):
+            obs.TRACER.enable()
+        try:
+            result = SchedulingService(trace.system, ServiceConfig(**config), registry=reg).run(trace)
+        finally:
+            obs.TRACER.disable()
+        for k, v in service_outputs(result, obs.METRICS.snapshot()).items():
+            out[f"{name}/{k}"] = np.array(v)
+        if case.get("traced"):
+            out[f"{name}/fingerprint"] = np.array(obs.virtual_fingerprint())
+            out[f"{name}/spans"] = np.array(len(obs.TRACER.spans))
+    return out
+
+
+def job_cycling(params: dict, inputs: dict) -> dict:
+    """The reference's cycling layer: each spec's JSON round trip, unrolled
+    workflows, per-cycle deadlines, cross edges and convergence predicate;
+    the errors of malformed specs; a scenario with a ``cycling`` section
+    (its JSON text, the port's file written again, and its run's summary);
+    and the converging-stream
+    service fixture's replay fingerprint."""
+    import dataclasses
+    import tempfile
+
+    from repro.campaigns.builtin import _converging_service_section
+    from repro.core import api
+    from repro.cycling import (
+        cross_edges,
+        cycle_spec_from_json,
+        resolve_cycles,
+        unroll_constraints,
+        unroll_workload,
+    )
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for i, (spec_json, prob) in enumerate(params["specs"]):
+        spec = cycle_spec_from_json(spec_json)
+        workload = workload_of(prob, wm)
+        out[f"spec/{i}/json"] = np.array(json.dumps(spec.to_json(), sort_keys=True))
+        out[f"spec/{i}/unrolled"] = np.array(json.dumps(wm.workload_to_json(unroll_workload(workload, spec))))
+        cons = unroll_constraints(workload, spec, base=constraints_of(prob, wm))
+        out[f"spec/{i}/constraints"] = np.array(json.dumps(None if cons is None else cons.to_json()))
+        out[f"spec/{i}/cross"] = np.array(json.dumps(cross_edges(workload.workflows[0], spec)))
+        out[f"spec/{i}/cycles"] = np.array(resolve_cycles(spec))
+        if spec.converging:
+            out[f"spec/{i}/converged"] = np.array(
+                [[spec.converge.converged(n, k) for k in range(spec.converge.max_cycles)]
+                 for n in params["stream_names"]]
+            )
+            out[f"spec/{i}/revealed"] = np.array([spec.converge.revealed_cycles(n) for n in params["stream_names"]])
+    for i, bad in enumerate(params["bad"]):
+        out[f"bad/{i}"] = np.array(_error_of(lambda: cycle_spec_from_json(bad)))
+    for spec in params["scenarios"]:
+        name = spec["name"]
+        sc = dataclasses.replace(scenario_of(spec, api, sm, wm), cycling=cycle_spec_from_json(spec["cycling"]))
+        out[f"{name}/json"] = np.array(json.dumps(sc.to_json(), indent=2))
+        again = api.scenario_from_json(str(inputs[f"{name}/port_json"]))
+        out[f"{name}/reparsed"] = np.array(json.dumps(again.to_json(), indent=2))
+        with tempfile.TemporaryDirectory() as tmp:
+            summary = api.Orchestrator(sc, out_dir=tmp).run().summary()
+        summary.pop("artifacts", None)
+        out[f"{name}/summary"] = np.array(json.dumps(summary, sort_keys=True))
+    section = _converging_service_section()
+    out["converging/fingerprint"] = np.array(section["replay_fingerprint"])
+    out["converging/section"] = np.array(json.dumps(section, sort_keys=True))
+    return out
+
+
 JOBS = {
+    "service": job_service, "cycling": job_cycling,
     "scenario": job_scenario,
     "model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas,
     "mh": job_mh, "heuristics": job_heuristics, "milp": job_milp,
