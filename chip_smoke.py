@@ -98,7 +98,25 @@ result line:
     cycling streams, whose replay must give the pinned fingerprint; and the
     makespan kernel against its plain version bit for bit at the service's
     shapes (P 16, CMAX 512: an STGS workflow's exact shape and the bucket
-    of the three), timed beside its bound.
+    of the three), timed beside its bound;
+15. campaigns: the documented Table IX grid ({layered, synthetic} x {5, 10,
+    20} x seeds {0, 1} x {milp, heft, olb, ga} on 3 nodes, 48 cells) through
+    ``python -m repro_torch campaign run`` in a child process with no
+    ``--device`` and ``--trace`` (48 rows, 12 MILP rows ok, the gap report,
+    13 kernel launches a GA call read from the trace's ``engine_fitness``),
+    the trace validated by ``python -m repro_torch obs``; the same grid in
+    this process with the kernel and with the plain version, which must give
+    equal rows (wall columns aside), stats and gap report, profiled and
+    traced; the Table IX 500 x 500 campaign (8 seeds x HEFT, OLB and the GA
+    at its defaults: the 8 GA cells one ``ga_sweep`` of 61 launches, every
+    schedule valid); the reference's lanes (smoke, cycling, engine, service,
+    chaos) through their exporters into a temporary directory, with
+    launches counted against the GA calls, no record degraded and, for the
+    service and chaos lanes, one fingerprint over the exporter's run and
+    two traced runs; the kernel against its plain version bit for bit at
+    the smoke and engine lanes' shapes, timed beside its bound and the
+    engine lane's host-timed rows; the tracing overhead on the smoke lane;
+    and no ``BENCH_*.json`` of the repository changed.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -114,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1024,31 +1043,6 @@ CYCLING_STREAMS = (
 CYCLING_FINGERPRINT = "820bbd5dcab25e9a644031ba39cdcd0ed4e0e34b33bf20c0e3c0d8844d2d15cb"
 
 
-def counting_registry():
-    """A copy of the solver registry whose ``ga`` fn and batch fn count the
-    calls that reach the GA (a declined batch is not one)."""
-    from repro_torch.core import api
-
-    counts = {"single": 0, "batch": 0}
-    reg = api.SolverRegistry()
-    for e in api.REGISTRY:
-        fn, batch_fn = e.fn, e.batch_fn
-        if e.name == "ga":
-            def fn(problem, weights=api.ObjectiveWeights(), _fn=e.fn, **kw):
-                counts["single"] += 1
-                return _fn(problem, weights, **kw)
-
-            def batch_fn(problems, weights=api.ObjectiveWeights(), _fn=e.batch_fn, **kw):
-                reports = _fn(problems, weights, **kw)
-                counts["batch"] += reports is not None
-                return reports
-        caps = e.capabilities
-        reg.register(e.name, fn, batch_fn=batch_fn, exact=caps.exact, max_tasks=caps.max_tasks,
-                     needs_time_limit=caps.needs_time_limit, engine_aware=caps.engine_aware,
-                     constraint_aware=caps.constraint_aware)
-    return reg, counts
-
-
 def strict_json(text: str):
     """``json.loads`` that refuses bare NaN and Infinity."""
     def refuse(token):
@@ -1057,7 +1051,46 @@ def strict_json(text: str):
     return json.loads(text, parse_constant=refuse)
 
 
-def service_run_line(name: str, result, launches: int, counts: dict | None = None) -> str:
+class GACalls:
+    """Count the GA calls of a block, singly (``ga``) and batched
+    (``ga_sweep``), each with its generations: a call on the card launches
+    the makespan kernel generations + 1 times."""
+
+    def __enter__(self) -> "GACalls":
+        from repro_torch.core import metaheuristics as mh
+
+        self.mh, self.calls = mh, []
+        self._ga, self._sweep = mh.TECHNIQUES["ga"], mh.ga_sweep
+
+        def ga(problem, *a, **kw):
+            self.calls.append(("single", kw.get("generations", 60)))
+            return self._ga(problem, *a, **kw)
+
+        def ga_sweep(problems, *a, **kw):
+            self.calls.append(("batch", kw.get("generations", 60)))
+            return self._sweep(problems, *a, **kw)
+
+        mh.TECHNIQUES["ga"], mh.ga_sweep = ga, ga_sweep
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.mh.TECHNIQUES["ga"], self.mh.ga_sweep = self._ga, self._sweep
+        return False
+
+    @property
+    def launches(self) -> int:
+        return sum(g + 1 for _, g in self.calls)
+
+    def kinds(self) -> dict[str, int]:
+        kinds = Counter(k for k, _ in self.calls)
+        return {"single": kinds["single"], "batch": kinds["batch"]}
+
+    def __str__(self) -> str:
+        kinds = self.kinds()
+        return f"GA calls {len(self.calls)} ({kinds['single']} single, {kinds['batch']} batched)"
+
+
+def service_run_line(name: str, result, launches: int, calls: "GACalls | None" = None) -> str:
     s = result.summary()
     line = (f"service {name}: {s['completed']}/{s['submissions']} completed, {s['rejected']} rejected, "
             f"{s['failed']} failed, {s['events']} events, wall {s['wall_seconds']:.3f} s, "
@@ -1066,8 +1099,8 @@ def service_run_line(name: str, result, launches: int, counts: dict | None = Non
             f"hit rate {s['cache']['hit_rate']:.4f}, pack cache hit rate {s['pack_cache']['hit_rate']:.4f}, "
             f"turnaround p50/p95 {s['turnaround']['p50']:.2f}/{s['turnaround']['p95']:.2f} virtual s, "
             f"kernel launches {launches}")
-    if counts is not None:
-        line += f" (GA single calls {counts['single']}, GA batch calls {counts['batch']})"
+    if calls is not None:
+        line += f" ({calls})"
     return line
 
 
@@ -1104,8 +1137,8 @@ def span_breakdown(run, top: int = 10) -> dict:
 
 def serve_kernel_and_plain(trace, config, name: str):
     """Serve ``trace`` on the card with the kernel (``engine="auto"``) and
-    with the plain version (``engine="torch"``, the same draws) through a
-    counting registry.  Both must give one fingerprint of events and records
+    with the plain version (``engine="torch"``, the same draws), counting
+    the GA calls.  Both must give one fingerprint of events and records
     (degraded records and their trails included); the kernel run must make
     exactly (generations + 1) launches a GA call, the plain run none.
     Returns the kernel run's result, its launches and its GA calls."""
@@ -1117,21 +1150,21 @@ def serve_kernel_and_plain(trace, config, name: str):
     per_ga = GA_OPTIONS["generations"] + 1
     runs = {}
     for engine in ("auto", "torch"):
-        reg, counts = counting_registry()
         population_makespan_cuda.launches = 0
-        result = serve_trace(trace, config=config, registry=reg, device="cuda", engine=engine)
-        torch.cuda.synchronize()
+        with GACalls() as calls:
+            result = serve_trace(trace, config=config, device="cuda", engine=engine)
+            torch.cuda.synchronize()
         n = population_makespan_cuda.launches
         strict_json(json.dumps(result.summary()))
         if engine == "auto":
-            want = per_ga * (counts["single"] + counts["batch"])
-            check(n == want, f"service {name}: {n} kernel launches, expected {per_ga} x "
-                  f"({counts['single']} + {counts['batch']}) = {want}")
+            want = per_ga * len(calls.calls)
+            check(n == want == calls.launches, f"service {name}: {n} kernel launches, expected {per_ga} x "
+                  f"{len(calls.calls)} = {want}")
         else:
             check(n == 0, f"service {name}: the plain-version run launched the kernel {n} times")
-        print(service_run_line(f"{name} engine={engine}", result, n, counts), flush=True)
+        print(service_run_line(f"{name} engine={engine}", result, n, calls), flush=True)
         fp = canonical_hash({"events": result.event_log, "records": [r.to_json() for r in result.records]})
-        runs[engine] = (result, n, dict(counts), fp)
+        runs[engine] = (result, n, calls.kinds(), fp)
     check(runs["auto"][3] == runs["torch"][3], f"service {name}: kernel and plain version serve the same "
           f"events and records ({runs['auto'][3]} against {runs['torch'][3]})")
     print(f"service {name}: kernel and plain version give one fingerprint {runs['auto'][3]}", flush=True)
@@ -1273,6 +1306,386 @@ def service_phase() -> tuple[dict[str, int], dict]:
     record["service_device"] = {"wall_ms": profile["wall_ms"], "device_busy_ms": profile["device_busy_ms"],
                                 "device_idle_share": profile["device_idle_share"], "makespan_kernel_ms": kernel["ms"],
                                 "traced_wall_ms": spans["wall_ms"]}
+    return launches, record
+
+
+TABLE9_GRID = Path(__file__).resolve().parent / "examples" / "campaign_table9.json"
+#: the Table IX 500 x 500 campaign: 8 seeds x HEFT, OLB and the GA at its
+#: defaults, the 8 GA cells one batched group
+TABLE9_500 = {"name": "table9-500", "runner": "inline",
+              "axes": [{"name": "scale", "zip": True, "values": [{"size": 500, "nodes": 500}]},
+                       {"name": "seed", "values": list(range(8))},
+                       {"name": "technique", "values": ["heft", "olb", "ga"]}],
+              "defaults": {"family": "synthetic", "engine": "auto",
+                           "solver_options": {"ga": {"seed": 0, "pop_size": 64, "generations": 60}}}}
+#: the campaign lanes' kernel shapes held against the plain version: the
+#: smoke lane's two scale points and the engine lane's three buckets
+#: (label, system nodes, workload builder, population)
+CAMPAIGN_SHAPES = (
+    ("smoke 5x5", 5, ("synthetic", 5), 32),
+    ("smoke 50x50", 50, ("synthetic", 50), 32),
+    ("engine small", 4, ("layered", 24), 64),
+    ("engine medium", 8, ("layered", 96), 64),
+    ("engine large", 16, ("layered", 384), 32),
+)
+
+
+class CapturedServes:
+    """Keep every ``ServiceResult`` that ``serve_trace`` returns in a block
+    (the trace runner calls it through the package)."""
+
+    def __enter__(self) -> "CapturedServes":
+        import repro_torch.service as service
+
+        self.service, self.results = service, []
+        self._serve = service.serve_trace
+
+        def serve(*a, **kw):
+            result = self._serve(*a, **kw)
+            self.results.append(result)
+            return result
+
+        service.serve_trace = serve
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.service.serve_trace = self._serve
+        return False
+
+
+def campaign_fingerprint(rs) -> str:
+    """Hash of a campaign ResultSet's deterministic part: its rows without
+    the wall-clock columns (``wall_us``, the solver's ``solve_time_s``), its
+    stats without ``wall_seconds``, and its gap report against MILP."""
+    from repro_torch.core import canonical_hash
+
+    stats = {k: v for k, v in rs.meta.get("stats", {}).items() if k != "wall_seconds"}
+    if "summary" in stats:
+        stats["summary"] = {k: v for k, v in stats["summary"].items()
+                            if k not in ("wall_seconds", "throughput_per_wall_s", "pack_cache")}
+    rows = [{k: v for k, v in r.items() if k not in ("wall_us", "solve_time_s")} for r in rs]
+    report = rs.deviation_report("milp").to_csv() if rs.baseline_present("milp") else ""
+    return canonical_hash({"rows": rows, "stats": stats, "report": report})
+
+
+def recording_registry():
+    """A copy of the solver registry that keeps every report it returns, so
+    each row's schedule can be checked against its problem."""
+    from repro_torch.core import api
+
+    reports = []
+    reg = api.SolverRegistry()
+    for e in api.REGISTRY:
+        def fn(problem, weights=api.ObjectiveWeights(), _fn=e.fn, **kw):
+            rep = _fn(problem, weights, **kw)
+            reports.append(rep)
+            return rep
+
+        batch_fn = None
+        if e.batch_fn is not None:
+            def batch_fn(problems, weights=api.ObjectiveWeights(), _fn=e.batch_fn, **kw):
+                reps = _fn(problems, weights, **kw)
+                reports.extend(reps or ())
+                return reps
+        caps = e.capabilities
+        reg.register(e.name, fn, batch_fn=batch_fn, exact=caps.exact, max_tasks=caps.max_tasks,
+                     needs_time_limit=caps.needs_time_limit, engine_aware=caps.engine_aware,
+                     constraint_aware=caps.constraint_aware)
+    return reg, reports
+
+
+def fitness_from_metrics(flat: dict) -> dict[str, dict]:
+    """The ``engine_fitness`` table out of a flat ``--trace`` metrics file."""
+    table: dict[str, dict] = {}
+    for k, v in flat.items():
+        if k.startswith("engine_fitness."):
+            key, field = k[len("engine_fitness."):].rsplit(".", 1)
+            table.setdefault(key, {})[field] = v
+    return table
+
+
+def campaign_phase() -> tuple[dict[str, int], dict]:
+    """Phase 15: campaigns on the card.  The documented Table IX grid
+    through ``python -m repro_torch campaign run`` (no ``--device``) with a
+    trace read back by ``python -m repro_torch obs``; the same grid in this
+    process with the kernel and with the plain version (equal results);
+    the Table IX 500 x 500 campaign (its 8 GA cells one ``ga_sweep``); the
+    reference's lanes through their exporters into a temporary directory;
+    the kernel against its plain version at the lanes' shapes; the tracing
+    overhead on the smoke lane.  Returns the launches by path and the
+    kernel's readings at the lanes' shapes."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.campaigns import ResultSet, builtin, campaign_from_json, load_campaign, run_campaign
+    from repro_torch.core import (
+        Workload,
+        build_problem,
+        canonical_hash,
+        random_layered_workflow,
+        synthetic_system,
+        synthetic_workload,
+        verify_schedule,
+    )
+    from repro_torch.engine import backends, pack, pack_cache
+    from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
+
+    repo = Path(__file__).resolve().parent
+    src = repo / "src"
+    bench_before = {p.name: p.read_bytes() for p in repo.glob("BENCH_*.json")}
+    launches: dict[str, int] = {"campaign_lanes": 0}
+    record: dict = {}
+    tmp = Path(tempfile.mkdtemp(prefix="campaigns-"))
+    try:
+        # the documented grid through the CLI, on the card by default
+        cli = {"out": tmp / "t9.json", "csv": tmp / "t9.csv", "trace": tmp / "t9.trace.json"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "campaign", "run", str(TABLE9_GRID), "--vs", "milp",
+             *(a for k, p in cli.items() for a in (f"--{k}", str(p)))],
+            env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True, text=True, timeout=600)
+        cli_wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m repro_torch campaign run: exit {proc.returncode}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        rs = ResultSet.load(cli["out"])
+        milp = rs.select(technique="milp")
+        check(len(rs) == 48, f"the grid gave {len(rs)} rows, expected 48")
+        check(len(milp) == 12 and all(r["status"] == "ok" for r in milp), "12 MILP rows ok")
+        check(all(r["status"] == "ok" for r in rs), "every cell of the grid solved")
+        ga_rows = rs.select(technique="ga")
+        ga_calls = sum(1 for r in ga_rows if not r["batched"]) + round(
+            sum(1 / r["group_size"] for r in ga_rows if r["batched"]))
+        report = proc.stdout.partition("# deviation vs milp (makespan):\n")[2]
+        check(report.startswith("technique,gap_pct_mean"), "the CLI printed its gap report")
+        print(f"cli campaign table9 grid: exit 0 in {cli_wall:.2f} s, {len(rs)} rows, 12 MILP rows ok, "
+              f"GA calls {ga_calls} ({rs.meta['stats']['batched_groups']} batched groups), stats "
+              f"{json.dumps({k: v for k, v in rs.meta['stats'].items() if k != 'cache'})}", flush=True)
+        print("cli campaign table9 gap report vs milp:\n" + report.rstrip(), flush=True)
+
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", "obs", str(cli["trace"]), "--json"],
+                              env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0, f"python -m repro_torch obs: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout)
+        names = Counter(e["name"] for e in json.loads(cli["trace"].read_text())["traceEvents"] if e["ph"] == "X")
+        counts = {n: names[n] for n in ("campaign.cell", "campaign.batch", "mh.ga_sweep", "engine.pack")}
+        check(counts["mh.ga_sweep"] == counts["campaign.batch"] == rs.meta["stats"]["batched_groups"],
+              "one mh.ga_sweep span a batched group")
+        print(f"cli obs: valid trace, {summary['events']} events, categories "
+              f"{json.dumps(summary['categories'])}, spans {json.dumps(counts)}", flush=True)
+        table = fitness_from_metrics(json.loads(cli["trace"].with_suffix(".metrics.json").read_text()))
+        for key, rec in table.items():
+            print(f"  engine_fitness {key}: calls {rec['calls']}, compiles {rec['compiles']}, compile_us "
+                  f"{rec['compile_us']:.1f}, execute_us_mean {rec['execute_us_mean']:.1f}")
+        cli_launches = sum(rec["calls"] for key, rec in table.items() if key.split("|")[0] in ("cuda", "cuda-batch"))
+        check(cli_launches == 13 * ga_calls, f"the CLI's cuda fitness calls {cli_launches} == 13 x {ga_calls}")
+        print(f"cli campaign table9 grid: {cli_launches} makespan kernel launches (cuda fitness calls) "
+              f"= 13 x {ga_calls} GA calls", flush=True)
+
+        # the same grid in this process: kernel, plain version, profiled kernel
+        grid = load_campaign(TABLE9_GRID)
+        runs = {}
+        for engine, fn in (("cuda", population_makespan_cuda), ("plain", population_makespan_ref)):
+            pack_cache().clear()
+            kept = backends.CudaEngine.makespan_fn
+            backends.CudaEngine.makespan_fn = staticmethod(fn)
+            population_makespan_cuda.launches = 0
+            try:
+                with GACalls() as calls:
+                    t0 = time.perf_counter()
+                    grid_rs = run_campaign(grid, device="cuda")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                backends.CudaEngine.makespan_fn = kept
+            n = population_makespan_cuda.launches
+            check(n == (calls.launches if engine == "cuda" else 0), f"grid {engine}: {n} launches, {calls}")
+            runs[engine] = (campaign_fingerprint(grid_rs), grid_rs)
+            print(f"campaign table9 grid engine={engine}: wall {wall:.3f} s, {calls}, launches {n}, "
+                  f"fingerprint {runs[engine][0]}", flush=True)
+            if engine == "cuda":
+                launches["campaign_grid"] = n
+        check(runs["cuda"][0] == runs["plain"][0], "grid: kernel and plain version give equal rows, stats and "
+              "gap report")
+        check(runs["cuda"][1].deviation_report("milp").to_csv() == report,
+              "grid: the in-process gap report equals the CLI's")
+        print("campaign table9 grid: kernel == plain version in every row, the stats and the gap report", flush=True)
+        # one more run, traced under the profiler: the device's idle share
+        # and the host's time by span (``campaign.run``'s own time is the
+        # cells' expansion and problem building)
+        spans: dict = {}
+        grid_profile = device_time_breakdown(
+            lambda: spans.update(span_breakdown(lambda: run_campaign(grid, device="cuda"))), classify=makespan_class)
+        kernel = grid_profile.get("by_class", {}).get("makespan kernel", {"count": 0, "ms": 0.0})
+        print(f"campaign table9 grid traced under the profiler: wall {grid_profile['wall_ms']:.2f} ms, device busy "
+              f"{grid_profile['device_busy_ms']:.2f} ms, idle share {grid_profile['device_idle_share']:.4f}, "
+              f"makespan kernel {kernel['ms']:.3f} ms ({kernel['count']} device kernels)", flush=True)
+        print(json.dumps({"campaign_grid_spans": spans}), flush=True)
+
+        # the paper's scale: Table IX 500 x 500, 8 seeds
+        c500 = campaign_from_json({"campaign": TABLE9_500})
+        reg, reports = recording_registry()
+        population_makespan_cuda.launches = 0
+        with GACalls() as calls:
+            t0 = time.perf_counter()
+            rs500 = run_campaign(c500, registry=reg, device="cuda")
+            torch.cuda.synchronize()
+            wall500 = time.perf_counter() - t0
+        n = launches["campaign_table9_500"] = population_makespan_cuda.launches
+        stats = rs500.meta["stats"]
+        check(len(rs500) == 24 and all(r["status"] == "ok" for r in rs500), "24 rows solved")
+        check(calls.calls == [("batch", 60)] and n == 61, f"the 8 GA cells are one ga_sweep: {calls}, {n} launches")
+        check(stats["batched_groups"] == 1 and stats["batched_submissions"] == 8, "one batched group of 8")
+        check(len(reports) == 24, f"{len(reports)} reports kept")
+        for rep in reports:
+            bad = verify_schedule(rep.problem, rep.schedule)
+            check(not bad and rep.schedule.violations == 0, f"a Table IX 500 schedule is invalid: {bad[:3]}")
+        bucket = "x".join(str(d) for d in pack(reports[-1].problem).bucket)
+        spans500: dict = {}
+        prof500 = device_time_breakdown(
+            lambda: spans500.update(span_breakdown(lambda: run_campaign(c500, device="cuda"))),
+            classify=makespan_class)
+        kernel = prof500.get("by_class", {}).get("makespan kernel", {"count": 0, "ms": 0.0})
+        print(f"campaign table9 500x500: 24 rows valid, wall {wall500:.3f} s, {calls} in bucket {bucket}, launches "
+              f"{n}; traced under the profiler wall {prof500['wall_ms']:.2f} ms, device busy "
+              f"{prof500['device_busy_ms']:.2f} ms, idle share {prof500['device_idle_share']:.4f}, makespan kernel "
+              f"{kernel['ms']:.3f} ms", flush=True)
+        print(json.dumps({"campaign_table9_500_spans": spans500}), flush=True)
+        print("campaign table9 500x500 gap report vs heft:\n" + rs500.deviation_report("heft").to_csv().rstrip(),
+              flush=True)
+
+        # the reference's lanes through their exporters, into the temporary directory
+        lanes = {
+            "smoke": lambda: builtin.run_smoke(tmp / "BENCH_table9.json"),
+            "cycling": lambda: builtin.run_cycling_bench(tmp / "BENCH_cycling.json"),
+            "engine": lambda: builtin.run_engine_bench_export(tmp / "BENCH_engine.json"),
+            "service": lambda: builtin.run_service_bench(out_path=tmp / "BENCH_service.json"),
+            "chaos": lambda: builtin.run_chaos_bench(out_path=tmp / "BENCH_chaos.json"),
+        }
+        lane_record = {}
+        for name, export in lanes.items():
+            if name == "engine":
+                obs.FITNESS.reset()  # the table then holds this lane's calls alone
+            population_makespan_cuda.launches = 0
+            with GACalls() as calls, CapturedServes() as serves:
+                t0 = time.perf_counter()
+                rows = export()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n = population_makespan_cuda.launches
+            launches["campaign_lanes"] += n
+            payload = strict_json((tmp / f"BENCH_{'table9' if name == 'smoke' else name}.json").read_text())
+            if name == "engine":
+                # 3 cuda rows and 2 families, each 1 warm-up + 3 timed calls
+                check(n == 20 and not calls.calls, f"engine lane: {n} launches, expected 20")
+            else:
+                check(n == calls.launches and n > 0, f"{name} lane: {n} launches, {calls}")
+            line = f"campaign lane {name}: wall {wall:.3f} s, {len(rows)} rows, {calls}, launches {n}"
+            if serves.results:
+                (result,) = serves.results
+                s = result.summary()
+                degraded = [r.id for r in result.records if r.fallbacks]
+                check(not degraded, f"{name} lane: records degraded {degraded}")
+                line += (f", {s['completed']}/{s['submissions']} completed, solver calls {s['solver_calls']}, "
+                         f"batched groups {s['batched_groups']}, 0 degraded")
+                lane_record[name] = canonical_hash(
+                    {"events": result.event_log, "records": [r.to_json() for r in result.records]})
+            print(line, flush=True)
+            if name == "engine":
+                for r in rows:
+                    print(f"  {r[0]}: {r[1]:.1f} us/call, {r[2]}")
+                fitness = payload["telemetry"]["engine_fitness"]
+                engine_rows = {k: v for k, v in payload.items() if k.startswith("engine_") and k.endswith("_cuda")}
+
+        # repeated service and chaos lanes, traced: one fingerprint each
+        for name, campaign in (("service", builtin.service_campaign()), ("chaos", builtin.chaos_campaign())):
+            fps = []
+            for _ in range(2):
+                obs.TRACER.enable()
+                try:
+                    with CapturedServes() as serves:
+                        population_makespan_cuda.launches = 0
+                        run_campaign(campaign, device="cuda")
+                        torch.cuda.synchronize()
+                        launches["campaign_lanes"] += population_makespan_cuda.launches
+                finally:
+                    obs.TRACER.disable()
+                (result,) = serves.results
+                fps.append((canonical_hash({"events": result.event_log,
+                                            "records": [r.to_json() for r in result.records]}),
+                            obs.virtual_fingerprint()))
+            check(fps[0] == fps[1] and fps[0][0] == lane_record[name],
+                  f"{name} lane: the exporter's run and two traced runs give one fingerprint: {fps}, "
+                  f"{lane_record[name]}")
+            print(f"campaign lane {name}: exporter run and two traced runs give fingerprint {fps[0][0]}, "
+                  f"virtual_fingerprint {fps[0][1]}", flush=True)
+
+        # the kernel against its plain version at the lanes' shapes
+        dev = torch.device("cuda")
+        max_err = 0.0
+        for label, nodes, (family, tasks), P in CAMPAIGN_SHAPES:
+            system = synthetic_system(nodes, seed=nodes)
+            workload = (synthetic_workload(tasks, seed=tasks) if family == "synthetic" else Workload(
+                (random_layered_workflow(tasks, seed=tasks, max_cores=8, feature_pool=("F1",)),)))
+            problem = build_problem(system, workload)
+            kw = problem_kw(problem, dev)
+            A = torch.from_numpy(random_assignments(problem, P, seed=15)).to(dev)
+            mk_k, v_k = population_makespan_cuda(A, **kw)
+            mk_p, v_p = population_makespan_ref(A, **kw)
+            torch.cuda.synchronize()
+            check(same_bits(mk_k, mk_p) and same_bits(v_k, v_p), f"campaign {label}: kernel == plain, bit for bit")
+            max_err = max(max_err, float((mk_k - mk_p).abs().max()), float((v_k - v_p).abs().max()))
+            ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=50)
+            plain = cuda_ms(lambda: population_makespan_ref(A, **kw), reps=3, warmup=1)
+            bound, by, nbytes, ops = makespan_bound_ms(A, kw)
+            key = "x".join(str(d) for d in pack(problem, pad=False).bucket)
+            entry = {"shape": [P, problem.num_tasks, problem.num_nodes], "cmax": int(kw["init_free"].shape[-1]),
+                     "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+            line = (f"makespan campaign {label} {entry['shape']} CMAX {entry['cmax']}: kernel == plain bit for bit; "
+                    f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, {ops} ops)")
+            if label.startswith("engine"):
+                row = engine_rows[f"engine_{label.split()[1]}_cuda"]
+                fit = fitness[f"cuda|{key}|fixed"]
+                entry.update(lane_us_per_call=row["us_per_call"], fitness_execute_us_mean=fit["execute_us_mean"])
+                line += (f"; the engine lane's cuda row {row['us_per_call']:.1f} us/call (host-timed, synchronized), "
+                         f"FITNESS execute_us_mean {fit['execute_us_mean']:.1f} us (host time, not synchronized)")
+            record[f"campaign_{label.replace(' ', '_')}"] = entry
+            print(line, flush=True)
+        record["campaign_max_abs_err"] = max_err
+
+        # tracing overhead on the smoke lane: untraced and traced, twice each
+        walls: dict[bool, list] = {False: [], True: []}
+        fps = set()
+        for traced in (False, True, False, True):
+            if traced:
+                obs.TRACER.enable()
+            try:
+                population_makespan_cuda.launches = 0
+                t0 = time.perf_counter()
+                smoke_rs = run_campaign(builtin.smoke_campaign(), device="cuda")
+                torch.cuda.synchronize()
+                walls[traced].append(time.perf_counter() - t0)
+                launches["campaign_lanes"] += population_makespan_cuda.launches
+            finally:
+                obs.TRACER.disable()
+            fps.add(campaign_fingerprint(smoke_rs))
+        check(len(fps) == 1, "the traced smoke runs give the untraced rows")
+        ratio = statistics.median(walls[True]) / statistics.median(walls[False])
+        record["campaign_tracing_ratio"] = ratio
+        print(f"campaign smoke tracing overhead: untraced {walls[False]} s, traced {walls[True]} s, ratio of "
+              f"medians {ratio:.4f} (the reference gates 5% on its CPU; printed, not gated)", flush=True)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    bench_after = {p.name: p.read_bytes() for p in repo.glob("BENCH_*.json")}
+    check(bench_after == bench_before, "no BENCH_*.json of the repository changed")
+    record["campaign_device"] = {
+        "cli_wall_s": cli_wall, "grid_profile": {k: grid_profile[k] for k in ("wall_ms", "device_busy_ms",
+                                                                             "device_idle_share")},
+        "table9_500_wall_s": wall500,
+        "table9_500_profile": {k: prof500[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")},
+    }
     return launches, record
 
 
@@ -1582,10 +1995,15 @@ def main() -> int:
     service_launches, service_record = service_phase()
     phase_done(14, "the scheduling service on the card")
 
+    # 15. campaigns: the Table IX grid, the paper's scale and the lanes
+    campaign_launches, campaign_record = campaign_phase()
+    phase_done(15, "campaigns on the card")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
-                        **service_launches}
+                        **service_launches, **campaign_launches}
     record.update(service_record)
-    max_err = max(max_err, service_record["service_max_abs_err"])
+    record.update(campaign_record)
+    max_err = max(max_err, service_record["service_max_abs_err"], campaign_record["campaign_max_abs_err"])
 
     # each kernel's launches on each serving path, and their sum
     by_path: dict[str, dict[str, int]] = {}

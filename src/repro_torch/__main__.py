@@ -6,6 +6,7 @@
                                                            [--device cuda]
                                                            [--out result.json]
                                                            [--out-dir DIR]
+                                                           [--trace PATH]
     PYTHONPATH=src python -m repro_torch techniques
     PYTHONPATH=src python -m repro_torch engines
     PYTHONPATH=src python -m repro_torch trace trace.json [-n 200] [--seed 0]
@@ -21,6 +22,17 @@
                                                           [--fallback ga,heft]
                                                           [--records]
                                                           [--device cuda]
+                                                          [--trace PATH]
+    PYTHONPATH=src python -m repro_torch campaign expand (spec.json | smoke|table9|…)
+    PYTHONPATH=src python -m repro_torch campaign run (spec.json | builtin-name)
+                                                      [--runner inline|service]
+                                                      [--out results.json]
+                                                      [--csv results.csv]
+                                                      [--vs milp] [--metric makespan]
+                                                      [--device cuda]
+                                                      [--trace PATH]
+    PYTHONPATH=src python -m repro_torch campaign report results.json [--vs milp]
+    PYTHONPATH=src python -m repro_torch obs trace.json [--json]
 
 ``run`` loads a declarative :class:`repro_torch.core.api.Scenario` (the
 reference's file format, unchanged), drives the
@@ -32,7 +44,15 @@ capability metadata, ``engines`` the fitness engines.  ``trace`` generates a
 seeded multi-tenant arrival trace (:mod:`repro_torch.service.traces`, the
 reference's file format); ``serve`` replays one through the event-driven
 :class:`repro_torch.service.SchedulingService` and prints throughput /
-turnaround / cache metrics, its GA admissions on ``--device``.
+turnaround / cache metrics, its GA admissions on ``--device``.  ``campaign``
+is the multi-scenario experiment API (:mod:`repro_torch.campaigns`, the
+reference's spec files): ``expand`` previews the deterministic cell grid of a
+spec (file or built-in name), ``run`` executes it (GA cells on ``--device``)
+and can save the typed columnar ResultSet as JSON/CSV, and ``report``
+recomputes the Table IX-style optimality-gap table from saved results.
+``--trace PATH`` on ``run``, ``serve`` and ``campaign run`` writes a Perfetto
+trace of the run and ``PATH.metrics.json`` beside it; ``obs`` validates and
+summarizes such a trace.
 """
 
 from __future__ import annotations
@@ -41,6 +61,84 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+
+def _resolve_campaign(spec: str):
+    from repro_torch.campaigns import resolve_campaign
+
+    try:
+        return resolve_campaign(spec)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _campaign_main(args) -> int:
+    from repro_torch.campaigns import ResultSet, run_campaign
+    from repro_torch.core.api import DEVICE_ERRORS
+
+    if args.campaign_cmd == "expand":
+        campaign = _resolve_campaign(args.spec)
+        cells = campaign.expand()
+        for cell in cells:
+            mark = f"  [skip:{cell.skipped}]" if cell.skipped else ""
+            print(f"c{cell.index:04d}  {cell.label()}{mark}")
+        skipped = sum(1 for c in cells if c.skipped)
+        print(f"# {len(cells)} cells ({skipped} skipped), "
+              f"runner={campaign.runner}")
+        return 0
+
+    if args.campaign_cmd == "report":
+        rs = ResultSet.load(args.results)
+        rep = (rs.deviation_vs(args.vs, metric=args.metric) if args.per_cell
+               else rs.deviation_report(args.vs, metric=args.metric))
+        print(rep.to_csv(), end="")
+        return 0
+
+    campaign = _resolve_campaign(args.spec)
+    try:
+        rs = run_campaign(campaign, runner=args.runner, device=args.device)
+    except DEVICE_ERRORS:
+        raise  # a fault of the card is not a user error: traceback, exit 1
+    except (KeyError, ValueError) as e:
+        # unknown runner / unsolvable spec are user errors, not tracebacks
+        raise SystemExit(str(e).strip('"')) from None
+    stats = rs.meta.get("stats", {})
+    print(f"# campaign {campaign.name}: {len(rs)} rows", file=sys.stderr)
+    for k in ("solver_calls", "dedup_hits", "batched_groups", "skipped"):
+        if k in stats:
+            print(f"#   {k}={stats[k]}", file=sys.stderr)
+    print(rs.to_csv(), end="")
+    if args.out:
+        rs.save(args.out)
+    if args.csv:
+        rs.save_csv(args.csv)
+    vs = None if args.vs in ("none", "") else args.vs
+    if vs and rs.baseline_present(vs):
+        print(f"# deviation vs {vs} ({args.metric}):")
+        print(rs.deviation_report(vs, metric=args.metric).to_csv(), end="")
+    return 0
+
+
+def _obs_main(args) -> int:
+    from repro_torch import obs
+
+    try:
+        summary = obs.summarize_trace(args.trace_file)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"invalid trace file {args.trace_file!r}: {e}") from None
+    if args.json:
+        print(json.dumps(summary, indent=2))
+        return 0
+    print(f"# {args.trace_file}: {summary['events']} events "
+          f"({summary['wall_spans']} wall spans, "
+          f"{summary['virtual_spans']} virtual spans) — valid trace_event JSON")
+    print(f"{'category':24s} {'count':>8s} {'total_ms':>10s}")
+    for cat, agg in summary["categories"].items():
+        print(f"{cat or '-':24s} {agg['count']:8d} {agg['total_us'] / 1e3:10.1f}")
+    print("# hottest spans (cumulative wall time):")
+    for row in summary["top_spans_us"]:
+        print(f"  {row['name']:32s} {row['total_us'] / 1e3:10.1f} ms")
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -63,6 +161,9 @@ def main(argv: list[str] | None = None) -> int:
     run_p.add_argument("--out", help="also write the summary JSON here")
     run_p.add_argument("--out-dir", default=str(DEFAULT_OUT_DIR),
                        help="artifact directory for render backends")
+    run_p.add_argument("--trace", dest="trace_out", metavar="PATH",
+                       help="write a Perfetto trace of this run to PATH "
+                       "(+ PATH-adjacent .metrics.json)")
 
     sub.add_parser("techniques", help="list registered solver techniques")
     sub.add_parser("engines", help="list registered evaluation engines")
@@ -115,12 +216,76 @@ def main(argv: list[str] | None = None) -> int:
                          "for single solves, e.g. ga,heft")
     serve_p.add_argument("--device", default="cuda",
                          help="device of the metaheuristics' fitness (default cuda)")
+    serve_p.add_argument("--trace", dest="trace_out", metavar="PATH",
+                         help="write a Perfetto trace of this run to PATH "
+                         "(+ PATH-adjacent .metrics.json)")
+
+    camp_p = sub.add_parser("campaign", help="declarative multi-scenario "
+                            "experiments (repro_torch.campaigns)")
+    csub = camp_p.add_subparsers(dest="campaign_cmd", required=True)
+
+    cexp = csub.add_parser("expand", help="preview a campaign's cell grid")
+    cexp.add_argument("spec", help="campaign spec JSON file or built-in name")
+
+    crun = csub.add_parser("run", help="execute a campaign")
+    crun.add_argument("spec", help="campaign spec JSON file or built-in name")
+    crun.add_argument("--runner", help="override the spec's runner "
+                      "(inline | service | ...)")
+    crun.add_argument("--out", help="save the columnar ResultSet JSON here")
+    crun.add_argument("--csv", help="save the ResultSet as CSV here")
+    crun.add_argument("--vs", default="milp",
+                      help="exact baseline technique for the gap report "
+                      "(default milp; 'none' disables)")
+    crun.add_argument("--metric", default="makespan",
+                      help="metric column for the gap report")
+    crun.add_argument("--device", default="cuda",
+                      help="device of the metaheuristics' fitness (default cuda)")
+    crun.add_argument("--trace", dest="trace_out", metavar="PATH",
+                      help="write a Perfetto trace of this run to PATH "
+                      "(+ PATH-adjacent .metrics.json)")
+
+    crep = csub.add_parser("report", help="optimality-gap report from saved "
+                           "ResultSet JSON")
+    crep.add_argument("results", help="path to a ResultSet JSON "
+                      "(campaign run --out)")
+    crep.add_argument("--vs", default="milp", help="exact baseline technique")
+    crep.add_argument("--metric", default="makespan")
+    crep.add_argument("--per-cell", action="store_true",
+                      help="print per-cell gaps instead of the aggregate")
+
+    obs_p = sub.add_parser("obs", help="summarize + validate a Perfetto "
+                           "trace written by a --trace run")
+    obs_p.add_argument("trace_file", help="trace_event JSON file")
+    obs_p.add_argument("--json", action="store_true",
+                       help="print the machine-readable summary JSON")
 
     args = parser.parse_args(argv)
-    if args.verbose:
-        from repro_torch import obs
 
+    from repro_torch import obs
+
+    if args.verbose:
         obs.setup_logging()
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out:
+        obs.enable_tracing()
+    try:
+        return _dispatch(args)
+    finally:
+        if trace_out:
+            out = Path(trace_out)
+            obs.write_trace(out)
+            metrics_path = out.with_suffix(".metrics.json")
+            obs.write_metrics(metrics_path)
+            print(f"# wrote trace {out} (open in https://ui.perfetto.dev) "
+                  f"and metrics {metrics_path}", file=sys.stderr)
+
+
+def _dispatch(args) -> int:
+    if args.cmd == "obs":
+        return _obs_main(args)
+
+    if args.cmd == "campaign":
+        return _campaign_main(args)
 
     from repro_torch.core import api
 
@@ -194,6 +359,10 @@ def main(argv: list[str] | None = None) -> int:
             device=args.device,
         )
         payload = result.summary()
+        if args.trace_out:
+            from repro_torch import obs
+
+            payload["telemetry"] = obs.telemetry()
         if args.records:
             payload["records"] = [r.to_json() for r in result.records]
         summary = json.dumps(payload, indent=2)

@@ -30,6 +30,7 @@ from typing import Callable, Protocol, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.evaluator import ObjectiveWeights, Schedule, evaluate_assignment
 from repro_torch.core.workload_model import ScheduleProblem
 # the module, not its names: repro_torch.engine.backends imports this package
@@ -274,8 +275,18 @@ def ga_sweep(
             logits_t, pop_size=pop_size, tournament=tournament,
             mutation_rate=mutation_rate, seed=seed,
         )
-    best, hist = _ga_loop(fitness, draws, generations=generations, elite=elite)
-    best, hist = best.cpu().numpy(), hist.cpu().numpy()
+    # one device, one stripe: the multi-device instance axis is ROADMAP
+    # Queue A item 6 (engine/shard.py), not ported yet
+    shards = 1
+    with obs.TRACER.span(
+        "mh.ga_sweep", cat="engine",
+        args={"instances": B, "shards": shards,
+              "bucket": "x".join(str(x) for x in fitness.bucket)},
+    ):
+        best, hist = _ga_loop(fitness, draws, generations=generations, elite=elite)
+        best, hist = best.cpu().numpy(), hist.cpu().numpy()
+    obs.METRICS.counter("mh.ga_sweep.instances").inc(B)
+    obs.METRICS.gauge("mh.ga_sweep.shards").set(shards)
     return [
         _finish(problem, weights, best[b, : problem.num_tasks].astype(np.int64), "ga", t0, hist[b])
         for b, problem in enumerate(problems)

@@ -410,13 +410,19 @@ def pack(
     ``use_cache=False`` forces a rebuild."""
     if bucket is None:
         bucket = bucket_of(problem, core_cap) if pad else exact_bucket(problem, core_cap)
-    if not use_cache:
-        return _build(problem, bucket, None, core_cap)
-    fingerprint = problem_fingerprint(problem)
-    return _PACK_CACHE.get_or_build(
-        (fingerprint, bucket, core_cap),
-        lambda: _build(problem, bucket, fingerprint, core_cap),
-    )
+    # span per pack() call, hit or miss: trace structure must not depend on
+    # cache temperature or replayed traces would not fingerprint identically
+    with obs.TRACER.span(
+        "engine.pack", cat="engine",
+        args={"bucket": "x".join(str(d) for d in bucket)},
+    ):
+        if not use_cache:
+            return _build(problem, bucket, None, core_cap)
+        fingerprint = problem_fingerprint(problem)
+        return _PACK_CACHE.get_or_build(
+            (fingerprint, bucket, core_cap),
+            lambda: _build(problem, bucket, fingerprint, core_cap),
+        )
 
 
 def stack_packed(

@@ -17,13 +17,14 @@ Percentiles use the **nearest-rank** definition throughout the package: the
 default) the result is always an observed value, which keeps service
 latency summaries honest for small samples.
 
-The reference's compile/execute accounting of the fitness engines
-(``FitnessAccounting``) is not here yet (ROADMAP Queue A item 5).
+:data:`FITNESS` attributes each fitness-engine call to a first call (the
+one that loads the kernel library on the card) or a steady-state execute.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
 __all__ = [
@@ -33,6 +34,8 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "METRICS",
+    "FitnessAccounting",
+    "FITNESS",
 ]
 
 
@@ -217,3 +220,87 @@ def _sub(a: Any, b: Any) -> Any:
 
 
 METRICS = MetricsRegistry()
+
+
+class _Measure:
+    """Context manager for one timed engine-fitness call (see below)."""
+
+    __slots__ = ("_acct", "_key", "_cache_size", "_t0", "_size0")
+
+    def __init__(self, acct: "FitnessAccounting", key: str,
+                 cache_size: Callable[[], int] | None) -> None:
+        self._acct = acct
+        self._key = key
+        self._cache_size = cache_size
+
+    def __enter__(self) -> "_Measure":
+        self._size0 = self._cache_size() if self._cache_size is not None else None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        # Host wall time, with no device synchronisation: a kernel launch
+        # returns before the kernel ends, so on the card ``execute_us`` is
+        # launch and host time unless the call reads its result back.  A
+        # synchronize here would change the timing of the loop it measures.
+        dt_us = (time.perf_counter() - self._t0) * 1e6
+        if et is None:
+            self._acct._record(self._key, dt_us, self._size0, self._cache_size)
+        return False
+
+
+class FitnessAccounting:
+    """Per-(backend, shape-bucket, mode) first-call-vs-execute attribution.
+
+    A call counts as a **compile** when the backend's cache grew during it
+    (``cache_size`` callable) or, when no cache probe is given, when it is
+    the first call for its key: on the card, the call that loads the kernel
+    library.  Everything else is steady-state **execute**.  ``calls -
+    compiles`` is therefore the cache hit count."""
+
+    __slots__ = ("_table",)
+
+    def __init__(self) -> None:
+        self._table: dict[str, dict[str, float]] = {}
+
+    def measure(self, backend: str, bucket: Any, mode: str = "",
+                cache_size: Callable[[], int] | None = None) -> _Measure:
+        key = f"{backend}|{'x'.join(str(d) for d in bucket)}" + (
+            f"|{mode}" if mode else "")
+        return _Measure(self, key, cache_size)
+
+    def _record(self, key: str, dt_us: float, size0: int | None,
+                cache_size: Callable[[], int] | None) -> None:
+        rec = self._table.get(key)
+        if rec is None:
+            rec = self._table[key] = {
+                "calls": 0, "compiles": 0,
+                "compile_us": 0.0, "execute_us": 0.0,
+            }
+        rec["calls"] += 1
+        if cache_size is not None and size0 is not None:
+            is_compile = cache_size() > size0
+        else:
+            is_compile = rec["calls"] == 1
+        if is_compile:
+            rec["compiles"] += 1
+            rec["compile_us"] += dt_us
+        else:
+            rec["execute_us"] += dt_us
+
+    def reset(self) -> None:
+        self._table.clear()
+
+    def to_json(self) -> dict[str, dict[str, float]]:
+        out: dict[str, dict[str, float]] = {}
+        for key, rec in sorted(self._table.items()):
+            executes = rec["calls"] - rec["compiles"]
+            out[key] = dict(
+                rec,
+                execute_calls=executes,
+                execute_us_mean=(rec["execute_us"] / executes) if executes else 0.0,
+            )
+        return out
+
+
+FITNESS = FitnessAccounting()

@@ -6,16 +6,15 @@ relative to the tracer origin) and, when a virtual clock is installed, the
 (:class:`repro_torch.service.events.EventLoop`).  The two views answer
 different questions: wall time shows where real compute went (solver,
 kernel launches); virtual time shows where the *simulated* service spent its
-deterministic clock (queueing, dispatch, retry backoff).  The reference's
-``timed`` spans, ``traced`` decorator and Perfetto export are not ported yet
-(ROADMAP Queue A item 5).
+deterministic clock (queueing, dispatch, retry backoff).
 
 Design constraints, in priority order:
 
 * **Zero cost when disabled.**  ``TRACER.span(...)`` returns a shared
   no-op singleton without allocating.  To keep the disabled path
   allocation-free the API takes ``args`` as an optional *dict* parameter,
-  never ``**kwargs`` (which would allocate per call).
+  never ``**kwargs`` (which would allocate per call).  Hot loops
+  additionally guard on ``TRACER.enabled`` so not even the call happens.
 * **Deterministic replay.**  Span ids are a sequential counter reset by
   :meth:`Tracer.enable`; names, nesting, virtual timestamps and ``args``
   depend only on the workload + seed.  Wall times are outside the
@@ -29,13 +28,14 @@ Design constraints, in priority order:
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
-__all__ = ["Span", "Tracer", "TRACER", "virtual_fingerprint"]
+__all__ = ["Span", "Tracer", "TRACER", "traced", "virtual_fingerprint"]
 
 
 @dataclass
@@ -70,6 +70,10 @@ class _Noop:
 
     def set(self, **kw: Any) -> "_Noop":
         return self
+
+    @property
+    def wall_us(self) -> float:
+        return 0.0
 
 
 _NOOP = _Noop()
@@ -114,6 +118,10 @@ class _Active:
             self._span.args.update(kw)
         return self
 
+    @property
+    def wall_us(self) -> float:
+        return 0.0 if self._span is None else self._span.wall_dur * 1e6
+
     def __exit__(self, et, ev, tb) -> bool:
         tr = self._tr
         span = self._span
@@ -127,6 +135,35 @@ class _Active:
         if et is not None and "error" not in span.args:
             span.args["error"] = f"{et.__name__}: {ev}"
         return False
+
+
+class _Timed:
+    """Span wrapper that *always* measures wall time, traced or not.
+
+    Call sites that need the duration for their own bookkeeping (e.g. the
+    campaign runner's per-cell ``wall_us`` column) use
+    :meth:`Tracer.timed`: the measurement is taken unconditionally, and a
+    span is recorded only when tracing is enabled.  ``wall_us`` is valid
+    after the ``with`` block exits."""
+
+    __slots__ = ("_inner", "_t0", "wall_us")
+
+    def __init__(self, inner: _Active | _Noop) -> None:
+        self._inner = inner
+        self.wall_us = 0.0
+
+    def __enter__(self) -> "_Timed":
+        self._inner.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def set(self, **kw: Any) -> "_Timed":
+        self._inner.set(**kw)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.wall_us = (time.perf_counter() - self._t0) * 1e6
+        return self._inner.__exit__(*exc)
 
 
 class Tracer:
@@ -166,8 +203,33 @@ class Tracer:
             return _NOOP
         return _Active(self, name, cat, args)
 
+    def timed(self, name: str, cat: str = "",
+              args: dict[str, Any] | None = None) -> _Timed:
+        """Like :meth:`span` but always measures wall time (see `_Timed`)."""
+        return _Timed(self.span(name, cat, args))
+
 
 TRACER = Tracer()
+
+
+def traced(name: str | None = None, cat: str = ""):
+    """Decorator form: trace every call of ``fn`` under ``name``.
+
+    When tracing is disabled the wrapper costs one attribute check."""
+
+    def deco(fn):
+        label = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if not TRACER.enabled:
+                return fn(*a, **kw)
+            with TRACER.span(label, cat):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    return deco
 
 
 def virtual_fingerprint(spans: Sequence[Span] | None = None) -> str:

@@ -177,6 +177,132 @@ def service_outputs(result, metrics: dict) -> dict[str, str]:
     }
 
 
+#: the columns of a campaign row that a replay may change: wall time
+CAMPAIGN_WALL_COLUMNS = ("wall_us", "solve_time_s")
+
+
+def campaign_outputs(rs) -> dict[str, str]:
+    """A campaign ResultSet's deterministic outputs as JSON texts: its
+    columns, its rows without :data:`CAMPAIGN_WALL_COLUMNS`, its meta
+    (telemetry aside) with the stats' wall time and pack-cache delta
+    dropped, and the gap report against MILP where the grid has MILP."""
+    stats = dict(rs.meta.get("stats", {}))
+    for k in ("wall_seconds", "pack_cache"):
+        stats.pop(k, None)
+    if "summary" in stats:
+        stats["summary"] = {k: v for k, v in stats["summary"].items() if k not in WALL_FIELDS}
+    meta = {k: v for k, v in rs.meta.items() if k not in ("stats", "telemetry")}
+    rows = [{k: v for k, v in r.items() if k not in CAMPAIGN_WALL_COLUMNS} for r in rs]
+    out = {
+        "columns": json.dumps([c.to_json() for c in rs.columns]),
+        "rows": json.dumps(rows, sort_keys=True),
+        "stats": json.dumps(stats, sort_keys=True),
+        "meta": json.dumps(meta, sort_keys=True),
+    }
+    if rs.baseline_present("milp"):
+        out["report"] = rs.deviation_report("milp").to_csv()
+    return out
+
+
+def scripted_spans(obs) -> str:
+    """Drive either package's tracer through a fixed script (nested spans,
+    ``timed``, ``traced``, ``set``, a span left by an exception, a virtual
+    clock) and return the recorded spans' deterministic fields as JSON."""
+    clock = iter(float(i) for i in range(100))
+    tr = obs.TRACER
+    tr.enable()
+
+    @obs.traced("deco.fn", cat="deco")
+    def fn(x):
+        return x + 1
+
+    try:
+        with tr.span("outer", cat="a", args={"k": 1}) as sp:
+            sp.set(extra="x")
+            with tr.timed("timed.inner", cat="b") as t:
+                fn(1)
+            assert t.wall_us >= 0.0
+            try:
+                with tr.span("failing", cat="c"):
+                    raise ValueError("boom")
+            except ValueError:
+                pass
+        prev = tr.set_virtual_clock(lambda: next(clock))
+        with tr.span("virtual", cat="v"):
+            with tr.timed("virtual.timed", cat="v"):
+                pass
+        tr.set_virtual_clock(prev)
+        spans = [[s.id, s.parent, s.name, s.cat, s.vt0, s.vdur, sorted(s.args.items())] for s in tr.spans]
+        return json.dumps([spans, obs.virtual_fingerprint()])
+    finally:
+        tr.disable()
+
+
+def fitness_table(metrics, calls) -> str:
+    """The :class:`FitnessAccounting` table (``to_json``) of a fixed call
+    sequence, through either package's ``obs.metrics`` module, on a fake
+    clock: each call is ``[backend, bucket, mode, dt_us, grows]``; ``grows``
+    None means no cache probe, else whether the probed cache grows during
+    the call."""
+    import types
+
+    acct = metrics.FitnessAccounting()
+    now = [0.0]
+    real_time = metrics.time
+    metrics.time = types.SimpleNamespace(perf_counter=lambda: now[0])
+    try:
+        for backend, bucket, mode, dt, grows in calls:
+            size = [0]
+            probe = None if grows is None else (lambda: size[0])
+            with acct.measure(backend, bucket, mode, cache_size=probe):
+                now[0] += dt * 1e-6
+                if grows:
+                    size[0] += 1
+    finally:
+        metrics.time = real_time
+    return json.dumps(acct.to_json(), sort_keys=True)
+
+
+def export_outputs(obs, spans: list[dict], block: dict, bad: list[str], tmp: Path) -> dict[str, str]:
+    """Either package's exporters on the same spans, metrics block and
+    malformed trace files: the texts they write, the summary of the written
+    trace and the error each bad file gives."""
+    from dataclasses import fields
+
+    names = {f.name for f in fields(obs.Span)}
+    sp = [obs.Span(**{k: v for k, v in d.items() if k in names}) for d in spans]
+    out = {"events": json.dumps(obs.trace_events(sp))}
+    trace = obs.write_trace(tmp / "trace.json", sp)
+    out["trace"] = trace.read_text()
+    out["flat"] = json.dumps(obs.flatten(block))
+    out["metrics"] = obs.write_metrics(tmp / "metrics.json", block).read_text()
+    out["summary"] = json.dumps(obs.summarize_trace(trace))
+    for i, text in enumerate(bad):
+        path = tmp / f"bad{i}.json"
+        path.write_text(text)
+        try:
+            obs.summarize_trace(path)
+            out[f"bad/{i}"] = ""
+        except ValueError as e:
+            out[f"bad/{i}"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def cell_keys(campaigns, wm, campaign) -> str:
+    """Each cell's index, label and skip reason and, for a live cell of an
+    inline campaign, its ``solve_identity`` key, as JSON, through either
+    package's ``campaigns`` and workload-model modules."""
+    keys = []
+    for cell in campaign.expand():
+        key = None
+        if cell.skipped is None and campaign.runner == "inline":
+            sc = campaigns.cell_scenario(campaign, cell)
+            workload, constraints = sc.expanded()
+            key = campaigns.solve_identity(wm.build_problem(sc.system, workload, constraints), sc)
+        keys.append([cell.index, cell.label(), cell.skipped, key])
+    return json.dumps(keys)
+
+
 def name_of(spec: dict) -> str:
     return "-".join(str(spec[k]) for k in sorted(spec))
 
@@ -729,7 +855,100 @@ def job_cycling(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_obs(params: dict, inputs: dict) -> dict:
+    """The reference's tracer on :func:`scripted_spans`, its fitness
+    accounting on :func:`fitness_table` and its exporters on
+    :func:`export_outputs`."""
+    import tempfile
+
+    from repro import obs
+    from repro.obs import metrics
+
+    out = {"script": np.array(scripted_spans(obs)),
+           "fitness": np.array(fitness_table(metrics, params["calls"]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in export_outputs(obs, params["spans"], params["block"], params["bad"], Path(tmp)).items():
+            out[f"export/{k}"] = np.array(v)
+    return out
+
+
+def job_campaigns(params: dict, inputs: dict) -> dict:
+    """The reference's campaigns: each built-in's and each spec file's JSON
+    text, expansion and solve keys; a ResultSet of the given rows through
+    its JSON, CSV, grouping and reports; each campaign run's outputs
+    (:func:`campaign_outputs`) with the real registry or the stand-in,
+    traced (the virtual fingerprint and the span names) or not."""
+    import collections
+
+    from repro import campaigns, obs
+    from repro.campaigns import ResultSet, builtin_campaign, campaign_from_json, load_campaign, run_campaign
+    from repro.core import api, heuristics
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    specs = {name: builtin_campaign(name) for name in params["builtins"]}
+    specs.update({path: load_campaign(path) for path in params["files"]})
+    for name, c in specs.items():
+        out[f"spec/{name}/json"] = np.array(json.dumps(c.to_json(), indent=2))
+        out[f"spec/{name}/reparsed"] = np.array(json.dumps(campaign_from_json(c.to_json()).to_json(), indent=2))
+        out[f"spec/{name}/cells"] = np.array(cell_keys(campaigns, wm, c))
+    for i, text in enumerate(params["bad"]):
+        out[f"bad/{i}"] = np.array(_error_of(lambda: campaign_from_json(text)))
+    rs = ResultSet.from_rows(params["rows"], name="rows", meta={"coords": params["coords"]},
+                             dtypes=params["dtypes"])
+    out["rs/json"] = np.array(json.dumps(rs.to_json(), indent=2, sort_keys=True))
+    out["rs/csv"] = np.array(rs.to_csv())
+    out["rs/csv_reparsed"] = np.array(ResultSet.from_csv(rs.to_csv()).to_csv())
+    out["rs/json_reparsed"] = np.array(json.dumps(ResultSet.from_json(rs.to_json()).to_json(), sort_keys=True))
+    out["rs/groups"] = np.array(json.dumps([[list(kv), len(g)] for kv, g in rs.group_by("family", "size")]))
+    out["rs/aggregate"] = np.array(rs.aggregate("makespan", by=("technique",)).to_csv())
+    out["rs/deviation"] = np.array(rs.deviation_vs("milp").to_csv())
+    out["rs/report"] = np.array(rs.deviation_report("milp").to_csv())
+    out["rs/constraints"] = np.array(rs.constraint_report().to_csv())
+    out["rs/baseline"] = np.array([rs.baseline_present("milp"), rs.baseline_present("pso")])
+    for case in params["runs"]:
+        name = case["name"]
+        reg = standin_registry(api, heuristics) if case.get("standin") else None
+        obs.METRICS.reset()
+        if case.get("traced"):
+            obs.TRACER.enable()
+        try:
+            rs = run_campaign(campaign_from_json(case["campaign"]), registry=reg)
+        finally:
+            obs.TRACER.disable()
+        for k, v in campaign_outputs(rs).items():
+            out[f"run/{name}/{k}"] = np.array(v)
+        if case.get("traced"):
+            out[f"run/{name}/fingerprint"] = np.array(obs.virtual_fingerprint())
+            names = collections.Counter(s.name for s in obs.TRACER.spans)
+            out[f"run/{name}/span_names"] = np.array(json.dumps(dict(sorted(names.items()))))
+    return out
+
+
+def job_cli(params: dict, inputs: dict) -> dict:
+    """The reference CLI (``python -m repro``, run in process: it cannot
+    import on its own here) on each argument list: its exit code and
+    standard output."""
+    import contextlib
+    import io
+
+    from repro.__main__ import main
+
+    out: dict[str, np.ndarray] = {}
+    for i, argv in enumerate(params["argvs"]):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            try:
+                rc = main(argv)
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+        out[f"{i}/rc"] = np.array(rc)
+        out[f"{i}/stdout"] = np.array(buf.getvalue())
+    return out
+
+
 JOBS = {
+    "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
     "service": job_service, "cycling": job_cycling,
     "scenario": job_scenario,
     "model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas,
