@@ -116,7 +116,24 @@ result line:
     two traced runs; the kernel against its plain version bit for bit at
     the smoke and engine lanes' shapes, timed beside its bound and the
     engine lane's host-timed rows; the tracing overhead on the smoke lane;
-    and no ``BENCH_*.json`` of the repository changed.
+    and no ``BENCH_*.json`` of the repository changed;
+16. the multi-device instance axis and generated continua: on the one card
+    ``local_device_count("cuda")`` is 1 and ``ga_sweep(shard="auto")`` over
+    phase 4's family equals ``shard="off"`` bit for bit with 61 launches
+    each; a child process stripes that family over 2 and then 8 virtual
+    stripes of the card (``REPRO_TORCH_VIRTUAL_DEVICES``): striped fitness
+    at 8 x 512 x 512 x 64 x 64 equals the unsharded bits with one launch a
+    stripe, ``ga_sweep`` at shard 8 and 3 equals ``"off"``, and the engine
+    lane's 1/2/4/8 device-scaling rows are bit-identical; the generated
+    1008-node ``large`` continuum (4 tiers, 2 HPC islands) with 8 x
+    500-task layered workflows through ``ga_sweep`` at the GA's defaults
+    (bucket 512 x 1024 x 64 x 8, 61 launches, every schedule valid,
+    profiled for the device's idle share), its kernel held against the
+    plain version bit for bit at that shape and timed beside its bound; the
+    topology lane with the twin calibration on ``tiny`` and ``small`` into a
+    temporary directory (twin error after < before); ``python -m
+    repro_torch topology generate large`` and ``topology calibrate small``
+    with no ``--device``; and no ``BENCH_*.json`` of the repository changed.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -1689,6 +1706,280 @@ def campaign_phase() -> tuple[dict[str, int], dict]:
     return launches, record
 
 
+#: phase 16's child: the instance axis striped over virtual stripes on the
+#: one card, at the Table IX sweep's shape (8 x 512 x 512 x 64 x 64), and on
+#: a host of several cards over the cards themselves (run alone there with
+#: ``PYTHONPATH=src python3 -c "import chip_smoke; exec(chip_smoke.STRIPES_CHILD)"``)
+STRIPES_CHILD = r"""
+import json, os, sys, time
+import numpy as np, torch
+from repro_torch.campaigns import builtin
+from repro_torch.core import build_problem, ga_sweep, synthetic_system, synthetic_workload
+from repro_torch.engine import ENGINES, choose_shards, local_device_count, pack_cache
+from repro_torch.kernels.makespan import population_makespan_cuda
+
+def same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+problems = [build_problem(synthetic_system(500, seed=s), synthetic_workload(500, seed=s)) for s in range(8)]
+rng = np.random.default_rng(16)
+out = {}
+for k in (2, 8):
+    os.environ["REPRO_TORCH_VIRTUAL_DEVICES"] = str(k)
+    assert local_device_count("cuda") == k, local_device_count("cuda")
+    eng = ENGINES.get("cuda")
+    off = eng.batched_fitness(problems, device="cuda", shard="off")
+    striped = eng.batched_fitness(problems, device="cuda")  # shard="auto": k stripes
+    assert striped.shards == k and off.shards == 1, (striped.shards, off.shards)
+    A = np.zeros((8, 64, off.bucket[0]), np.int32)
+    for b, p in enumerate(problems):
+        A[b, :, :p.num_tasks] = rng.integers(0, p.num_nodes, (64, p.num_tasks))
+    A = torch.from_numpy(A).cuda()
+    o1, m1 = off(A)
+    population_makespan_cuda.launches = 0
+    os_, ms_ = striped(A)
+    torch.cuda.synchronize()
+    n = population_makespan_cuda.launches
+    assert n == k, f"{k} stripes made {n} launches in one call"
+    assert same_bits(o1, os_) and same_bits(m1, ms_), f"{k} stripes: striped fitness == unsharded, bit for bit"
+    stripes = sorted(d for d in pack_cache().device_stats if "/s" in d and d.startswith("cuda"))
+    out[k] = {"bucket": list(off.bucket), "launches_per_call": n, "stripes": stripes}
+    if k == 8:
+        sweeps = {}
+        for shard in ("off", 8, 3):
+            population_makespan_cuda.launches = 0
+            t0 = time.perf_counter()
+            res = ga_sweep(problems, device="cuda", seed=0, shard=shard, pop_size=64, generations=60)
+            torch.cuda.synchronize()
+            sweeps[shard] = (res, time.perf_counter() - t0, population_makespan_cuda.launches)
+        base = sweeps["off"][0]
+        for shard in (8, 3):
+            for a, b in zip(base, sweeps[shard][0]):
+                assert np.array_equal(a.schedule.assignment, b.schedule.assignment), shard
+                assert np.array_equal(a.history, b.history), shard
+        out["sweeps"] = {str(d): {"wall_s": w, "launches": n} for d, (_, w, n) in sweeps.items()}
+        out["device_scaling"] = builtin._device_scaling_section(np.random.default_rng(0), "cuda")
+cards = torch.cuda.device_count()
+if cards > 1:  # a host of several cards: the stripes are the cards themselves
+    del os.environ["REPRO_TORCH_VIRTUAL_DEVICES"]
+    assert local_device_count("cuda") == cards, local_device_count("cuda")
+    d = choose_shards(8, device="cuda")
+    striped = eng.batched_fitness(problems, device="cuda")
+    assert striped.shards == d > 1, (striped.shards, d)
+    striped(A)
+    torch.cuda.synchronize()
+    population_makespan_cuda.launches = 0
+    t0 = time.perf_counter()
+    os_, ms_ = striped(A)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    n = population_makespan_cuda.launches
+    assert n == d, f"{d} cards made {n} launches in one call"
+    assert os_.device == A.device and same_bits(o1, os_) and same_bits(m1, ms_), "cards: striped == unsharded"
+    t0 = time.perf_counter()
+    off(A)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    sweeps = {}
+    for shard in ("off", "auto"):
+        population_makespan_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = ga_sweep(problems, device="cuda", seed=0, shard=shard, pop_size=64, generations=60)
+        torch.cuda.synchronize()
+        sweeps[shard] = (res, time.perf_counter() - t0, population_makespan_cuda.launches)
+    for a, b in zip(sweeps["off"][0], sweeps["auto"][0]):
+        assert np.array_equal(a.schedule.assignment, b.schedule.assignment), "cards: sweep"
+        assert np.array_equal(a.history, b.history), "cards: sweep history"
+    out["cards"] = {
+        "count": cards, "shards": d, "launches_per_call": n, "fitness_wall_s": wall_s, "unsharded_wall_s": off_s,
+        "stripes": sorted(k for k in pack_cache().device_stats if "/s" not in k and k.startswith("cuda")),
+        "sweeps": {str(k): {"wall_s": w, "launches": m} for k, (_, w, m) in sweeps.items()},
+        "device_scaling": builtin._device_scaling_section(np.random.default_rng(0), "cuda"),
+    }
+print("STRIPES " + json.dumps(out))
+"""
+
+
+def shard_topology_phase(sweep_problems) -> tuple[dict[str, int], dict]:
+    """Phase 16: the multi-device instance axis and generated continua.
+    ``ga_sweep(shard="auto")`` over phase 4's family on the one card equals
+    ``shard="off"`` with the same launches; a child process stripes the
+    family over 2 and then 8 virtual stripes of the card (striped fitness ==
+    unsharded, one launch a stripe; striped sweeps == ``"off"``; the engine
+    lane's device-scaling rows); the GA sweep over 8 x 500-task workflows on
+    the generated 1008-node ``large`` continuum, its kernel held against the
+    plain version at that shape and timed; the topology lane with the twin
+    calibration into a temporary directory; the ``topology`` CLI with no
+    ``--device``; no ``BENCH_*.json`` changed.  Returns the launches by path
+    and the kernel's readings at the ``large`` shape."""
+    import tempfile
+
+    from repro_torch.campaigns import builtin
+    from repro_torch.core import Workload, build_problem, ga_sweep, random_layered_workflow, verify_schedule
+    from repro_torch.engine import local_device_count, stack_packed
+    from repro_torch.kernels.makespan import population_makespan_cuda, population_makespan_ref
+    from repro_torch.topology import PRESETS, cached_system, tier_slices
+
+    repo = Path(__file__).resolve().parent
+    src = repo / "src"
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_TORCH_VIRTUAL_DEVICES"}
+    env["PYTHONPATH"] = str(src)
+    bench_before = {p.name: p.read_bytes() for p in repo.glob("BENCH_*.json")}
+    launches: dict[str, int] = {}
+    record: dict = {}
+    tmp = Path(tempfile.mkdtemp(prefix="topology-"))
+    procs: list[subprocess.Popen] = []
+    try:
+        # the children start first: the topology CLI on the card by default
+        # and the virtual stripes; this process's untimed work runs beside
+        # them, its timed work after them
+        for argv in ([sys.executable, "-m", "repro_torch", "topology", "generate", "large", "--out",
+                      str(tmp / "large.json")],
+                     [sys.executable, "-m", "repro_torch", "topology", "calibrate", "small"],
+                     [sys.executable, "-c", STRIPES_CHILD]):
+            procs.append(subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        cli_gen, cli_cal, stripes = procs
+
+        # one card: shard="auto" is the unsharded path
+        check(local_device_count("cuda") == 1, f"one card: local_device_count {local_device_count('cuda')}")
+        sweeps = {}
+        for shard in ("auto", "off"):
+            population_makespan_cuda.launches = 0
+            res = ga_sweep(sweep_problems, backend="auto", device="cuda", seed=0, shard=shard, **GA)
+            torch.cuda.synchronize()
+            sweeps[shard] = (res, population_makespan_cuda.launches)
+            launches[f"shard_{shard}_sweep"] = population_makespan_cuda.launches
+        for a, b in zip(sweeps["auto"][0], sweeps["off"][0]):
+            check(np.array_equal(a.schedule.assignment, b.schedule.assignment) and np.array_equal(a.history, b.history),
+                  "ga_sweep(shard='auto') == ga_sweep(shard='off') on one card")
+        check(sweeps["auto"][1] == sweeps["off"][1] == GA["generations"] + 1,
+              f"auto and off sweeps: {sweeps['auto'][1]} and {sweeps['off'][1]} launches, expected 61 each")
+        print(f"shard one card: local_device_count 1, ga_sweep 8x(500x500) shard=auto == shard=off bit for bit, "
+              f"{sweeps['auto'][1]} launches each", flush=True)
+
+        # the large continuum: 1008 nodes, 8 x 500-task workflows as the topology lane draws them
+        spec = PRESETS["large"]()
+        t0 = time.perf_counter()
+        large = cached_system(spec)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        problems = [build_problem(large, Workload((random_layered_workflow(
+            500, name="W500", seed=s, max_cores=4, feature_pool=("F1",)),))) for s in SWEEP_SEEDS]
+        build_s = time.perf_counter() - t0
+        tiers = {name: sl.stop - sl.start for name, sl in tier_slices(spec).items()}
+        check(large.num_nodes == 1008, f"large preset: {large.num_nodes} nodes")
+
+        for name, proc in (("topology generate large", cli_gen), ("topology calibrate small", cli_cal)):
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"python -m repro_torch {name}: exit {proc.returncode}\n{err[-3000:]}")
+            if name.endswith("small"):
+                rep = json.loads(out)
+                check(rep["twin_error_after"] < rep["twin_error_before"], "CLI calibrate: twin error shrinks")
+                print(f"cli {name}: exit 0, {json.dumps(rep)}", flush=True)
+            else:
+                system = json.loads((tmp / "large.json").read_text())
+                check(len(system["nodes"]) == 1008, "CLI generate large: 1008 nodes")
+                print(f"cli {name}: exit 0, {len(system['nodes'])} nodes; {err.strip().splitlines()[0]}", flush=True)
+        out, err = stripes.communicate(timeout=900)
+        check(stripes.returncode == 0, f"virtual stripes child: exit {stripes.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+        child = json.loads(out.split("STRIPES ", 1)[1])
+        for k in ("2", "8"):
+            check(child[k]["launches_per_call"] == int(k) and len(child[k]["stripes"]) >= int(k),
+                  f"{k} stripes: {child[k]}")
+        scaling = child["device_scaling"]
+        check(all(s["bit_identical_to_single_device"] and set(s["per_device"]) == {"1", "2", "4", "8"}
+                  for s in scaling["shapes"].values()), f"device scaling rows: {scaling}")
+        launches["stripes_child"] = sum(v["launches"] for v in child["sweeps"].values())
+        print(f"stripes (child, 2 and 8 virtual stripes on the card): striped fitness at {child['2']['bucket']} "
+              f"== unsharded bit for bit, launches a call {child['2']['launches_per_call']} / "
+              f"{child['8']['launches_per_call']}; ga_sweep shard 8 and 3 == off: {json.dumps(child['sweeps'])}; "
+              f"device scaling {json.dumps(scaling)}", flush=True)
+        record["stripes"] = {"sweeps": child["sweeps"], "device_scaling": scaling}
+        if "cards" in child:
+            print(f"stripes over the {child['cards']['count']} cards: {json.dumps(child['cards'])}", flush=True)
+            record["stripes"]["cards"] = child["cards"]
+
+        # the large sweep, alone on the card now
+        population_makespan_cuda.launches = 0
+        t0 = time.perf_counter()
+        results = ga_sweep(problems, backend="auto", device="cuda", seed=0, **GA)
+        torch.cuda.synchronize()
+        large_s = time.perf_counter() - t0
+        n = population_makespan_cuda.launches
+        launches["large_sweep"] = n
+        check(n == GA["generations"] + 1, f"large ga_sweep made {n} launches, expected 61")
+        for problem, r in zip(problems, results):
+            check(verify_schedule(problem, r.schedule) == [], "large sweep schedule is valid")
+            check(np.isfinite(r.history).all() and (np.diff(r.history) <= 0).all(), "large sweep history")
+        prof = device_time_breakdown(lambda: ga_sweep(problems, backend="auto", device="cuda", seed=0, **GA),
+                                     classify=makespan_class)
+        # the kernel against its plain version at the large sweep's shape
+        dev = torch.device("cuda")
+        stacked, bucket = stack_packed(problems, device=dev)
+        kw = {k: stacked[k] for k in KEYS}
+        kw["deadline"] = None
+        A = torch.zeros(len(problems), GA["pop_size"], bucket[0], dtype=torch.int32)
+        for b, problem in enumerate(problems):
+            A[b, :, : problem.num_tasks] = torch.from_numpy(random_assignments(problem, GA["pop_size"], 16 + b))
+        A = A.to(dev)
+        mk_k, v_k = population_makespan_cuda(A, **kw)
+        mk_p, v_p = population_makespan_ref(A, **kw)
+        torch.cuda.synchronize()
+        check(same_bits(mk_k, mk_p) and same_bits(v_k, v_p), f"large {bucket}: kernel == plain version, bit for bit")
+        check(bool(torch.isfinite(mk_k).all()), "large: finite makespans")
+        ms = cuda_ms(lambda: population_makespan_cuda(A, **kw), reps=10)
+        plain = call_ms(lambda: population_makespan_ref(A, **kw), reps=1, warmup=0)
+        bound, by, nbytes, ops = makespan_bound_ms(A, kw)
+        record.update(large_ms=ms, large_plain_ms=plain, large_bound_ms=bound, large_bound_by=by,
+                      large_bucket=list(bucket), large_max_abs_err=float((mk_k - mk_p).abs().max()))
+        print(f"topology large: {large.num_nodes} nodes {tiers} generated in {gen_s:.3f} s, 8 problems built in "
+              f"{build_s:.2f} s, bucket {bucket}", flush=True)
+        print(f"ga_sweep large 8x(500 tasks x 1008 nodes) pop={GA['pop_size']} gens={GA['generations']}: "
+              f"{large_s:.3f} s wall, {n} kernel launches, every schedule valid, makespans "
+              f"{[round(r.schedule.makespan, 2) for r in results]}; warm, profiled: wall {prof['wall_ms']:.2f} ms, "
+              f"device busy {prof['device_busy_ms']:.2f} ms, idle {prof['device_idle_share']:.4f}, by class "
+              f"{json.dumps(prof.get('by_class'))}", flush=True)
+        print(f"makespan large {list(A.shape)} x N {bucket[1]} CMAX {bucket[2]}: kernel == plain bit for bit; "
+              f"kernel {ms:.4f} ms, plain {plain:.2f} ms (one call), bound {bound:.6f} ms ({by}: {nbytes} B, "
+              f"{ops} ops)", flush=True)
+        record["large_sweep"] = {"wall_s": large_s, "generate_s": gen_s, "build_s": build_s,
+                                 **{k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}}
+
+        # the topology lane and the twin calibration, written where it is told
+        population_makespan_cuda.launches = 0
+        t0 = time.perf_counter()
+        rows = builtin.run_topology_bench(tmp / "topology.json", device="cuda")
+        torch.cuda.synchronize()
+        lane_s = time.perf_counter() - t0
+        launches["topology_lane"] = population_makespan_cuda.launches
+        payload = json.loads((tmp / "topology.json").read_text())
+        check(launches["topology_lane"] > 0, "the topology lane's GA cells ran the kernel")
+        for preset, cal in payload["calibration"].items():
+            check(cal["twin_error_after"] < cal["twin_error_before"], f"{preset}: twin error after < before")
+            check(cal["speed_factor_rel_mae"] < 0.05, f"{preset}: speed factors within 5%")
+        statuses = payload["campaign"]["data"]["status"]
+        check(statuses and all(st == "ok" for st in statuses), f"every topology lane cell solved: {statuses}")
+        calib = {p: {k: c[k] for k in ("twin_error_before", "twin_error_after", "speed_factor_rel_mae",
+                                       "loss_initial", "loss_final")} for p, c in payload["calibration"].items()}
+        print(f"topology lane: {len(statuses)} cells in {lane_s:.2f} s, "
+              f"{launches['topology_lane']} launches; calibration {json.dumps(calib)}; generate_large "
+              f"{payload['generate_large']['seconds']:.4f} s ({payload['generate_large']['nodes']} nodes); "
+              f"rows {[r[0] for r in rows]}", flush=True)
+        record["topology_lane"] = {"wall_s": lane_s, "generate_large_s": payload["generate_large"]["seconds"],
+                                   "calibration": payload["calibration"]}
+    finally:
+        import shutil
+
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bench_after = {p.name: p.read_bytes() for p in repo.glob("BENCH_*.json")}
+    check(bench_after == bench_before, "no BENCH_*.json of the repository changed")
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1999,11 +2290,17 @@ def main() -> int:
     campaign_launches, campaign_record = campaign_phase()
     phase_done(15, "campaigns on the card")
 
+    # 16. the multi-device instance axis and generated continua
+    topology_launches, topology_record = shard_topology_phase(sweep_problems)
+    phase_done(16, "the instance axis and generated continua")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
-                        **service_launches, **campaign_launches}
+                        **service_launches, **campaign_launches, **topology_launches}
     record.update(service_record)
     record.update(campaign_record)
-    max_err = max(max_err, service_record["service_max_abs_err"], campaign_record["campaign_max_abs_err"])
+    record.update(topology_record)
+    max_err = max(max_err, service_record["service_max_abs_err"], campaign_record["campaign_max_abs_err"],
+                  topology_record["large_max_abs_err"])
 
     # each kernel's launches on each serving path, and their sum
     by_path: dict[str, dict[str, int]] = {}

@@ -33,6 +33,11 @@
                                                       [--trace PATH]
     PYTHONPATH=src python -m repro_torch campaign report results.json [--vs milp]
     PYTHONPATH=src python -m repro_torch obs trace.json [--json]
+    PYTHONPATH=src python -m repro_torch topology generate (spec.json | tiny|small|medium|large)
+                                                           [--seed N] [--out system.json]
+    PYTHONPATH=src python -m repro_torch topology calibrate (spec.json | preset)
+                                                            [--samples 32] [--steps 300]
+                                                            [--device cuda] [--out report.json]
 
 ``run`` loads a declarative :class:`repro_torch.core.api.Scenario` (the
 reference's file format, unchanged), drives the
@@ -52,7 +57,11 @@ and can save the typed columnar ResultSet as JSON/CSV, and ``report``
 recomputes the Table IX-style optimality-gap table from saved results.
 ``--trace PATH`` on ``run``, ``serve`` and ``campaign run`` writes a Perfetto
 trace of the run and ``PATH.metrics.json`` beside it; ``obs`` validates and
-summarizes such a trace.
+summarizes such a trace.  ``topology generate`` expands a tiered continuum
+spec (:mod:`repro_torch.topology`, the reference's spec files) into a system
+JSON, bit-identical per seed; ``topology calibrate`` perturbs the continuum,
+fits speed factors from noisy observations (Adam on ``--device``) and
+reports the twin's makespan error before and after.
 """
 
 from __future__ import annotations
@@ -116,6 +125,74 @@ def _campaign_main(args) -> int:
     if vs and rs.baseline_present(vs):
         print(f"# deviation vs {vs} ({args.metric}):")
         print(rs.deviation_report(vs, metric=args.metric).to_csv(), end="")
+    return 0
+
+
+def _resolve_topology(spec: str, seed: int | None):
+    from repro_torch.topology import load_spec, resolve_spec
+
+    try:
+        ts = load_spec(spec) if Path(spec).is_file() else resolve_spec(spec)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if seed is not None:
+        ts = ts.replace(seed=seed)
+    return ts
+
+
+def _topology_main(args) -> int:
+    import time
+
+    from repro_torch.topology import cached_system, calibration_report, tier_slices
+
+    spec = _resolve_topology(args.spec, args.seed)
+
+    if args.topology_cmd == "generate":
+        from repro_torch.core.system_model import system_to_json
+
+        t0 = time.perf_counter()
+        system = cached_system(spec)
+        seconds = time.perf_counter() - t0
+        tiers = " ".join(
+            f"{name}={sl.stop - sl.start}" for name, sl in tier_slices(spec).items()
+        )
+        print(f"# {spec.name}: {system.num_nodes} nodes ({tiers}) "
+              f"generated in {seconds:.3f}s, seed={spec.seed}", file=sys.stderr)
+        payload = json.dumps(system_to_json(system), indent=2, sort_keys=True)
+        if args.out:
+            Path(args.out).write_text(payload + "\n")
+            print(f"wrote {args.out}", file=sys.stderr)
+        else:
+            print(payload)
+        return 0
+
+    # calibrate: perturb the twin, observe noisily, fit, report twin error
+    from repro_torch.core.workload_model import Workload, random_layered_workflow
+
+    system = cached_system(spec)
+    size = args.tasks
+    workload = Workload(
+        (
+            random_layered_workflow(
+                size, name=f"W{size}", seed=size, max_cores=4,
+                feature_pool=("F1",),
+            ),
+        )
+    )
+    report = calibration_report(
+        system,
+        workload,
+        perturb_seed=args.perturb_seed,
+        samples_per_node=args.samples,
+        transfer_samples=args.transfer_samples,
+        noise=args.noise,
+        steps=args.steps,
+        device=args.device,
+    )
+    payload = json.dumps(report, indent=2, sort_keys=True)
+    print(payload)
+    if args.out:
+        Path(args.out).write_text(payload + "\n")
     return 0
 
 
@@ -259,6 +336,39 @@ def main(argv: list[str] | None = None) -> int:
     obs_p.add_argument("--json", action="store_true",
                        help="print the machine-readable summary JSON")
 
+    top_p = sub.add_parser("topology", help="generated tiered continua + "
+                           "digital-twin calibration (repro_torch.topology)")
+    tsub = top_p.add_subparsers(dest="topology_cmd", required=True)
+
+    tgen = tsub.add_parser("generate", help="expand a topology spec into a "
+                           "system JSON (Fig. 7 format + dtr matrix)")
+    tgen.add_argument("spec", help="topology spec JSON file or preset name "
+                      "(tiny | small | medium | large)")
+    tgen.add_argument("--seed", type=int, help="override the spec's seed")
+    tgen.add_argument("--out", help="write the system JSON here "
+                      "(default: stdout)")
+
+    tcal = tsub.add_parser("calibrate", help="perturb a generated continuum, "
+                           "fit factors from noisy observations, report "
+                           "twin-vs-truth makespan error before/after")
+    tcal.add_argument("spec", help="topology spec JSON file or preset name")
+    tcal.add_argument("--seed", type=int, help="override the spec's seed")
+    tcal.add_argument("--perturb-seed", type=int, default=7,
+                      help="seed for the 0.5-2.0x truth speed factors")
+    tcal.add_argument("--samples", type=int, default=32,
+                      help="observed task durations per node")
+    tcal.add_argument("--transfer-samples", type=int, default=0,
+                      help="observed link transfers (0 = speeds only)")
+    tcal.add_argument("--noise", type=float, default=0.05,
+                      help="lognormal observation noise sigma")
+    tcal.add_argument("--steps", type=int, default=300,
+                      help="gradient-descent steps")
+    tcal.add_argument("--tasks", type=int, default=48,
+                      help="size of the probe workload")
+    tcal.add_argument("--device", default="cuda",
+                      help="device of the calibration's gradient descent (default cuda)")
+    tcal.add_argument("--out", help="also write the report JSON here")
+
     args = parser.parse_args(argv)
 
     from repro_torch import obs
@@ -286,6 +396,9 @@ def _dispatch(args) -> int:
 
     if args.cmd == "campaign":
         return _campaign_main(args)
+
+    if args.cmd == "topology":
+        return _topology_main(args)
 
     from repro_torch.core import api
 

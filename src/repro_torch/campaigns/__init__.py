@@ -19,7 +19,7 @@ grid and compare", the reference's spec format and results, run by the port:
   Table IX ``deviation_vs("milp")`` optimality-gap report;
 * built-ins (:mod:`~repro_torch.campaigns.builtin`) — the reference's lanes
   (``smoke`` / ``table9`` / ``service`` / ``chaos`` / ``engine`` /
-  ``cycling``) as named campaigns with exporters of the reference's
+  ``topology`` / ``cycling``) as named campaigns with exporters of the reference's
   ``BENCH_*.json`` payloads (pass them an ``out_path``).
 
 Every entry point takes ``device`` (default ``"cuda"``).

@@ -22,8 +22,9 @@ callers of the port pass an ``out_path`` elsewhere.
 * ``engine``  — per-engine population-evaluation throughput at three shape
   buckets (``engine-bench`` runner: ``torch``, ``oracle`` and the makespan
   kernel's ``cuda``) → ``BENCH_engine.json``;
-* ``topology`` — generated tiered continua: not ported yet (ROADMAP Queue A
-  item 7), so :func:`topology_campaign` raises ``NotImplementedError``;
+* ``topology`` — generated tiered continua (:mod:`repro_torch.topology`):
+  tier scale × technique, plus the digital-twin calibration headline
+  (twin-vs-truth makespan error before/after) → ``BENCH_topology.json``;
 * ``cycling`` — recurring workflows under hard constraints
   (:mod:`repro_torch.cycling`): a deadline-tightening sweep over a 3-cycle
   unrolled DAG × {milp, heft, ga} with the constraint-satisfaction /
@@ -187,12 +188,26 @@ def topology_campaign(
     scales: tuple[dict, ...] = TOPOLOGY_SCALES,
     techniques: tuple[str, ...] = ("heft", "ga"),
 ) -> Campaign:
-    """The reference's topology lane: generated tiered continua swept over
-    tier scale × technique.  Its cells need the topology generator, which
-    is not ported yet."""
-    raise NotImplementedError(
-        "the topology campaign needs generated continua, not ported yet: "
-        "ROADMAP Queue A item 7"
+    """The topology lane: generated tiered continua
+    (:mod:`repro_torch.topology`) swept over tier scale × technique through
+    the inline runner.  Cells compile their ``topology`` coordinate through
+    the fingerprint-keyed spec → ``System`` cache, so both techniques share
+    one expansion."""
+    return Campaign(
+        name="topology",
+        axes=(
+            Axis("scale", tuple(scales), zipped=True),
+            Axis("technique", tuple(techniques)),
+        ),
+        defaults={
+            "system": "topology",
+            "family": "layered",
+            "engine": "auto",
+            "solver_options": {
+                "ga": {"seed": 0, "pop_size": 24, "generations": 8},
+            },
+        },
+        runner="inline",
     )
 
 
@@ -406,25 +421,30 @@ def _time_fitness(fn, *args, iters=3, warmup=1):
     return (time.perf_counter() - t0) / iters * 1e6
 
 
-#: instance-family width of the device-scaling probe (a realistic batch group)
+#: device-scaling probe: shard counts tried (stripes permitting) per shape
+DEVICE_SCALING_SHARDS = (1, 2, 4, 8)
+#: instance-family width of the probe (a realistic batch group)
 DEVICE_SCALING_INSTANCES = 8
 
 
 def _device_scaling_section(rng: np.random.Generator, device) -> dict[str, Any]:
-    """Batched-fitness throughput of an 8-instance family (medium + large)
-    through the default engine (``cuda``: the makespan kernel).
+    """Striped batched-fitness throughput at 1/2/4/8 stripes (medium +
+    large) through the default engine (``cuda``: the makespan kernel).
 
-    The reference stripes the family over 1/2/4/8 devices; the port has no
-    multi-device instance axis yet (ROADMAP Queue A item 6), so this is the
-    reference's section on a one-device host: ``devices_available`` 1 and the
-    ``"1"`` row only."""
+    Per shape: an 8-instance family (one bucket, distinct workflows) scored
+    by ``batched_fitness`` with ``shard=None`` (the unsharded baseline) and
+    with ``shard=d`` over ``d`` stripes of ``device``'s kind
+    (:mod:`repro_torch.engine.shard`); each striped output is checked
+    bit-identical to the baseline beside the times it justifies."""
     from repro_torch.core import Workload, build_problem, synthetic_system
     from repro_torch.core.workload_model import random_layered_workflow
     from repro_torch.engine import ENGINES
+    from repro_torch.engine.shard import local_device_count
 
+    devices = local_device_count(device)
     section: dict[str, Any] = {
         "instances": DEVICE_SCALING_INSTANCES,
-        "devices_available": 1,
+        "devices_available": devices,
         "shapes": {},
     }
     engine = ENGINES.get("auto")
@@ -444,22 +464,39 @@ def _device_scaling_section(rng: np.random.Generator, device) -> dict[str, Any]:
             )
             for i in range(DEVICE_SCALING_INSTANCES)
         ]
-        fitness = engine.batched_fitness(problems, device=device)
-        Tb = fitness.bucket[0]
+        baseline = engine.batched_fitness(problems, device=device, shard=None)
+        Tb = baseline.bucket[0]
         A = np.zeros((DEVICE_SCALING_INSTANCES, pop, Tb), np.int32)
         A[:, :, :tasks] = rng.integers(
             0, problems[0].num_nodes, (DEVICE_SCALING_INSTANCES, pop, tasks)
         )
-        us = _time_fitness(fitness, A, iters=3, warmup=1)
-        cand = DEVICE_SCALING_INSTANCES * pop
+        # the baseline's bits, to hold each striped row to (one stripe: none)
+        ref = [x.cpu() for x in baseline(A)] if devices > 1 else None
+        per_device: dict[str, Any] = {}
+        identical = True
+        for d in DEVICE_SCALING_SHARDS:
+            if d > devices:
+                continue
+            fitness = baseline if d == 1 else engine.batched_fitness(
+                problems, device=device, shard=d
+            )
+            us = _time_fitness(fitness, A, iters=3, warmup=1)
+            if d > 1:
+                out = [x.cpu() for x in fitness(A)]
+                identical = identical and all(torch.equal(a, b) for a, b in zip(ref, out))
+            cand = DEVICE_SCALING_INSTANCES * pop
+            per_device[str(d)] = {
+                "us_per_call": float(us),
+                "candidates_per_second": cand / (us / 1e6),
+            }
+        base = per_device["1"]["candidates_per_second"]
+        best_d = max(per_device, key=int)
         section["shapes"][label] = {
             "population": pop,
-            "bucket": list(fitness.bucket),
-            "per_device": {
-                "1": {"us_per_call": float(us), "candidates_per_second": cand / (us / 1e6)},
-            },
-            "speedup_at_max_devices": 1.0,
-            "bit_identical_to_single_device": True,
+            "bucket": list(baseline.bucket),
+            "per_device": per_device,
+            "speedup_at_max_devices": per_device[best_d]["candidates_per_second"] / base,
+            "bit_identical_to_single_device": bool(identical),
         }
     return section
 
@@ -730,6 +767,63 @@ def run_engine_bench_export(
     payload["device_scaling"] = scaling
     payload["pack_cache"] = stats["pack_cache"]
     payload["telemetry"] = rs.meta.get("telemetry", {})
+    Path(out_path).write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n")
+    return rows
+
+
+def run_topology_bench(
+    out_path: str | Path = "BENCH_topology.json", *, device="cuda"
+) -> list[tuple]:
+    """The topology lane: tier scale × technique over generated continua
+    plus the digital-twin calibration headline → ``BENCH_topology.json``.
+
+    Per scale point, the twin experiment perturbs node speeds by seeded
+    0.5–2.0× factors, synthesizes noisy monitor observations, calibrates
+    (:func:`repro_torch.topology.calibrate`, on ``device``), and reports
+    twin-vs-truth makespan error before and after.  A 1008-node generation
+    timing row tracks the generator's scale budget."""
+    from repro_torch.core.workload_model import Workload, random_layered_workflow
+    from repro_torch.topology import PRESETS, cached_system, calibration_report, generate
+
+    rs = run_campaign(topology_campaign(), device=device)
+    rows = campaign_rows(rs)
+    calibration: dict[str, Any] = {}
+    for scale in TOPOLOGY_SCALES:
+        preset = str(scale["topology"])
+        system = cached_system(PRESETS[preset]())
+        size = int(scale["size"])
+        workload = Workload(
+            (
+                random_layered_workflow(
+                    size, name=f"W{size}", seed=size, max_cores=4,
+                    feature_pool=("F1",),
+                ),
+            )
+        )
+        rep = calibration_report(
+            system, workload, perturb_seed=7, samples_per_node=16,
+            noise=0.05, steps=200, device=device,
+        )
+        calibration[preset] = rep
+        rows.append(
+            (f"topology_{preset}_twin", float("nan"),
+             f"err_before={rep['twin_error_before']:.3f};"
+             f"err_after={rep['twin_error_after']:.3f};"
+             f"factor_rel_mae={rep['speed_factor_rel_mae']:.4f}")
+        )
+    t0 = time.perf_counter()
+    large = generate(PRESETS["large"]())
+    gen_seconds = time.perf_counter() - t0
+    rows.append(
+        ("topology_generate_large", gen_seconds * 1e6,
+         f"nodes={large.num_nodes}")
+    )
+    payload = {
+        "campaign": rs.to_json(),
+        "calibration": calibration,
+        "generate_large": {"nodes": large.num_nodes, "seconds": gen_seconds},
+        "telemetry": rs.meta.get("telemetry", {}),
+    }
     Path(out_path).write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n")
     return rows
 

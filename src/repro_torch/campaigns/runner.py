@@ -39,8 +39,8 @@ Every runner takes ``device`` (default ``"cuda"``), which reaches every
 engine-aware solve.  Two departures from the reference: a fault of the
 device layer (:data:`~repro_torch.core.api.DEVICE_ERRORS`) propagates out of
 both solve paths instead of becoming a failed row or a silent retry, and the
-multi-device instance axis is not ported (ROADMAP Queue A item 6), so a
-batched group runs on one device (``sharded_groups`` 0, ``shard_devices`` 1).
+stripes that ``sharded_groups`` and ``shard_devices`` count are those of the
+run's ``device`` kind (:mod:`repro_torch.engine.shard`).
 """
 
 from __future__ import annotations
@@ -74,6 +74,7 @@ from repro_torch.core.workload_model import (
     problem_fingerprint,
 )
 from repro_torch.engine.packed import bucket_of, pack_cache
+from repro_torch.engine.shard import choose_shards, local_device_count
 from repro_torch.service.cache import CacheStats
 from repro_torch.campaigns.results import ResultSet
 from repro_torch.campaigns.spec import Campaign, CampaignCell, cell_scenario
@@ -279,6 +280,7 @@ def run_inline(
     solver_calls = 0
     batched_groups = 0
     batched_submissions = 0
+    sharded_groups = 0
     for cell in cells:
         prep = _Prep(cell=cell)
         preps.append(prep)
@@ -317,9 +319,10 @@ def run_inline(
         kw = technique_kwargs(reg, first.technique, opts)
         batch_fn = reg.get(first.technique).batch_fn
         assert batch_fn is not None  # _group_key guarantees it
-        # one device, one stripe: the multi-device instance axis is
-        # ROADMAP Queue A item 6 (engine/shard.py), not ported yet
-        shards = 1
+        # the striping the batched sweep will apply (repro_torch.engine.shard):
+        # >1 means this group's instances run one slice per local device
+        # instead of all on one
+        shards = choose_shards(len(members), device=device)
         sp = obs.TRACER.timed(
             "campaign.batch", cat="campaign",
             args={"technique": first.technique, "size": len(members),
@@ -347,6 +350,8 @@ def run_inline(
         solver_calls += len(members)
         batched_groups += 1
         batched_submissions += len(members)
+        if shards > 1:
+            sharded_groups += 1
         for prep, rep in zip(members, reports):
             prep.schedule = rep.schedule
             prep.status = "ok"
@@ -442,8 +447,8 @@ def run_inline(
             "solver_calls": solver_calls,
             "batched_groups": batched_groups,
             "batched_submissions": batched_submissions,
-            "sharded_groups": 0,
-            "shard_devices": 1,
+            "sharded_groups": sharded_groups,
+            "shard_devices": local_device_count(device),
             "dedup_hits": cache_stats.hits,
             "cache": cache_stats.to_json(),
             "pack_cache": pack_delta.to_json(),

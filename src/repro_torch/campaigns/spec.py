@@ -45,8 +45,8 @@ error — a typo'd ``"tehcniques"`` axis never silently falls back to a
 default grid.
 
 The spec format is the reference's, file for file.  A ``"system":
-"topology"`` cell (a generated tiered continuum) is refused until the
-topology generator is ported (ROADMAP Queue A item 7).
+"topology"`` cell takes a generated tiered continuum
+(:mod:`repro_torch.topology`) from its ``topology`` coordinate.
 """
 
 from __future__ import annotations
@@ -446,10 +446,16 @@ def cell_system(coords: Mapping[str, Any]) -> System:
         # seeded by its own size, mirroring bench_table9_scale
         return synthetic_system(int(nodes), seed=int(nodes))
     if kind == "topology":
-        raise NotImplementedError(
-            "generated continua (system 'topology') are not ported yet: "
-            "ROADMAP Queue A item 7"
-        )
+        from repro_torch.topology import cached_system, resolve_spec
+
+        spec = coords.get("topology")
+        if spec is None:
+            raise ValueError(
+                "topology system needs a 'topology' coordinate "
+                "(a preset name or an inline spec dict)"
+            )
+        # fingerprint-keyed memo: cells sharing a topology expand it once
+        return cached_system(resolve_spec(spec))
     options = ("synthetic", "mri", "continuum", "topology")
     raise ValueError(
         f"unknown system kind {kind!r}; options {options}{did_you_mean(kind, options)}"

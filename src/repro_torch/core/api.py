@@ -89,11 +89,6 @@ def cycle_spec_from_json(obj: Any) -> "CycleSpec | None":
     return _parse(obj)
 
 
-_NOT_PORTED_TOPOLOGY = (
-    "generated continua (the scenario 'topology' section) are not ported "
-    "yet: ROADMAP Queue A item 7"
-)
-
 _LOG = obs.logger("core.api")
 
 #: Faults of the device layer: a kernel that fails to build, load, launch or
@@ -769,12 +764,16 @@ def scenario_from_json(obj: Mapping[str, Any] | str) -> Scenario:
         )
     system, workload = load_config(obj)
     if "topology" in obj:
+        # inline generated continuum (repro_torch.topology): a seeded tiered
+        # TopologySpec — or a preset name — in place of explicit "nodes"
         if system is not None:
             raise ValueError(
                 "scenario file has both a 'nodes' section and a 'topology' "
                 "spec; pick one system source"
             )
-        raise NotImplementedError(_NOT_PORTED_TOPOLOGY)
+        from repro_torch.topology import cached_system, resolve_spec
+
+        system = cached_system(resolve_spec(obj["topology"]))
     if system is None or workload is None:
         missing = "nodes" if system is None else "workflow"
         raise ValueError(f"scenario config is missing its {missing} section")

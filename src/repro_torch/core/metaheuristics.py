@@ -218,10 +218,14 @@ def ga(
     backend: str = "auto",
     device="cuda",
     draws: GADraws | None = None,
+    shard: int | str | None = None,
 ) -> MHResult:
     """Genetic algorithm [24] on ``device`` with fitness from the ``backend``
     engine (``auto``: the CUDA kernel on a CUDA device).  ``draws``
-    replaces the default ``torch.Generator`` draws seeded by ``seed``."""
+    replaces the default ``torch.Generator`` draws seeded by ``seed``.
+    ``shard`` is accepted and ignored, so that solver options meant for the
+    batched :func:`ga_sweep` do not fail a single solve of the same family."""
+    del shard
     t0 = time.perf_counter()
     fitness = _backends.population_fitness_fn(problem, weights, engine=backend, device=device)
     logits = _mask_logits(problem, device)[None]
@@ -254,15 +258,23 @@ def ga_sweep(
     backend: str = "auto",
     device="cuda",
     draws: GADraws | None = None,
+    shard: int | str | None = "auto",
 ) -> list[MHResult]:
     """The GA on a whole family of instances at once: the instances are
     padded into one shape bucket and stacked, and each generation scores
     every instance's population in one batched fitness call.  Per-result
-    ``solve_time`` is the sweep's wall time."""
+    ``solve_time`` is the sweep's wall time.
+
+    ``shard`` stripes that fitness call over the local devices of
+    ``device``'s kind (``"auto"``: all of them, when there is more than one;
+    an int forces a count; ``"off"``/``None``/``1`` keeps one device;
+    :mod:`repro_torch.engine.shard`).  The loop and its draws stay over the
+    ``B`` real instances, so every choice gives the same schedules and
+    histories bit for bit."""
     t0 = time.perf_counter()
     B = len(problems)
     fitness = _backends.batched_population_fitness_fn(
-        problems, weights, engine=backend, device=device
+        problems, weights, engine=backend, device=device, shard=shard
     )
     Tb, Nb = fitness.bucket[:2]
     logits = np.full((B, Tb, Nb), _NEG, dtype=np.float32)
@@ -275,9 +287,7 @@ def ga_sweep(
             logits_t, pop_size=pop_size, tournament=tournament,
             mutation_rate=mutation_rate, seed=seed,
         )
-    # one device, one stripe: the multi-device instance axis is ROADMAP
-    # Queue A item 6 (engine/shard.py), not ported yet
-    shards = 1
+    shards = fitness.shards
     with obs.TRACER.span(
         "mh.ga_sweep", cat="engine",
         args={"instances": B, "shards": shards,

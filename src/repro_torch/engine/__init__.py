@@ -1,5 +1,6 @@
 """Where a schedule gets executed against a problem: the packed problem,
-the host simulator and the registry of fitness engines."""
+the host simulator, the registry of fitness engines and the multi-device
+instance axis (:mod:`repro_torch.engine.shard`)."""
 
 from repro_torch.engine.backends import (
     ENGINES,
@@ -22,5 +23,13 @@ from repro_torch.engine.packed import (
     pack,
     pack_cache,
     stack_packed,
+)
+from repro_torch.engine.shard import (
+    ShardedStack,
+    choose_shards,
+    instance_mesh,
+    local_device_count,
+    sharded_batched_fitness,
+    stack_packed_sharded,
 )
 from repro_torch.engine.sim import CoreSim, commit_sorted, ready_times_all, run_schedule

@@ -42,12 +42,14 @@ def _weights(weights):
 
 
 def _usage_term(arrays, assignments: torch.Tensor, usage_mode: str) -> torch.Tensor:
-    """Σ_j U_j(a_j) per candidate: ``assignments [B, P, T]`` → ``[B, P]``."""
+    """Σ_j U_j(a_j) per candidate: ``assignments [B, P, T]`` → ``[B, P]``.
+    In ``fixed`` mode it is the instance's usage sum ``usage_total``, made
+    with the arrays (:func:`repro_torch.engine.packed.fitness_tensors`)."""
     B, P, T = assignments.shape
     if usage_mode == "weighted":
         uw = arrays["usage_weighted"][:, None].expand(B, P, T, -1)
         return torch.gather(uw, 3, assignments.long()[..., None])[..., 0].sum(dim=-1)
-    return arrays["usage_fixed"].sum(dim=-1)[:, None].expand(B, P)
+    return arrays["usage_total"][:, None].expand(B, P)
 
 
 def _budget_overage(arrays, assignments: torch.Tensor) -> torch.Tensor:
@@ -113,7 +115,9 @@ def population_fitness_from_arrays(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fitness over packed arrays: ``assignments [P, T]`` with one
     instance's arrays, or ``[B, P, T]`` with a stacked family's, →
-    ``(objective, makespan)`` of shape ``[P]`` or ``[B, P]``.
+    ``(objective, makespan)`` of shape ``[P]`` or ``[B, P]``.  The arrays
+    are those :func:`repro_torch.engine.packed.fitness_tensors` makes
+    (``PackedProblem.device_arrays``, ``stack_packed``).
 
     ``constrained=True`` counts late tasks inside the makespan pass and adds
     the budget overage, each worth ``BIG_PENALTY``.  ``makespan_fn`` is the
@@ -314,25 +318,85 @@ class _PackedEngine(ScheduleEngine):
 
         return fitness
 
-    def batched_fitness(self, problems: Sequence[ScheduleProblem], weights=None, *, device="cuda"):
+    def batched_fitness(
+        self, problems: Sequence[ScheduleProblem], weights=None, *, device="cuda",
+        shard: int | str | None = "auto",
+    ):
         """Fitness over a family stacked into one bucket:
         ``fitness(assignments [B, P, Tb]) -> (objective [B, P], makespan [B, P])``,
-        one makespan call for the whole family."""
+        one makespan call for the whole family.
+
+        ``shard="auto"`` stripes the instance axis over ``device``'s stripes
+        (:mod:`repro_torch.engine.shard`) when there is more than one; an int
+        forces that shard count; ``None``/``1``/``"off"`` keeps the family on
+        ``device`` in one call.  All choices give the same bits."""
+        from repro_torch.engine import shard as shard_mod
+
         w = _weights(weights)
+        if shard == "auto":
+            shards = shard_mod.choose_shards(len(problems), device=device)
+        elif shard in (None, "off", ""):
+            shards = 1
+        else:
+            shards = int(shard)
+        if shards > 1:
+            return shard_mod.sharded_batched_fitness(
+                problems, w, shards=shards, engine=self.name, device=device
+            )
         arrays, bucket = stack_packed(problems, device=device)
-        constrained = any(p.has_constraints for p in problems)
-        fn, key = type(self).makespan_fn, f"{self.name}-batch"
+        return _family_fitness(
+            [(arrays, torch.device(device))], len(problems), bucket, w,
+            any(p.has_constraints for p in problems), type(self).makespan_fn, f"{self.name}-batch",
+        )
 
-        def fitness(assignments):
-            with obs.FITNESS.measure(key, bucket, w.usage_mode):
-                a = _pad_population(assignments, bucket[0], device)
-                return population_fitness_from_arrays(
-                    a, arrays, w.alpha, w.beta, w.usage_mode, constrained, makespan_fn=fn
-                )
 
-        fitness.bucket = bucket  # type: ignore[attr-defined]
-        fitness.num_instances = len(problems)  # type: ignore[attr-defined]
-        return fitness
+def _family_fitness(
+    slices: Sequence[tuple[dict, torch.device]],
+    instances: int,
+    bucket,
+    w,
+    constrained: bool,
+    makespan_fn: Callable,
+    key: str,
+) -> Callable:
+    """``fitness(assignments [B, P, Tb]) -> (objective [B, P], makespan [B, P])``
+    over a stacked family held as ``slices``: ``(arrays, device)`` pairs of
+    equal row counts in instance order, of whose rows the first
+    ``instances`` are real and the rest replicate instance 0.  One slice
+    scores the whole family in one call; more are the stripes of
+    :mod:`repro_torch.engine.shard`, each scored on its device (one launch
+    a stripe) and gathered onto the first once all are launched."""
+    padded = sum(int(arr["durations"].shape[0]) for arr, _ in slices)
+    first = slices[0][1]
+
+    def score(a: torch.Tensor, arrays: dict):
+        return population_fitness_from_arrays(
+            a, arrays, w.alpha, w.beta, w.usage_mode, constrained, makespan_fn=makespan_fn
+        )
+
+    def fitness(assignments):
+        if assignments.shape[0] != instances:
+            raise ValueError(f"expected {instances} instance rows, got {assignments.shape[0]}")
+        with obs.FITNESS.measure(key, bucket, w.usage_mode):
+            a = _pad_population(assignments, bucket[0], first)
+            if len(slices) == 1:
+                return score(a, slices[0][0])
+            from repro_torch.engine.shard import shard_population
+
+            if padded != instances:  # replicate instance 0's candidates into the pad rows
+                a = torch.cat([a, a[:1].expand(padded - instances, -1, -1)])
+            outs = [
+                score(chunk, arrays)
+                for chunk, (arrays, _) in zip(shard_population(a, [d for _, d in slices]), slices)
+            ]
+            obj = torch.cat([o.to(first) for o, _ in outs])[:instances]
+            mk = torch.cat([m.to(first) for _, m in outs])[:instances]
+        return obj, mk
+
+    fitness.bucket = bucket  # type: ignore[attr-defined]
+    fitness.num_instances = instances  # type: ignore[attr-defined]
+    fitness.shards = len(slices)  # type: ignore[attr-defined]
+    return fitness
 
 
 @register_engine("torch")
@@ -371,13 +435,15 @@ def batched_population_fitness_fn(
     *,
     engine: str = "auto",
     device="cuda",
+    shard: int | str | None = "auto",
 ) -> Callable:
     """Registry-routed fitness over one stacked instance family (needs a
-    backend with ``supports_batch``)."""
+    backend with ``supports_batch``), striped by ``shard`` as
+    ``batched_fitness`` stripes it."""
     eng = ENGINES.get(engine)
     if not eng.capabilities.supports_batch:
         raise ValueError(f"engine {eng.name!r} does not support batched families")
-    return eng.batched_fitness(problems, weights, device=device)  # type: ignore[attr-defined]
+    return eng.batched_fitness(problems, weights, device=device, shard=shard)  # type: ignore[attr-defined]
 
 
 def evaluate_population_batch(

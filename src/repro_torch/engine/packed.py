@@ -98,9 +98,15 @@ def common_bucket(problems: Sequence[ScheduleProblem]) -> Bucket:
     return tuple(max(b[d] for b in buckets) for d in range(4))  # type: ignore[return-value]
 
 
-def _to_device(arrays: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    """Contiguous torch copies in the kernel's dtypes: bool → uint8, ints →
-    int32, floats → float32."""
+def fitness_tensors(arrays: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """Contiguous torch copies of the fitness arrays (one instance's, or a
+    family's stacked on a leading axis) on ``device`` in the kernel's dtypes
+    (bool → uint8, ints → int32, floats → float32), plus ``usage_total``:
+    each instance's fixed usage sum, made here once.  Each instance's row is
+    summed alone: a CUDA reduction over ``[B, T]`` lays its threads out by
+    ``B``, and with them the order of the adds, so a row summed in a family
+    of 8 could differ in its last bit from the same row in a stripe of 2;
+    summed alone, a row has the same bits in every family and stripe."""
     out = {}
     for k, a in arrays.items():
         if a.dtype == bool:
@@ -110,6 +116,9 @@ def _to_device(arrays: Mapping[str, np.ndarray], device) -> dict[str, torch.Tens
         else:
             a = a.astype(np.float32)
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    usage = out["usage_fixed"]
+    rows = usage.reshape(-1, usage.shape[-1]).unbind(0)
+    out["usage_total"] = torch.stack([r.sum() for r in rows]).reshape(usage.shape[:-1])
     return out
 
 
@@ -158,10 +167,11 @@ class PackedProblem:
     def device_arrays(self, device="cuda") -> dict[str, torch.Tensor]:
         """Torch copies of :meth:`numpy_arrays` on ``device``, made once and
         cached: ``feasible`` as uint8, integer arrays as int32, the rest
-        float32, all contiguous."""
+        float32, all contiguous; and the fixed usage sum ``usage_total``
+        (:func:`fitness_tensors`)."""
         key = str(torch.device(device))
         if key not in self._device:
-            self._device[key] = _to_device(self.numpy_arrays(), device)
+            self._device[key] = fitness_tensors(self.numpy_arrays(), device)
         return dict(self._device[key])
 
 
@@ -325,11 +335,16 @@ class PackStats:
 
 
 class PackCache:
-    """Entry- and byte-bounded LRU of pack key → :class:`PackedProblem`.
+    """Entry- and byte-bounded LRU of pack key → :class:`PackedProblem`, or
+    → a family stacked over the instance stripes
+    (:class:`repro_torch.engine.shard.ShardedStack`).
 
     ``max_bytes`` bounds the retained host bytes (the cached device copies
     take about as much again on each device); a single pack larger than the
-    whole budget is served uncached."""
+    whole budget is served uncached.  ``device_stats`` counts, per stripe,
+    the hits, misses and resident bytes of the stacked families
+    (``{stripe: {hits, misses, resident_bytes}}``); evicting or clearing an
+    entry releases its bytes."""
 
     def __init__(self, capacity: int = 256, max_bytes: int = 1 << 30) -> None:
         if capacity < 1:
@@ -338,11 +353,12 @@ class PackCache:
             raise ValueError("pack cache max_bytes must be >= 1")
         self.capacity = capacity
         self.max_bytes = max_bytes
-        self._entries: OrderedDict[tuple, PackedProblem] = OrderedDict()
+        self._entries: OrderedDict[tuple, Any] = OrderedDict()
         self._bytes = 0
         self.stats = PackStats()
+        self.device_stats: dict[str, dict[str, int]] = {}
 
-    def get_or_build(self, key: tuple, build: Callable[[], PackedProblem]) -> PackedProblem:
+    def get_or_build(self, key: tuple, build: Callable[[], Any]) -> Any:
         packed = self._entries.get(key)
         if packed is not None:
             self._entries.move_to_end(key)
@@ -358,10 +374,19 @@ class PackCache:
         while len(self._entries) > self.capacity or self._bytes > self.max_bytes:
             _, evicted = self._entries.popitem(last=False)
             self._bytes -= evicted.nbytes
+            self._release_device_bytes(evicted)
             self.stats.evictions += 1
         return packed
 
+    def _release_device_bytes(self, evicted: Any) -> None:
+        for stripe, nbytes in getattr(evicted, "device_nbytes", {}).items():
+            d = self.device_stats.get(stripe)
+            if d is not None:
+                d["resident_bytes"] = max(d["resident_bytes"] - nbytes, 0)
+
     def clear(self) -> None:
+        for entry in self._entries.values():
+            self._release_device_bytes(entry)
         self._entries.clear()
         self._bytes = 0
 
@@ -382,14 +407,21 @@ def pack_cache() -> PackCache:
 
 
 def _pack_cache_collector() -> dict[str, Any]:
-    """The pack LRU's counters for :data:`repro_torch.obs.METRICS`."""
-    return {
+    """The pack LRU's counters for :data:`repro_torch.obs.METRICS`, with one
+    ``device.<stripe>.<field>`` entry per stripe field once a family has
+    been stacked over stripes (none before, so an unsharded run's snapshot
+    keeps its keys)."""
+    out: dict[str, Any] = {
         "hits": _PACK_CACHE.stats.hits,
         "misses": _PACK_CACHE.stats.misses,
         "evictions": _PACK_CACHE.stats.evictions,
         "entries": len(_PACK_CACHE),
         "retained_bytes": _PACK_CACHE.retained_bytes,
     }
+    for stripe, stats in sorted(_PACK_CACHE.device_stats.items()):
+        for field, value in stats.items():
+            out[f"device.{stripe}.{field}"] = value
+    return out
 
 
 obs.METRICS.register_collector("pack_cache", _pack_cache_collector)
@@ -432,8 +464,9 @@ def stack_packed(
     device="cuda",
 ) -> tuple[dict[str, torch.Tensor], Bucket]:
     """Stack padded instances along a leading instance axis: one shared
-    bucket, one transfer to ``device`` for the whole family."""
+    bucket, one transfer to ``device`` for the whole family
+    (:func:`fitness_tensors`)."""
     bucket = common_bucket(problems) if bucket is None else bucket
     packed = [pack(p, bucket) for p in problems]
     stacked = {k: np.stack([pp.numpy_arrays()[k] for pp in packed]) for k in FITNESS_ARRAY_KEYS}
-    return _to_device(stacked, device), bucket
+    return fitness_tensors(stacked, device), bucket

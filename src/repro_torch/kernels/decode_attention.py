@@ -159,18 +159,20 @@ def decode_attention_cuda(
         )
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap)
-    splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
+    with torch.cuda.device(q.device):  # the library queries the current card
+        splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
     check_alignment(q, k_cache, v_cache)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
     lib = _library()
-    err = lib.decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        scratch.data_ptr(), B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16),
-        0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):  # the library launches on the current card
+        err = lib.decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            scratch.data_ptr(), B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16),
+            0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, err, "decode_attention launch")
     decode_attention_cuda.launches += 1
     return o

@@ -174,11 +174,12 @@ def flash_attention_cuda(
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    err = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, Sq, Skv, D,
-        int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else window,
-        0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):  # the library launches on the current card
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, Sq, Skv, D,
+            int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else window,
+            0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, err, "flash_attention launch")
     flash_attention_cuda.launches += 1
     return o

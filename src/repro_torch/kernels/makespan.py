@@ -265,7 +265,7 @@ def population_makespan_cuda(
     if max(T * N, N * N, N * 1024, T * maxp) >= 2**31:
         raise _build.KernelInputError(f"T={T}, N={N}, MAXP={maxp}: an instance's tables exceed the kernel's 32-bit indices")
 
-    makespan, violations = _launch(a, arr, _plan(B, P, T, N, C, device.index))
+    makespan, violations = _on_card(a, arr)
     population_makespan_cuda.launches += int(B * P > 0)
     if not batched:
         return makespan[0], violations[0]
@@ -273,6 +273,16 @@ def population_makespan_cuda(
 
 
 population_makespan_cuda.launches = 0
+
+
+def _on_card(a: torch.Tensor, arr: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plan and launch on ``a``'s card.  The library queries and launches on
+    the current device, so ``a``'s is made current for both: a stripe of a
+    family on a second card launches there and not on the first."""
+    B, P, T = a.shape
+    N, C = arr["init_free"].shape[-2:]
+    with torch.cuda.device(a.device):
+        return _launch(a, arr, _plan(B, P, T, N, C, a.device.index))
 
 
 @functools.lru_cache(maxsize=64)

@@ -201,11 +201,12 @@ def ssd_scan_cuda(
     chunks = -(-L // KERNEL_CHUNK) if bf16 else 0
     states = torch.empty(Bsz, chunks, H, N, P, dtype=torch.float32, device=x.device)
     atot = torch.empty(Bsz, chunks, H, dtype=torch.float32, device=x.device)
-    err = lib.ssd_scan(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
-        y.data_ptr(), state.data_ptr(), states.data_ptr(), atot.data_ptr(), Bsz, L, H, G, P, N,
-        int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the library launches on the current card
+        err = lib.ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
+            y.data_ptr(), state.data_ptr(), states.data_ptr(), atot.data_ptr(), Bsz, L, H, G, P, N,
+            int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(lib, err, "ssd_scan launch")
     ssd_scan_cuda.launches += 1
     return y, state

@@ -45,6 +45,7 @@ from repro_torch.core.api import (
 from repro_torch.core.evaluator import Schedule
 from repro_torch.core.workload_model import ScheduleProblem, canonical_hash
 from repro_torch.engine.packed import bucket_of
+from repro_torch.engine.shard import choose_shards
 from repro_torch.service.cache import SolveCache
 from repro_torch.service.traces import Submission
 
@@ -208,9 +209,9 @@ class AdmissionBatcher:
             )
             batch_fn = self.registry.get(first.technique).batch_fn
             assert batch_fn is not None  # _group_key guarantees it
-            # one device, one stripe: the multi-device instance axis is
-            # ROADMAP Queue A item 6 (engine/shard.py), not ported yet
-            shards = 1
+            # how the sweep will stripe this group over the local devices
+            # (repro_torch.engine.shard): 1 on a one-device host
+            shards = choose_shards(len(members), device=self.device)
             try:
                 # call the batch fn directly (not solve_batch) so a runtime
                 # decline (None — e.g. a per-instance-only backend option)
@@ -238,6 +239,9 @@ class AdmissionBatcher:
             stats.solver_calls += len(members)
             stats.batched_groups += 1
             stats.batched_submissions += len(members)
+            if shards > 1:
+                stats.sharded_groups += 1
+                obs.METRICS.counter("service.admission.sharded_groups").inc()
             for prep, rep in zip(members, reports):
                 prep.schedule = rep.schedule
                 prep.batched = True

@@ -408,9 +408,11 @@ def generate_trace(
     pass ``"horizon"`` to stretch them over the (much longer) execution
     backlog so failures land on *running* work, not just queued work.
 
-    ``topology`` (a generated tiered continuum in the reference) is not
-    ported yet: passing it raises :class:`NotImplementedError` (ROADMAP Queue A
-    item 7).
+    ``topology`` draws the tenants' continuum from a generated tiered
+    topology (:mod:`repro_torch.topology`): a preset name, spec dict, or
+    :class:`~repro_torch.topology.TopologySpec`.  Note the ``"tpu"`` family
+    requires F9 nodes, which tiered topologies do not provide — pick
+    ``families`` accordingly.
 
     ``cycling`` turns a seeded fraction of submissions into recurring /
     converging streams: ``{"fraction": 0.25, **cycle_spec_json}`` — the
@@ -419,12 +421,15 @@ def generate_trace(
     {"prob": 0.5}, "period": 5.0}``).  Selection draws from its own
     derived Generator (``seed + 3``), so traces without ``cycling`` are
     byte-identical to pre-cycling output."""
-    if topology is not None:
-        raise NotImplementedError(
-            "generated continua (generate_trace(topology=...)) are not ported "
-            "yet: ROADMAP Queue A item 7"
-        )
     rng = np.random.default_rng(seed)
+    topology_spec = None
+    if topology is not None:
+        if system is not None:
+            raise ValueError("pass either system= or topology=, not both")
+        from repro_torch.topology import cached_system, resolve_spec
+
+        topology_spec = resolve_spec(topology)
+        system = cached_system(topology_spec)
     system = system if system is not None else continuum_system()
     times = arrival_times(
         num_submissions, rate=rate, seed=seed + 1,
@@ -492,6 +497,11 @@ def generate_trace(
         meta["cycling"] = {
             k: list(v) if isinstance(v, tuple) else v
             for k, v in dict(cycling).items()
+        }
+    if topology_spec is not None:
+        meta["topology"] = {
+            "name": topology_spec.name,
+            "fingerprint": topology_spec.fingerprint(),
         }
     return Trace(
         name=name,

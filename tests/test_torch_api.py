@@ -295,12 +295,15 @@ def test_device_reaches_engine_aware_techniques_only():
 
 
 def test_topology_section_is_refused():
-    """A scenario's inline generated continuum waits for Queue A item 7 (its
-    ``cycling`` section is ported: tests/test_torch_cycling.py)."""
+    """A scenario file names one system source: a ``topology`` section beside
+    ``nodes`` is refused, as in the reference; alone, it generates the
+    continuum (tests/test_torch_topology.py holds that to the reference)."""
     obj = _scenario(SCENARIOS[0]).to_json()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        api.scenario_from_json({k: v for k, v in obj.items() if k not in ("nodes", "dtr_matrix")}
-                               | {"topology": "tiny"})
+    with pytest.raises(ValueError, match="pick one system source"):
+        api.scenario_from_json(obj | {"topology": "tiny"})
+    alone = api.scenario_from_json({k: v for k, v in obj.items() if k not in ("nodes", "dtr_matrix")}
+                                   | {"topology": "tiny"})
+    assert alone.system.num_nodes == 16
 
 
 def test_fallback_chain_survives_a_failing_step(ref):

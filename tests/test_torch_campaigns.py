@@ -41,6 +41,18 @@ from repro_torch.engine import backends
 from repro_torch.kernels._build import KernelInputError
 from repro_torch.kernels.makespan import makespan_plan, population_makespan_cuda
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These loops run thousands of small ops; with the several pytest
+    workers a test run starts side by side, each op's intra-op thread team
+    waits on the others' and the file takes ten times as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLE = str(REPO / "examples" / "campaign_table9.json")
 BUILTINS = ["smoke", "table9", "service", "chaos", "engine", "cycling"]
@@ -200,12 +212,16 @@ def test_malformed_specs_fail_as_the_reference(ref, i):
 
 
 def test_topology_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        builtin_campaign("topology")
+    """A ``system: "topology"`` cell without its ``topology`` coordinate is
+    refused, as in the reference; with one it runs on the generated
+    continuum (the lane itself: tests/test_torch_topology.py)."""
+    assert builtin_campaign("topology").defaults["system"] == "topology"
     c = Campaign(name="topo", axes=({"name": "technique", "values": ["heft"]},),
-                 defaults={"system": "topology", "topology": "tiny", "family": "layered", "size": 8})
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+                 defaults={"system": "topology", "family": "layered", "size": 8})
+    with pytest.raises(ValueError, match="'topology' coordinate"):
         run_campaign(c, device="cpu")
+    rs = run_campaign(c.replace(defaults=c.defaults | {"topology": "tiny"}), device="cpu")
+    assert [r["status"] for r in rs] == ["ok"]
 
 
 # ---------------------------------------------------------------------------

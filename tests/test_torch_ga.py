@@ -12,6 +12,18 @@ from repro_torch.core import ga, ga_sweep, system_model as sm, verify_schedule, 
 from repro_torch.core.metaheuristics import ArrayDraws, TorchDraws, _ga_loop, _mask_logits
 from repro_torch.engine import population_fitness_fn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These loops run thousands of small ops; with the several pytest
+    workers a test run starts side by side, each op's intra-op thread team
+    waits on the others' and the file takes ten times as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPECS = [
     {"kind": "mri", "ga_seed": 0},
     {"kind": "layered", "tasks": 12, "nodes": 5, "seed": 2, "ga_seed": 3},

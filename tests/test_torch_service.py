@@ -45,6 +45,18 @@ from repro_torch.service import (
 )
 from repro_torch.service.traces import GA_OPTIONS, NodeEvent
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These loops run thousands of small ops; with the several pytest
+    workers a test run starts side by side, each op's intra-op thread team
+    waits on the others' and the file takes ten times as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 
 #: the reference's chaos lane (``campaigns/builtin.py::chaos_campaign``)
@@ -185,8 +197,12 @@ def test_the_parity_cases_reach_every_admission_path(ref):
 
 
 def test_topology_traces_are_refused():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        generate_trace(4, topology="tiny")
+    """A trace takes its continuum from ``system`` or ``topology``, not both,
+    as in the reference (topology traces against the reference:
+    tests/test_torch_topology.py)."""
+    with pytest.raises(ValueError, match="either system= or topology="):
+        generate_trace(4, topology="tiny", system=continuum_system())
+    assert generate_trace(4, topology="tiny").meta["topology"]["name"] == "tiny"
 
 
 # ---------------------------------------------------------------------------

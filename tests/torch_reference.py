@@ -313,19 +313,21 @@ def name_of(spec: dict) -> str:
 
 
 def run(job: str, params: dict, inputs: dict[str, np.ndarray] | None = None,
-        timeout: float = 300.0) -> dict[str, np.ndarray]:
+        timeout: float = 300.0, devices: int = 1) -> dict[str, np.ndarray]:
     """Run ``job`` in a child process on the reference package and return
-    its arrays.  Raises with the child's output if it fails."""
+    its arrays.  Raises with the child's output if it fails.  ``devices``
+    is the number of virtual CPU devices the child's JAX sees (the
+    reference's instance mesh)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
-    # one CPU device, whatever an earlier test in this worker left in
-    # os.environ (importing repro.launch.dryrun sets 512 devices)
+    # ``devices`` CPU devices, whatever an earlier test in this worker left
+    # in os.environ (importing repro.launch.dryrun sets 512 devices)
     env["JAX_PLATFORMS"] = "cpu"
     # and one thread: a test run may start several pytest workers side by
     # side, and oversubscribed thread pools slow every process
     env["XLA_FLAGS"] = (
-        "--xla_force_host_platform_device_count=1 --xla_cpu_multi_thread_eigen=false "
-        "intra_op_parallelism_threads=1"
+        f"--xla_force_host_platform_device_count={int(devices)} "
+        "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"
     )
     env.pop("REPRO_SHARD_DEVICES", None)
     with tempfile.TemporaryDirectory() as tmp:
@@ -947,8 +949,150 @@ def job_cli(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_shard(params: dict, inputs: dict) -> dict:
+    """The reference's instance axis over its virtual devices: the device
+    count, ``choose_shards`` on each batch, ``sharded_batched_fitness`` at
+    each shard count (and the unsharded core) in each usage mode on the
+    given candidates, and ``ga_sweep`` at each sweep shard count with the
+    draws of each instance.
+
+    On JAX 0.9 the reference's sharded ``ga_sweep`` does not trace: its
+    ``shard_map`` checks replication, and the ``lax.scan`` inside the GA
+    carries a value whose type gains the mesh axis.  Here ``shard_map`` gets
+    ``check_rep=False``; that check is static and changes no value."""
+    import functools
+
+    import jax
+    import jax.experimental.shard_map as shard_map_mod
+    import jax.numpy as jnp
+
+    shard_map_mod.shard_map = functools.partial(shard_map_mod.shard_map, check_rep=False)
+
+    from repro.core.evaluator import ObjectiveWeights
+    from repro.core.metaheuristics import _safe_feasible, ga_sweep
+    from repro.engine import ENGINES, choose_shards, local_device_count, sharded_batched_fitness
+    from repro.engine.packed import common_bucket
+
+    sm, wm = _modules()
+    problems = [build(spec, sm, wm) for spec in params["specs"]]
+    out: dict[str, np.ndarray] = {"devices": np.array(local_device_count())}
+    out["choose"] = np.array([choose_shards(b) for b in params["batches"]])
+    A = inputs["assignments"]
+    for mode in ("fixed", "weighted"):
+        w = ObjectiveWeights(usage_mode=mode)
+        obj, mk = ENGINES.get("jax").batched_fitness(problems, w, shard=None)(A)
+        out[f"{mode}/off/obj"], out[f"{mode}/off/mk"] = np.asarray(obj), np.asarray(mk)
+        for d in params["shards"]:
+            fitness = sharded_batched_fitness(problems, w, shards=d)
+            obj, mk = fitness(A)
+            out[f"{mode}/{d}/obj"], out[f"{mode}/{d}/mk"] = np.asarray(obj), np.asarray(mk)
+            out[f"{mode}/{d}/shards"] = np.array(fitness.shards)
+    opts = params["ga"]
+    seed = params["sweep_seed"]
+    for d in params["sweep_shards"]:
+        for b, res in enumerate(ga_sweep(problems, seed=seed, shard=d, **opts)):
+            out[f"sweep/{d}/{b}/best"] = np.asarray(res.schedule.assignment)
+            out[f"sweep/{d}/{b}/history"] = np.asarray(res.history)
+    Tb, Nb = common_bucket(problems)[:2]
+    keys = jax.random.split(jax.random.PRNGKey(seed), len(problems))
+    for b, prob in enumerate(problems):
+        logits = np.full((Tb, Nb), -1e30, dtype=np.float32)
+        logits[: prob.num_tasks, : prob.num_nodes][_safe_feasible(prob)] = 0.0
+        logits[prob.num_tasks :, 0] = 0.0
+        draws = _ga_draws(keys[b], jnp.asarray(logits), opts["pop_size"], opts["generations"],
+                          opts["tournament"], opts["mutation_rate"])
+        for key, v in draws.items():
+            out[f"draws/{b}/{key}"] = v
+    return out
+
+
+def job_topology(params: dict, inputs: dict) -> dict:
+    """The reference's topology layer: each preset and seed's spec JSON,
+    fingerprint, node JSON and dtr; observations, the closed-form factors
+    and the Adam fit on each calibration case; a calibration report; an
+    inline-topology scenario's JSON and run summary; a topology trace's
+    text; the topology lane's campaign outputs (:func:`campaign_outputs`)
+    with the real registry or the stand-in; and the CLI's outputs."""
+    import tempfile
+
+    from repro.campaigns import campaign_from_json, run_campaign
+    from repro.core import api, heuristics
+    from repro.core.system_model import system_to_json
+    from repro.engine.packed import pack
+    from repro.service import generate_trace
+    from repro.topology import (
+        PRESETS,
+        calibrate,
+        calibration_report,
+        generate,
+        least_squares_factors,
+        perturbed_truth,
+        synthesize_observations,
+        tiered_spec,
+    )
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for preset in params["presets"]:
+        for seed in params["seeds"]:
+            spec = PRESETS[preset]().replace(seed=seed)
+            system = generate(spec)
+            tag = f"gen/{preset}/{seed}"
+            out[f"{tag}/spec"] = np.array(json.dumps(spec.to_json(), sort_keys=True))
+            out[f"{tag}/fingerprint"] = np.array(spec.fingerprint())
+            obj = system_to_json(system)
+            out[f"{tag}/nodes"] = np.array(json.dumps({k: v for k, v in obj.items() if k != "dtr_matrix"},
+                                                      sort_keys=True))
+            out[f"{tag}/dtr"] = system.dtr
+    for i, case in enumerate(params["calibration"]):
+        system = generate(tiered_spec(case["scale"], seed=case["seed"]))
+        wf = wm.random_layered_workflow(case["tasks"], name="probe", seed=case["tasks"], max_cores=4,
+                                        feature_pool=("F1",))
+        packed = pack(wm.build_problem(system, wm.Workload((wf,))), pad=False)
+        _, f_true, g_true = perturbed_truth(system, seed=case["perturb_seed"],
+                                            link_range=tuple(case["link_range"]))
+        obs = synthesize_observations(packed, speed_factors=f_true, link_factors=g_true,
+                                      samples_per_node=case["samples"],
+                                      transfer_samples=case["transfer_samples"], noise=case["noise"],
+                                      seed=case["perturb_seed"] + 1)
+        for k in ("task", "node", "duration", "src", "dst", "data", "xfer_duration"):
+            out[f"cal/{i}/obs/{k}"] = getattr(obs, k)
+        out[f"cal/{i}/f_true"], out[f"cal/{i}/g_true"] = f_true, g_true
+        f, g = least_squares_factors(packed, obs)
+        out[f"cal/{i}/lsq/f"], out[f"cal/{i}/lsq/g"] = f, g
+        res = calibrate(packed, obs, steps=case["steps"])
+        out[f"cal/{i}/fit/f"], out[f"cal/{i}/fit/g"] = res.speed_factors, res.link_factors
+        out[f"cal/{i}/fit/base"] = res.baseline_speed_factors
+        out[f"cal/{i}/fit/loss"] = np.array(res.loss)
+        out[f"cal/{i}/fit/coverage"] = res.coverage
+    rep_case = params["report"]
+    system = generate(tiered_spec(1, seed=rep_case["seed"]))
+    wf = wm.random_layered_workflow(rep_case["tasks"], name="probe", seed=rep_case["tasks"], max_cores=4,
+                                    feature_pool=("F1",))
+    report = calibration_report(system, wm.Workload((wf,)), perturb_seed=7,
+                                samples_per_node=rep_case["samples"], noise=0.05, steps=rep_case["steps"])
+    out["report"] = np.array(json.dumps(report, sort_keys=True))
+    sc = api.scenario_from_json(params["scenario"])
+    out["scenario/json"] = np.array(json.dumps(sc.to_json(), indent=2))
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = api.Orchestrator(sc, out_dir=tmp).run().summary()
+    summary.pop("artifacts", None)
+    out["scenario/summary"] = np.array(json.dumps(summary, sort_keys=True))
+    for name, kw in params["traces"].items():
+        out[f"trace/{name}"] = np.array(json.dumps(generate_trace(**kw).to_json(), indent=2))
+    for case in params["runs"]:
+        reg = standin_registry(api, heuristics) if case.get("standin") else None
+        rs = run_campaign(campaign_from_json(case["campaign"]), registry=reg)
+        for k, v in campaign_outputs(rs).items():
+            out[f"run/{case['name']}/{k}"] = np.array(v)
+    for k, v in job_cli({"argvs": params["argvs"]}, inputs).items():
+        out[f"cli/{k}"] = v
+    return out
+
+
 JOBS = {
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
+    "shard": job_shard, "topology": job_topology,
     "service": job_service, "cycling": job_cycling,
     "scenario": job_scenario,
     "model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas,
