@@ -32,7 +32,9 @@ result line:
    256 with its window and softcap, decode at the serving run's lockstep
    length, with mixed lengths and at one slot of 2048 keys; zamba2-7b's
    shared attention, 32 heads of width 112, prefill at the prompt lengths
-   and decode at the lockstep and mixed lengths), at the reduced configs'
+   and decode at the lockstep and mixed lengths; qwen3-moe-30b-a3b's 32
+   heads over 4 KV heads of width 128, prefill at the longest prompt and
+   decode at the lockstep length), at the reduced configs'
    head width 16 and, at small shapes, at every width 16-256 in steps of
    16, in bf16 and f32, each kernel's dynamic shared
    memory printed, timed (qwen's and zamba2's longest prefill and their
@@ -51,7 +53,9 @@ result line:
    mamba2-780m's prefill shapes (the engine's prompt lengths, one length a
    multiple of the chunk and one under it, and cases with 4 groups and a
    batch of 4, per-head A and dt drawn at random) and at zamba2-7b's (112
-   heads, N 64) at L 891 and 64, in bf16 and f32, timed
+   heads, N 64) at L 891 and 64, and at the reduced configs' shape (H 8,
+   P 16, N 16, chunk 16, L 9 and 16, the chunk-serial kernel) with a head
+   width of 48 at chunk 64, in bf16 and f32, timed
    beside its plain version (no single PyTorch call computes it); the bf16
    kernels' registers and spills, their HGMMA count, and the device kernels
    one wrapper call runs, each one's time;
@@ -64,12 +68,16 @@ result line:
     invocation through the flash kernel in prefill and the decode kernel in
     decode; the card-against-CPU cut is 2 layers with the shared block
     after the second;
-11. the serving CLI (``repro_torch.launch.serve``) with no ``--device``:
-    reduced qwen2.5-3b, head width 16, through both attention kernels;
+11. the serving CLI (``repro_torch.launch.serve``) with no ``--device``
+    for the reduced qwen2.5-3b, qwen3-moe-30b-a3b and mixtral-8x7b (head
+    width 16, mixtral's window 8) through both attention kernels, and the
+    reduced mamba2-780m and zamba2-7b (chunk 16, N 16, P 16) through the SSD
+    kernel's chunk-serial design;
 12. PSO, SA and ACO at Table IX 500x500 with the reference's defaults (PSO
     64 particles x 60 iterations, SA 32 chains x 200 steps, ACO 48 ants x
     60 iterations): each once through the kernel and once through the
-    plain version on the card from the same seed, which must agree bit for
+    plain version on the card from the same seed (SA's comparison at 50
+    steps, both sides), which must agree bit for
     bit in the best assignment and the history; exactly 61 / 201 / 60
     kernel launches; a valid schedule whose f32 oracle re-score equals the
     kernel's makespan; a ``torch.profiler`` pass over a warm run of each;
@@ -133,7 +141,19 @@ result line:
     topology lane with the twin calibration on ``tiny`` and ``small`` into a
     temporary directory (twin error after < before); ``python -m
     repro_torch topology generate large`` and ``topology calibrate small``
-    with no ``--device``; and no ``BENCH_*.json`` of the repository changed.
+    with no ``--device``; and no ``BENCH_*.json`` of the repository changed;
+17. the MoE family, every earlier phase's model freed first:
+    qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts top-8,
+    random bf16 weights and an f32 router from a seed) served as in phase 7
+    (384 flash launches, 48 decode launches a tick, request 0 alone == the
+    manual loop), a 2-layer f32 cut held against the CPU, the peak memory,
+    the decode tick beside its bound, the profile and each MoE stage of one
+    layer timed; mixtral-8x7b at full width cut to 8 of its 32 layers,
+    served the same way (64 flash launches);
+18. the ML-job continuum: ``schedule_jobs`` with the GA at its defaults on
+    the makespan kernel (61 launches, a valid schedule, the kernel's
+    makespan == the f32 oracle's), HEFT and ``auto`` beside it, and the job
+    scenario through the ``Orchestrator`` with the GA.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -151,6 +171,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -395,8 +416,11 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     """Phase 6: each attention kernel against its plain version on the card
     at the serving paths' shapes (qwen2.5-3b's D 128, gemma2-2b's D 256,
     zamba2-7b's D 112) and at the reduced configs' D 16, timed beside the
-    plain version and ``scaled_dot_product_attention``; returns the kernels'
-    records, with zamba2's times under ``zamba2_*`` keys.
+    plain version and ``scaled_dot_product_attention``, and at the MoE
+    serving paths' (qwen3-moe-30b-a3b's H 32, Hkv 4, D 128; mixtral-8x7b's H
+    32, Hkv 8, D 128, window 4096); returns the kernels' records, with
+    zamba2's times under ``zamba2_*`` keys and qwen3-moe's under
+    ``qwen3moe_*``.
 
     Each output is held against the plain version run on the same inputs in
     f32, the kernel's own arithmetic, unrounded: within atol = rtol = 2e-5
@@ -420,6 +444,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     tol = {torch.bfloat16: (2e-5, 2**-8), torch.float32: (2e-5, 2e-5)}  # (atol, rtol)
     records: dict[str, dict] = {}
     zamba: dict[str, dict] = {}  # the zamba2 shapes' times, added to the records at the end
+    moe: dict[str, dict] = {}  # the qwen3-moe shapes' times, likewise
     max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
 
     def normal(shape, dtype):
@@ -445,11 +470,17 @@ def attention_phase(prompt_lens: list[int]) -> dict:
         ("gemma2 S=5000 window 4096 softcap 50", 1, 8, 4, 5000, 5000, 256,
          {"window": 4096, "softcap": 50.0}),
     ]
-    # zamba2-7b's shared attention (H 32, Hkv 32, D 112) at the engine's
-    # prompt lengths, only the longest timed
-    zamba_flash = [(f"zamba2 prefill S={n}", 1, 32, 32, n, n, 112, {}) for n in prompt_lens]
+    # at the engine's prompt lengths, only the longest timed: zamba2-7b's
+    # shared attention (H 32, Hkv 32, D 112), qwen3-moe-30b-a3b's (H 32, Hkv
+    # 4, D 128) and mixtral-8x7b's (H 32, Hkv 8, D 128, window 4096)
+    longest_flash = [(f"zamba2 prefill S={n}", 1, 32, 32, n, n, 112, {}) for n in prompt_lens]
+    longest_flash += [(f"qwen3-moe prefill S={n}", 1, 32, 4, n, n, 128, {}) for n in prompt_lens]
+    longest_flash += [(f"mixtral prefill S={n}", 1, 32, 8, n, n, 128, {"window": 4096}) for n in prompt_lens]
     main_flash = f"qwen prefill S={max(prompt_lens)}"
     zamba_main_flash = f"zamba2 prefill S={max(prompt_lens)}"
+    moe_main_flash = f"qwen3-moe prefill S={max(prompt_lens)}"
+    untimed_flash = {case[0] for case in longest_flash} - {
+        f"{arch} prefill S={max(prompt_lens)}" for arch in ("zamba2", "qwen3-moe", "mixtral")}
     flash_lib, decode_lib = flash_mod._library(), decode_mod._library()
     check(all(bool(flash_lib.flash_attention_supports(D)) == kernel_takes_head_dim(D) for D in range(300)),
           "the flash library and the wrappers take the same head widths")
@@ -460,12 +491,12 @@ def attention_phase(prompt_lens: list[int]) -> dict:
         + [f"decode {t} G={G} D={D} {decode_lib.decode_attention_smem(G, D, int(t == 'bf16'))} B"
            for t in ("bf16", "f32") for G, D in ((8, 128), (2, 256), (1, 112), (4, 16))]), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
-        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases + zamba_flash:
+        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases + longest_flash:
             q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
             err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
                                  flash_attention_ref(q, k, v, **kw),
                                  flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
-            if label.startswith("zamba2") and label != zamba_main_flash:
+            if label in untimed_flash:
                 print(f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain {err32:.3g})",
                       flush=True)
                 continue
@@ -491,6 +522,10 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 records["flash_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
                                               "bound_ms": bound_ms, "bound_by": bound_by,
                                               "library_ms": library_ms}
+            if label == moe_main_flash and dtype == torch.bfloat16:
+                moe["flash_attention"] = {"qwen3moe_ms": ms, "qwen3moe_plain_ms": plain_ms,
+                                          "qwen3moe_bound_ms": bound_ms, "qwen3moe_bound_by": bound_by,
+                                          "qwen3moe_library_ms": library_ms}
             if label == zamba_main_flash and dtype == torch.bfloat16:
                 zamba["flash_attention"] = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms,
                                             "zamba2_bound_ms": bound_ms, "zamba2_bound_by": bound_by,
@@ -521,12 +556,17 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     lockstep = max(prompt_lens) + 1
     main_decode = "qwen decode 4 slots lockstep, cache 2048"
     zamba_main_decode = "zamba2 decode 4 slots lockstep, cache 2048"
+    moe_main_decode = "qwen3-moe decode 4 slots lockstep, cache 2048"
     decode_cases = [
         (main_decode, 4, 16, 2, 2048, 128, [lockstep] * 4, None),
         ("qwen decode 4 slots mixed, cache 2048", 4, 16, 2, 2048, 128, [1, 517, 1024, 2048], None),
         ("qwen decode 1 slot, 2048 keys", 1, 16, 2, 2048, 128, [2048], None),
         ("gemma2 decode, cache 4096, softcap 50", 4, 8, 4, 4096, 256, [4096, 1, 2000, 3000], 50.0),
         (zamba_main_decode, 4, 32, 32, 2048, 112, [lockstep] * 4, None),
+        (moe_main_decode, 4, 32, 4, 2048, 128, [lockstep] * 4, None),
+        # mixtral's window of 4096 spans the whole 2048-position cache, so
+        # its decode reads every cached key
+        ("mixtral decode 4 slots lockstep, cache 2048", 4, 32, 8, 2048, 128, [lockstep] * 4, None),
         ("zamba2 decode 4 slots mixed, cache 2048", 4, 32, 32, 2048, 112, [1, 517, 1024, 2048], None),
         ("zamba2 decode 1 slot, 2048 keys", 1, 32, 32, 2048, 112, [2048], None),
     ]
@@ -557,6 +597,10 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 records["decode_attention"] = {"ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms,
                                                "bound_ms": bound_ms, "bound_by": bound_by,
                                                "library_ms": library_ms}
+            if label == moe_main_decode and dtype == torch.bfloat16:
+                moe["decode_attention"] = {"qwen3moe_ms": ms, "qwen3moe_plain_ms": plain_ms,
+                                           "qwen3moe_bound_ms": bound_ms, "qwen3moe_bound_by": bound_by,
+                                           "qwen3moe_library_ms": library_ms}
             if label == zamba_main_decode and dtype == torch.bfloat16:
                 zamba["decode_attention"] = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms,
                                              "zamba2_bound_ms": bound_ms, "zamba2_bound_by": bound_by,
@@ -594,7 +638,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     print("flash and decode == plain at every head width 16-256 (step 16), bf16 and f32, GQA 2, "
           "window 50 and softcap 30 (flash), lengths 0/150/300 and softcap 30 (decode)", flush=True)
     for name in records:
-        records[name].update(zamba[name], max_abs_err=max_err[name])
+        records[name].update(zamba[name], **moe[name], max_abs_err=max_err[name])
     return records
 
 
@@ -617,16 +661,32 @@ def kernel_class(name: str) -> str:
         return "ssd_scan (ours)"
     if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
+    if any(t in low for t in ("sort", "radix", "searchsorted", "index", "scatter", "gather")):
+        return "sort, search, scatter and gather (PyTorch)"
     return "other PyTorch kernels"
 
 
-def serve_phase(arch: str, kernels: dict, cut: dict | None = None) -> dict:
-    """Phases 7, 9 and 10: ``arch`` at full width served by the engine on
-    the card.  ``kernels`` maps each kernel of the path to its wrapper, what
-    launches it (every ``"prefill"`` or every decode ``"tick"``) and how
-    many times each of those does.  ``cut`` replaces config fields for the
-    card-against-CPU check (default: 2 layers).  Returns the launches of
-    each kernel in the main run."""
+class Served(NamedTuple):
+    """What :func:`serve_phase` measured: each kernel's launches in the
+    serving run, the run's readings, and the served model's parameters."""
+
+    launches: dict[str, int]
+    readings: dict
+    params: torch.nn.Module
+
+
+def serve_phase(arch: str, kernels: dict, cut: dict | None, *, layers: int | None = None,
+                cut_prompts: tuple[int, ...] = (128, 1000), cut_ticks: int = 4,
+                profile_tokens: int | None = None) -> Served:
+    """Phases 7, 9, 10 and 17: ``arch`` at full width served by the engine
+    on the card.  ``kernels`` maps each kernel of the path to its wrapper,
+    what launches it (every ``"prefill"`` or every decode ``"tick"``) and
+    how many times each of those does.  ``layers`` cuts the depth of the
+    served model.  ``cut`` replaces config fields for the card-against-CPU
+    check, run on ``cut_prompts`` for the prefill and ``cut_ticks`` decode
+    steps; ``None`` leaves the check out.  The profile covers one wave of 4
+    requests, each to ``profile_tokens`` new tokens (default: the run's
+    32)."""
     import dataclasses
 
     from repro_torch.models.registry import get_model
@@ -635,14 +695,19 @@ def serve_phase(arch: str, kernels: dict, cut: dict | None = None) -> dict:
 
     api = get_model(arch)
     cfg = api.config
+    if layers is not None:
+        print(f"serve: {arch} cut to {layers} of its {cfg.num_layers} layers at full width", flush=True)
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     ecfg = EngineConfig(max_slots=SERVE["slots"], max_len=SERVE["max_len"])
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     check(n_params == cfg.param_count(), f"{n_params} parameters, the config counts {cfg.param_count()}")
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     print(f"serve: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model}, {n_params} parameters "
-          f"({n_params * 2 / 1e9:.2f} GB bf16) made on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"({n_bytes / 1e9:.2f} GB as held, f32 where the model keeps f32) made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     prompts = serve_prompts(cfg.vocab)
     lens = np.array([len(p) for p in prompts])
@@ -685,12 +750,15 @@ def serve_phase(arch: str, kernels: dict, cut: dict | None = None) -> dict:
           f"decode {st.decode_ticks} ticks, {st.decode_tokens} tokens in {st.decode_s:.3f} s "
           f"({st.decode_tokens / st.decode_s:.1f} tokens/s, {1e3 * st.decode_s / st.decode_ticks:.2f} ms/tick); "
           f"launches {launches}", flush=True)
-    print(json.dumps({"arch": arch, "serve_ttft_s": [round(t, 4) for t in ttft],
-                      "output_tokens_per_s": out_tokens / wall,
-                      "decode_tick_tokens_per_s": st.decode_tokens / st.decode_s,
-                      "decode_ms_per_tick": 1e3 * st.decode_s / st.decode_ticks,
-                      "prefill_s": st.prefill_s,
-                      "wall_s": wall}), flush=True)
+    readings = {"arch": arch, "serve_ttft_s": [round(t, 4) for t in ttft],
+                "output_tokens_per_s": out_tokens / wall,
+                "decode_tick_tokens_per_s": st.decode_tokens / st.decode_s,
+                "decode_ms_per_tick": 1e3 * st.decode_s / st.decode_ticks,
+                "prefill_s": st.prefill_s,
+                "wall_s": wall,
+                "decode_ticks": st.decode_ticks,
+                "lockstep_len": int(lens.max()) + 1}
+    print(json.dumps(readings), flush=True)
 
     # request 0 alone: one slot, against a manual greedy prefill + decode loop
     alone = ServeEngine(api, cfg, params, EngineConfig(max_slots=1, max_len=SERVE["max_len"]))
@@ -731,45 +799,53 @@ def serve_phase(arch: str, kernels: dict, cut: dict | None = None) -> dict:
           f"{bool((l4 == l4[:1]).all())}); smallest gap between the alone run's two best logits "
           f"{min(gaps):.4g}", flush=True)
 
-    # the same width, cut to 2 layers, on the card and on the CPU with the
-    # same weights
-    cut = dataclasses.replace(cfg, **(cut or {"num_layers": 2}))
-    t0 = time.perf_counter()
-    on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
-    on_gpu = api.init(torch.Generator().manual_seed(1), cut, device="cuda")
-    worst, agree, total = 0.0, 0, 0
-    for n in (128, 1000):
-        toks = np.random.default_rng(n).integers(0, cfg.vocab, n).astype(np.int32)
-        caches = {d: api.init_cache(1, SERVE["max_len"], cut, device=d) for d in ("cpu", "cuda")}
-        lg, caches["cuda"] = api.prefill(on_gpu, torch.as_tensor(toks, device="cuda")[None], caches["cuda"], cut)
-        lc, caches["cpu"] = api.prefill(on_cpu, torch.as_tensor(toks)[None], caches["cpu"], cut)
-        for step in range(5):  # the prefill logits, then 4 decode steps on the CPU's tokens
-            lg = lg.cpu()
-            diff = float((lg - lc).abs().max())
-            check(torch.allclose(lg, lc, atol=5e-2, rtol=5e-2),
-                  f"2-layer full width, prompt {n}, step {step}: card == CPU within 5e-2 (max abs diff {diff})")
-            worst = max(worst, diff)
-            agree += int(lg.argmax()) == int(lc.argmax())
-            total += 1
-            tok = lc.argmax(dim=-1).to(torch.int32)
-            if step < 4:
-                lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cut)
-                lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cut)
-    print(f"serve: {cut.num_layers}-layer full-width card vs CPU, prompts 128 and 1000, prefill + 4 decode steps: "
-          f"max abs logit diff {worst:.4g} (bf16, tolerance 5e-2), greedy tokens agree {agree}/{total} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    del on_gpu
+    if cut is not None:
+        _card_against_cpu(api, dataclasses.replace(cfg, **cut), cut_prompts, cut_ticks)
 
     # where the time goes: one wave of 4 requests under the profiler
     def one_wave():
         eng = ServeEngine(api, cfg, params, ecfg)
         for r in requests()[: SERVE["slots"]]:
+            r.max_new_tokens = profile_tokens or r.max_new_tokens
             eng.submit(r)
         eng.run_until_done()
 
     print(json.dumps({"arch": arch, "serve_profile": device_time_breakdown(one_wave, classify=kernel_class)}),
           flush=True)
-    return launches
+    return Served(launches, readings, params)
+
+
+def _card_against_cpu(api, cut, prompts: tuple[int, ...], ticks: int) -> None:
+    """The served width cut to ``cut``, on the card and on the CPU with the
+    same weights: each prompt's prefill logits, then ``ticks`` decode steps
+    on the CPU's tokens, within 5e-2 (atol and rtol) for a bf16 model and
+    1e-3 for an f32 one."""
+    tol = 1e-3 if cut.dtype == "float32" else 5e-2
+    t0 = time.perf_counter()
+    on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
+    on_gpu = api.init(torch.Generator().manual_seed(1), cut, device="cuda")
+    worst, agree, total = 0.0, 0, 0
+    for n in prompts:
+        toks = np.random.default_rng(n).integers(0, cut.vocab, n).astype(np.int32)
+        caches = {d: api.init_cache(1, SERVE["max_len"], cut, device=d) for d in ("cpu", "cuda")}
+        lg, caches["cuda"] = api.prefill(on_gpu, torch.as_tensor(toks, device="cuda")[None], caches["cuda"], cut)
+        lc, caches["cpu"] = api.prefill(on_cpu, torch.as_tensor(toks)[None], caches["cpu"], cut)
+        for step in range(ticks + 1):  # the prefill logits, then the decode steps
+            lg = lg.cpu()
+            diff = float((lg - lc).abs().max())
+            check(torch.allclose(lg, lc, atol=tol, rtol=tol),
+                  f"{cut.num_layers}-layer full width, prompt {n}, step {step}: card == CPU within {tol} "
+                  f"(max abs diff {diff})")
+            worst = max(worst, diff)
+            agree += int(lg.argmax()) == int(lc.argmax())
+            total += 1
+            tok = lc.argmax(dim=-1).to(torch.int32)
+            if step < ticks:
+                lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cut)
+                lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cut)
+    print(f"serve: {cut.num_layers}-layer full-width card vs CPU, prompts {list(prompts)}, prefill + {ticks} "
+          f"decode steps: max abs logit diff {worst:.4g} ({cut.dtype}, tolerance {tol}), greedy tokens agree "
+          f"{agree}/{total} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
@@ -790,9 +866,12 @@ def ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
 
 def ssd_phase(prompt_lens: list[int]) -> dict:
     """Phase 8: the SSD kernel against its plain version on the card at
-    mamba2-780m's prefill shapes (H 48, P 64, N 128, G 1, chunk 128) and at
-    zamba2-7b's (H 112, P 64, N 64, G 1), timed beside the plain version;
-    returns the kernel's record, with zamba2's times under ``zamba2_*`` keys.
+    mamba2-780m's prefill shapes (H 48, P 64, N 128, G 1, chunk 128), at
+    zamba2-7b's (H 112, P 64, N 64, G 1) and at the reduced configs' (H 8, P
+    16, N 16, chunk 16: the chunk-serial kernel, over one chunk and over
+    many), timed beside the plain
+    version; returns the kernel's record, with zamba2's times under
+    ``zamba2_*`` keys and the reduced shape's under ``reduced_*``.
 
     f32 inputs: y and the final state within atol = rtol = 3e-4 of the plain
     version, the reference's own chunked-against-sequential limit
@@ -804,7 +883,7 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan_cuda, ssd_scan_ref
 
     # the bf16 kernels' resources and their tensor-core instructions
     for r in ptxas_resources(_build.build_log("ssd_scan")):
@@ -878,8 +957,272 @@ def ssd_phase(prompt_lens: list[int]) -> dict:
                 print(f"ssd {label} bf16: {len(per_kernel)} device kernels per wrapper call (20 calls "
                       f"profiled): " + ", ".join(f"{k} {c} seen, {ms / c:.4f} ms each"
                                                  for k, (c, ms) in per_kernel.items()), flush=True)
+    # the reduced ssm and hybrid configs' shape (H 8, P 16, N 16, chunk 16),
+    # which the chunk-serial CUDA-core kernel takes in chunks of min(16, L),
+    # timed: L 9 (a prompt under one chunk), 16 (one whole chunk), 40 (the
+    # state carried over 3 chunks, the last ragged) and 891 (56 chunks); a
+    # chunk of 48, not a multiple of the 32-row strip, at batch 2; and, held
+    # but not timed, a head width of 48 (a 32-column tile and one of 16) at N
+    # 32 and chunk 64, batch 2 and 2 groups, over ragged chunks
+    reduced = [("reduced L=9", 1, 9, 1, 8, 16, 16, 16), ("reduced L=16", 1, 16, 1, 8, 16, 16, 16),
+               ("reduced L=40", 1, 40, 1, 8, 16, 16, 16), ("reduced L=891", 1, 891, 1, 8, 16, 16, 16),
+               ("reduced chunk 48 L=200", 2, 200, 1, 8, 16, 16, 48),
+               ("P=48 N=32 chunk 64 L=300", 2, 300, 2, 8, 48, 32, 64)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, L, G, H, P, N, chunk in reduced:
+            check(ssd_plan(dtype, L, N, P, chunk) == (False, min(chunk, L)), f"ssd {label}: the chunk-serial kernel")
+            x = torch.randn(B, L, H, P, generator=gen, device=dev).to(dtype)
+            dt = torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1 + 0.01
+            A = -(torch.randn(H, generator=gen, device=dev).abs() + 0.2)
+            Bm = (torch.randn(B, L, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+            Cm = (torch.randn(B, L, G, N, generator=gen, device=dev) * 0.3).to(dtype)
+            args = (x, dt, A, Bm, Cm)
+            y, state = ssd_scan_cuda(*args, chunk=chunk)
+            y_p, state_p = ssd_scan_ref(*args, chunk=chunk)
+            y32, state32 = ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all()), f"ssd {label}: finite")
+            rtol = 2**-8 if dtype == torch.bfloat16 else 3e-4
+            err_y32 = float((y.float() - y32).abs().max())
+            err_s32 = float((state - state32).abs().max())
+            check(torch.allclose(y.float(), y32, atol=3e-4, rtol=rtol),
+                  f"ssd {label} {dtype}: y == plain in f32 within atol 3e-4 rtol {rtol} (max abs diff {err_y32})")
+            check(torch.allclose(state, state32, atol=3e-4, rtol=3e-4),
+                  f"ssd {label} {dtype}: final state == plain within 3e-4 (max abs diff {err_s32})")
+            err = max(float((y.float() - y_p.float()).abs().max()), float((state - state_p).abs().max()))
+            max_err = max(max_err, err)
+            line = (f"ssd {label} B={B} G={G} H={H} P={P} N={N} chunk {chunk} {str(dtype)[6:]} (chunk-serial kernel): "
+                    f"max abs diff {err:.3g} (y from f32 plain {err_y32:.3g}, state {err_s32:.3g})")
+            if label.startswith("reduced"):
+                ms = cuda_ms(lambda: ssd_scan_cuda(*args, chunk=chunk), reps=50)
+                plain_ms = cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), reps=20)
+                bound_ms, bound_by = ssd_bound_ms(x, G, N)
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})"
+                if label == "reduced L=16" and dtype == torch.bfloat16:
+                    record.update(reduced_ms=ms, reduced_plain_ms=plain_ms, reduced_bound_ms=bound_ms,
+                                  reduced_bound_by=bound_by)
+            print(line, flush=True)
     record.update(zamba, max_abs_err=max_err)
     return record
+
+
+def moe_decode_bound_ms(params, cfg, slots: int, length: int, experts_read: int) -> tuple[float, int]:
+    """Least time an H100 could take for one MoE decode tick of ``slots``
+    tokens at ``length`` cached positions each that reads the weights of
+    ``experts_read`` (layer, expert) pairs: those experts, every other
+    parameter the tick reads (each layer's attention and router, the norms
+    and the unembedding; of the embedding table only the ``slots`` rows)
+    and the KV cache rows the decode kernel reads, once, at the HBM rate.
+    ``experts_read`` of layers x E is the bound of this design, whose dense
+    capacity buffer runs every expert; the distinct experts the tick's
+    tokens reach give the bound of the function.  The operations (2 per
+    multiply-add) are far below the bytes at the bf16 rate.  Returns (ms,
+    bytes)."""
+    nbytes, expert_bytes = 0, 0
+    for name, p in params.named_parameters():
+        if name == "embed.tok":
+            nbytes += slots * p.shape[1] * p.element_size()
+        elif name.endswith((".moe.gate", ".moe.up", ".moe.down")):
+            expert_bytes += p.numel() * p.element_size()
+        else:
+            nbytes += p.numel() * p.element_size()
+    nbytes += expert_bytes * experts_read // (cfg.num_layers * cfg.num_experts)
+    nbytes += cfg.num_layers * slots * length * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2  # bf16 k and v
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def routed_decode_experts(api, cfg, params) -> torch.Tensor:
+    """The serving run's 8 requests served again, each MoE layer's expert
+    ids recorded: for each decode tick, the distinct experts its tokens
+    reach, summed over the layers (``[ticks]``)."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    route, decode_ids = moe.route, []
+
+    def recording_route(p, xt, cfg):
+        out = route(p, xt, cfg)
+        if xt.shape[0] == SERVE["slots"]:  # a decode tick; every prefill has 128 or more tokens
+            decode_ids.append(out[2])
+        return out
+
+    moe.route = recording_route
+    try:
+        engine = ServeEngine(api, cfg, params, EngineConfig(max_slots=SERVE["slots"], max_len=SERVE["max_len"]))
+        for i, prompt in enumerate(serve_prompts(cfg.vocab)):
+            engine.submit(Request(rid=i, prompt=prompt, max_new_tokens=SERVE["new_tokens"]))
+        engine.run_until_done()
+    finally:
+        moe.route = route
+    ids = torch.stack(decode_ids).flatten(1).sort(dim=1).values  # [ticks x layers, slots x k]
+    distinct = 1 + (ids[:, 1:] != ids[:, :-1]).sum(dim=1)
+    return distinct.view(-1, cfg.num_layers).sum(dim=1).cpu()
+
+
+def moe_stage_times(params, cfg, tokens: int) -> dict:
+    """Device ms of each stage of one MoE layer (layer 0's weights) on
+    ``tokens`` random bf16 tokens: route (the f32 router, softmax, top-k
+    sort), dispatch (the stable sort of the pairs, searchsorted), scatter
+    (the capacity buffer), experts (three bmm and the SwiGLU), combine (the
+    gather, gates and adds), and the whole ``moe_ffn``; beside them the
+    least time the experts' weights take to read, for all E experts (the
+    dense capacity buffer's) and for the experts these tokens reach."""
+    from repro_torch.models import moe
+
+    p = params.blocks[0][0].moe
+    x = torch.randn(1, tokens, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(tokens),
+                    device="cuda").to(torch.bfloat16)
+    xt = x.reshape(tokens, cfg.d_model)
+    E, C = cfg.num_experts, moe.moe_capacity(cfg, tokens)
+    _, gates, experts = moe.route(p, xt, cfg)
+    slot, keep = moe.dispatch(experts, E, C)
+    buf = moe.scatter(xt, slot, keep, E, C)
+    out_buf = moe.experts_ffn(p, buf)
+    stages = {
+        "route": lambda: moe.route(p, xt, cfg),
+        "dispatch": lambda: moe.dispatch(experts, E, C),
+        "scatter": lambda: moe.scatter(xt, slot, keep, E, C),
+        "experts (bmm)": lambda: moe.experts_ffn(p, buf),
+        "combine": lambda: moe.combine(out_buf, slot, keep, gates, experts),
+        "moe_ffn": lambda: moe.moe_ffn(p, x, cfg),
+    }
+    out = {name: cuda_ms(fn, reps=20) for name, fn in stages.items()}
+    expert_bytes = sum(w.numel() * w.element_size() for w in (p.gate, p.up, p.down))
+    reached = int(experts.unique().numel())
+    out["dense_experts_bound_ms"] = 1e3 * expert_bytes / HBM_BYTES_PER_S
+    out["routed_experts_bound_ms"] = 1e3 * expert_bytes * reached / E / HBM_BYTES_PER_S
+    out["experts_reached"] = reached
+    out["capacity"] = C
+    print(f"moe {cfg.name} one layer at {tokens} tokens (C {C}): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in out.items() if k in stages)
+        + f"; reading the experts' weights bounds the layer at {out['dense_experts_bound_ms']:.4f} ms for the "
+        f"dense capacity buffer (all {E} experts) and {out['routed_experts_bound_ms']:.4f} ms for the "
+        f"{reached} experts these tokens reach (bytes)", flush=True)
+    return out
+
+
+def moe_phase() -> dict[str, dict[str, int]]:
+    """Phase 17: the MoE family on the card.  qwen3-moe-30b-a3b at full
+    width and depth (48 layers, 128 experts top-8, random bf16 weights and
+    an f32 router made on the card from a seed) served as in phase 7: 8
+    requests through 4 slots, every prefill layer through the flash kernel,
+    every decode layer through the decode kernel; request 0 alone equal to
+    the manual loop; a 2-layer f32 cut held against the CPU on one prompt and
+    three decode steps; the peak memory, the decode tick beside its bound
+    for this design (every expert read) and for the experts the run's ticks
+    reach (the requests served again, routing recorded), the profile (a wave
+    of 4 requests to 8 new tokens: some 50,000 device kernels), and each MoE
+    stage of one layer timed at the decode and the longest prefill's token
+    counts.  Then mixtral-8x7b at full width cut to 8 of its 32 layers (E 8,
+    top-2, d_ff 14336), served the same way without the CPU check; phase 6
+    holds its attention shapes.  Every earlier phase's model is freed first.
+    Returns each path's launches by kernel."""
+    import gc
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out: dict[str, dict[str, int]] = {}
+    arch = "qwen3-moe-30b-a3b"
+    api = get_model(arch)
+    cfg = api.config
+    L = cfg.num_layers
+    served = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", L),
+                                "decode_attention": (decode_attention_cuda, "tick", L)},
+                         cut={"num_layers": 2, "dtype": "float32"}, cut_prompts=(128,), cut_ticks=3,
+                         profile_tokens=8)
+    out[arch] = served.launches
+    check(out[arch]["flash_attention"] == L * SERVE["requests"], f"{arch}: {L} x 8 flash launches")
+    peak = torch.cuda.max_memory_allocated()
+    params, readings = served.params, served.readings
+    del served
+    slots, length = SERVE["slots"], readings["lockstep_len"]
+    dense_ms, dense_bytes = moe_decode_bound_ms(params, cfg, slots, length, L * cfg.num_experts)
+    reached = routed_decode_experts(api, cfg, params)
+    check(len(reached) == readings["decode_ticks"], f"the replay ran the {readings['decode_ticks']} decode ticks")
+    routed = [moe_decode_bound_ms(params, cfg, slots, length, int(n)) for n in reached]
+    routed_ms = statistics.mean(ms for ms, _ in routed)
+    print(f"moe {arch}: peak {peak / 1e9:.2f} GB allocated of the card's {total / 1e9:.2f} GB; decode "
+          f"{readings['decode_ms_per_tick']:.2f} ms a tick ({readings['decode_ticks']} ticks) against a bound of "
+          f"{routed_ms:.2f} ms for the experts the ticks reach ({reached.min().item()}-{reached.max().item()} "
+          f"of the {L * cfg.num_experts} (layer, expert) pairs a tick, mean {reached.float().mean().item():.1f}; "
+          f"{min(b for _, b in routed) / 1e9:.2f}-{max(b for _, b in routed) / 1e9:.2f} GB) and of {dense_ms:.2f} ms "
+          f"for this design's dense capacity buffer, which reads every expert ({dense_bytes / 1e9:.2f} GB); "
+          f"{slots} slots at {length} positions, bytes", flush=True)
+    stages = {"decode": moe_stage_times(params, cfg, slots),
+              "prefill": moe_stage_times(params, cfg, max(len(p) for p in serve_prompts(cfg.vocab)))}
+    print(json.dumps({"moe": {"arch": arch, "peak_bytes": peak, "card_bytes": total,
+                              "decode_ms_per_tick": readings["decode_ms_per_tick"],
+                              "decode_routed_bound_ms": routed_ms,
+                              "decode_routed_experts_per_tick": reached.tolist(),
+                              "decode_dense_bound_ms": dense_ms, "decode_dense_bound_bytes": dense_bytes,
+                              "stages_ms": stages}}), flush=True)
+    del params, readings
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch, layers = "mixtral-8x7b", 8
+    out[arch] = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", layers),
+                                   "decode_attention": (decode_attention_cuda, "tick", layers)},
+                            cut=None, layers=layers, profile_tokens=8).launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def continuum_phase() -> dict[str, int]:
+    """Phase 18: the ML-job continuum on the card.  ``schedule_jobs`` with
+    the GA at its defaults (population 64, 60 generations: 61 launches of
+    the makespan kernel), a valid schedule whose f32 oracle re-score equals
+    the kernel's makespan; HEFT and ``auto`` beside it (which solver auto
+    chose); the job scenario through the ``Orchestrator`` with the GA.
+    Returns the makespan kernel's launches by path."""
+    import tempfile
+
+    from repro_torch.core import api, continuum, evaluate_assignment, verify_schedule
+    from repro_torch.engine import population_fitness_fn
+    from repro_torch.kernels.makespan import population_makespan_cuda
+
+    out: dict[str, int] = {}
+    population_makespan_cuda.launches = 0
+    t0 = time.perf_counter()
+    rep, system = continuum.schedule_jobs(technique="ga", seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["continuum ga"] = population_makespan_cuda.launches
+    check(out["continuum ga"] == 61, f"schedule_jobs(ga) made {out['continuum ga']} kernel launches, expected 61")
+    check(verify_schedule(rep.problem, rep.schedule) == [], "schedule_jobs(ga): valid schedule")
+    check(bool(np.isfinite(rep.schedule.makespan)), "schedule_jobs(ga): finite makespan")
+    _, mk = population_fitness_fn(rep.problem, engine="cuda", device="cuda")(rep.schedule.assignment[None])
+    oracle32 = evaluate_assignment(rep.problem, rep.schedule.assignment, dtype=np.float32).makespan
+    check(float(mk[0]) == oracle32, "schedule_jobs(ga): the f32 oracle re-scores the best to the kernel's makespan")
+    print(f"continuum: schedule_jobs(ga) over {rep.problem.num_tasks} jobs on {system.num_nodes} slices: "
+          f"{wall:.3f} s wall, {out['continuum ga']} kernel launches, makespan {rep.schedule.makespan!r} "
+          f"(kernel re-score {float(mk[0])!r}, f32 oracle {oracle32!r})", flush=True)
+    for technique in ("heft", "auto"):
+        t0 = time.perf_counter()
+        rep, _ = continuum.schedule_jobs(technique=technique)
+        check(verify_schedule(rep.problem, rep.schedule) == [], f"schedule_jobs({technique}): valid schedule")
+        print(f"continuum: schedule_jobs({technique}) chose {rep.schedule.technique}: makespan "
+              f"{rep.schedule.makespan!r} in {time.perf_counter() - t0:.3f} s", flush=True)
+    population_makespan_cuda.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        result = api.Orchestrator(continuum.jobs_scenario(technique="ga"), out_dir=tmp).run()
+        torch.cuda.synchronize()
+        summary = result.summary()
+    out["continuum scenario"] = population_makespan_cuda.launches
+    check(out["continuum scenario"] > 0 and out["continuum scenario"] % 61 == 0,
+          f"the job scenario's GA solves made {out['continuum scenario']} launches, 61 a solve")
+    print(f"continuum: jobs_scenario(ga) through the Orchestrator in {time.perf_counter() - t0:.3f} s: "
+          f"technique {summary['technique']}, predicted makespan {summary['predicted_makespan']!r}, "
+          f"{out['continuum scenario']} kernel launches", flush=True)
+    return out
 
 
 MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launches a run
@@ -887,6 +1230,11 @@ MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launch
     "sa": ({"chains": 32, "steps": 200}, 201),
     "aco": ({"ants": 48, "iterations": 60}, 60),
 }
+# The kernel == plain comparison's options where they differ from MH: SA's
+# plain run (94 s of a 930.9 s run on an H100 at 700 W) is cut to 50 steps,
+# the first cut the ROADMAP's facts allow once a run passes 800 s; the
+# kernel runs the same 50 steps beside it.
+MH_PLAIN = {"sa": {"chains": 32, "steps": 50}}
 
 
 def makespan_class(name: str) -> str:
@@ -916,15 +1264,17 @@ def metaheuristics_phase(problem, ga_result) -> dict[str, int]:
         wall_s = time.perf_counter() - t0
         out[tech] = population_makespan_cuda.launches
         check(out[tech] == want, f"{tech} made {out[tech]} kernel launches, expected {want}")
+        plain_opts = MH_PLAIN.get(tech, opts)
+        ker = res if plain_opts == opts else fn(problem, backend="auto", device="cuda", seed=0, **plain_opts)
         t0 = time.perf_counter()
-        plain = fn(problem, backend="torch", device="cuda", seed=0, **opts)
+        plain = fn(problem, backend="torch", device="cuda", seed=0, **plain_opts)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        check(np.array_equal(res.schedule.assignment, plain.schedule.assignment),
-              f"{tech}: kernel and plain version give the same best assignment")
-        check(res.history.dtype == plain.history.dtype and
-              np.array_equal(res.history.view(np.int32), plain.history.view(np.int32)),
-              f"{tech}: kernel and plain version give the same history, bit for bit")
+        check(np.array_equal(ker.schedule.assignment, plain.schedule.assignment),
+              f"{tech} {plain_opts}: kernel and plain version give the same best assignment")
+        check(ker.history.dtype == plain.history.dtype and
+              np.array_equal(ker.history.view(np.int32), plain.history.view(np.int32)),
+              f"{tech} {plain_opts}: kernel and plain version give the same history, bit for bit")
         check(verify_schedule(problem, res.schedule) == [], f"{tech} schedule is valid")
         check(bool(np.isfinite(res.schedule.makespan)), f"{tech}: finite makespan")
         _, mk_best = population_fitness_fn(problem, engine="cuda", device="cuda")(res.schedule.assignment[None])
@@ -941,7 +1291,8 @@ def metaheuristics_phase(problem, ga_result) -> dict[str, int]:
         prof = profiles[tech]
         prof["warm_wall_ms"] = warm_ms  # the same run without the profiler
         kernel = prof.get("by_class", {}).get("makespan kernel", {"count": 0, "ms": 0.0})
-        print(f"{tech} 500x500 {opts}: {wall_s:.3f} s wall (first run), plain version {plain_s:.3f} s, "
+        print(f"{tech} 500x500 {opts}: {wall_s:.3f} s wall (first run), plain version {plain_s:.3f} s "
+              f"({plain_opts}), "
               f"{out[tech]} kernel launches, makespan {res.schedule.makespan:.4f}, history "
               f"{res.history[0]:.2f} -> {res.history[-1]:.2f}, kernel == plain bit for bit; warm run "
               f"{warm_ms:.2f} ms wall ({prof['wall_ms']:.2f} ms under the profiler), device busy "
@@ -2238,7 +2589,8 @@ def main() -> int:
 
     qwen_launches = serve_phase("qwen2.5-3b", {
         "flash_attention": (flash_attention_cuda, "prefill", layers("qwen2.5-3b")),
-        "decode_attention": (decode_attention_cuda, "tick", layers("qwen2.5-3b"))})
+        "decode_attention": (decode_attention_cuda, "tick", layers("qwen2.5-3b"))},
+        cut={"num_layers": 2}).launches
     phase_done(7, "qwen2.5-3b served at full width")
 
     # 8. the SSD kernel against its plain version ------------------------------------
@@ -2246,7 +2598,8 @@ def main() -> int:
     phase_done(8, "SSD kernel against its plain version")
 
     # 9. mamba2-780m served at full width: the ssm family's serving path -------------
-    mamba_launches = serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill", layers("mamba2-780m"))})
+    mamba_launches = serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill", layers("mamba2-780m"))},
+                                 cut={"num_layers": 2}).launches
     phase_done(9, "mamba2-780m served at full width")
 
     # 10. zamba2-7b served at full width: the hybrid family's serving path ----------
@@ -2258,20 +2611,32 @@ def main() -> int:
         "ssd_scan": (ssd_scan_cuda, "prefill", zamba_cfg.num_layers),
         "flash_attention": (flash_attention_cuda, "prefill", n_inv),
         "decode_attention": (decode_attention_cuda, "tick", n_inv),
-    }, cut={"num_layers": 2, "hybrid_period": 2})  # one Mamba2 layer, then the shared block
+    }, cut={"num_layers": 2, "hybrid_period": 2}).launches  # one Mamba2 layer, then the shared block
     phase_done(10, "zamba2-7b served at full width")
 
-    # 11. the serving CLI on the card, as a user runs it (reduced qwen2.5-3b:
-    # head width 16 through both attention kernels) -------------------------------
+    # 11. the serving CLI on the card, as a user runs it: the reduced configs
+    # (head width 16) through the attention kernels, the reduced MoE ones
+    # (mixtral's window of 8 through the ring caches and window=), and the
+    # reduced ssm and hybrid ones (chunk 16, N 16, P 16) through the SSD
+    # kernel's chunk-serial design ---------------------------------------------------
     from repro_torch.launch import serve as serve_cli
 
-    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
-    serve_cli.main(["--arch", "qwen2.5-3b", "--requests", "3"])
-    torch.cuda.synchronize()
-    cli_launches = {"flash_attention": flash_attention_cuda.launches,
-                    "decode_attention": decode_attention_cuda.launches}
-    check(all(n > 0 for n in cli_launches.values()), f"the CLI ran both attention kernels: {cli_launches}")
-    print(f"cli: launches {cli_launches}", flush=True)
+    wrappers = {"flash_attention": flash_attention_cuda, "decode_attention": decode_attention_cuda,
+                "ssd_scan": ssd_scan_cuda}
+    cli_kernels = {"qwen2.5-3b": ("flash_attention", "decode_attention"),
+                   "qwen3-moe-30b-a3b": ("flash_attention", "decode_attention"),
+                   "mixtral-8x7b": ("flash_attention", "decode_attention"),
+                   "mamba2-780m": ("ssd_scan",),
+                   "zamba2-7b": ("ssd_scan", "flash_attention", "decode_attention")}
+    cli_launches: dict[str, dict[str, int]] = {}
+    for arch, names in cli_kernels.items():
+        for w in wrappers.values():
+            w.launches = 0
+        serve_cli.main(["--arch", arch, "--requests", "3"])
+        torch.cuda.synchronize()
+        cli_launches[arch] = {name: wrappers[name].launches for name in names}
+        check(all(n > 0 for n in cli_launches[arch].values()), f"the {arch} CLI ran its kernels: {cli_launches[arch]}")
+        print(f"cli {arch}: launches {cli_launches[arch]}", flush=True)
     phase_done(11, "the serving CLI on the card")
 
     # 12. PSO, SA and ACO on the makespan kernel at Table IX --------------------
@@ -2294,8 +2659,16 @@ def main() -> int:
     topology_launches, topology_record = shard_topology_phase(sweep_problems)
     phase_done(16, "the instance axis and generated continua")
 
+    # 17. the MoE family: qwen3-moe-30b-a3b at full width and depth, mixtral-8x7b cut
+    moe_launches = moe_phase()
+    phase_done(17, "the MoE family served at full width")
+
+    # 18. the ML-job continuum: the job mix's GA on the makespan kernel
+    continuum_launches = continuum_phase()
+    phase_done(18, "the ML-job continuum on the card")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
-                        **service_launches, **campaign_launches, **topology_launches}
+                        **service_launches, **campaign_launches, **topology_launches, **continuum_launches}
     record.update(service_record)
     record.update(campaign_record)
     record.update(topology_record)
@@ -2304,8 +2677,11 @@ def main() -> int:
 
     # each kernel's launches on each serving path, and their sum
     by_path: dict[str, dict[str, int]] = {}
-    for path, run in (("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches),
-                      ("zamba2-7b", zamba_launches), ("cli", cli_launches)):
+    paths = [("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches), ("zamba2-7b", zamba_launches),
+             ("qwen3-moe-30b-a3b", moe_launches["qwen3-moe-30b-a3b"]),
+             ("mixtral-8x7b 8 layers", moe_launches["mixtral-8x7b"])]
+    paths += [(f"cli {arch}", run) for arch, run in cli_launches.items()]
+    for path, run in paths:
         for name, n in run.items():
             by_path.setdefault(name, {})[path] = n
 

@@ -241,3 +241,53 @@ def synthetic_system(
             )
         )
     return make_system(nodes)
+
+
+# -----------------------------------------------------------------------------
+# The ML-job continuum's fleet (core/continuum.py schedules jobs onto it)
+# -----------------------------------------------------------------------------
+
+# The fleet being scheduled, a TPU v5e fleet as the reference models it.
+# These are inputs of the scheduling model, kept equal to the reference's
+# so that durations and rates agree bit for bit; they describe the modelled
+# slices, never the hardware this package runs on, and no figure here is a
+# speed of the port.
+TPU_V5E_PEAK_FLOPS = 197e12  # bf16 FLOP/s per chip
+TPU_V5E_HBM_BW = 819e9  # bytes/s per chip
+TPU_V5E_ICI_BW = 50e9  # bytes/s per link (~4 links/chip on a 2D torus)
+TPU_V5E_HBM_BYTES = 16 * 1024**3  # 16 GiB HBM per chip
+DCN_BW = 25e9  # bytes/s per host pair across pods
+
+
+def tpu_slice_node(name: str, num_chips: int, *, fabric: str = "ici") -> Node:
+    """A slice of the modelled fleet as a paper node: R1 ``cores`` = chips,
+    R2 ``memory`` = HBM GiB, P2 = bf16 FLOP/s, P3 = the fabric's bytes/s;
+    features F9 (the chips' matrix unit) and F10 (ICI) or F11 (DCN)."""
+    bw = TPU_V5E_ICI_BW * max(1, num_chips // 2) if fabric == "ici" else DCN_BW
+    return Node(
+        name,
+        {"cores": num_chips, "memory": num_chips * TPU_V5E_HBM_BYTES / 1024**3, "storage": 0.0},
+        frozenset({"F9", "F10" if fabric == "ici" else "F11"}),
+        {"processing_speed": num_chips * TPU_V5E_PEAK_FLOPS, "data_transfer_rate": bw},
+    )
+
+
+def tpu_fleet(num_pods: int = 2, chips_per_pod: int = 256, slices_per_pod: int = 4) -> System:
+    """The modelled multi-pod fleet as a paper :class:`System`: each pod
+    gives ``slices_per_pod`` slice nodes joined by ICI; transfers between
+    pods ride DCN."""
+    nodes: list[Node] = []
+    pod_of: list[int] = []
+    for p in range(num_pods):
+        chips = chips_per_pod // slices_per_pod
+        for s in range(slices_per_pod):
+            nodes.append(tpu_slice_node(f"pod{p}/slice{s}", chips))
+            pod_of.append(p)
+    n = len(nodes)
+    dtr = np.full((n, n), DCN_BW, dtype=np.float64)
+    for i in range(n):
+        for j in range(n):
+            if pod_of[i] == pod_of[j]:
+                dtr[i, j] = TPU_V5E_ICI_BW * (chips_per_pod // slices_per_pod // 2)
+    np.fill_diagonal(dtr, np.inf)
+    return System(nodes=tuple(nodes), dtr=dtr)

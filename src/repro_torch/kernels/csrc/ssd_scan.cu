@@ -11,7 +11,7 @@
 // in src/repro_torch/kernels/ssd_scan.py; the two agree to f32 rounding in
 // f32, and within the bounds below in bf16.
 //
-// What it computes per chunk of Q = 128 steps, as the TPU kernel does: acs,
+// What it computes per chunk of Q steps, as the TPU kernel does: acs,
 // the inclusive cumulative sum of dt * A; M[i][j] = (C_i . B_j)
 // exp(acs_i - acs_j) dt_j for j <= i, else 0; y_i = sum_j M[i][j] x_j +
 // exp(acs_i) C_i Sᵀ with S the state entering the chunk; then S <-
@@ -70,13 +70,23 @@
 //   meets them).  No fast math: expf.  P need only be a multiple of 32: x and
 //   the state go through the products in 64-column tiles, zero-padded.
 //
-// float32: the chunk-serial CUDA-core kernel (ssd_scan_kernel), unchanged:
-// TF32 keeps about 10 bits and cannot meet the f32 bound of 3e-4.  One block
-// of 256 threads owns (32 columns of P, head, batch) and loops over the
-// chunks itself, with its [32, N] slice of the state in shared memory; the
-// Q x Q matrix M is walked in strips of 32 rows, each seeing only the columns
-// at or below its rows; shared memory is f32 with rows padded by one float
-// (131 KB at N = 128); each product keeps a small register tile per thread.
+// Every other shape: the chunk-serial CUDA-core kernel (ssd_scan_kernel).
+// It takes float32, where TF32 keeps about 10 bits and cannot meet the f32
+// bound of 3e-4, and bfloat16 outside the wgmma kernels' shapes: any chunk
+// Q = min(chunk, L) from 1 to 128 (the TPU kernel's chunk = min(chunk, L),
+// so the reduced ssm and hybrid configs' chunk of 16 is kept), N of 16, 32,
+// 64 or 128 and P a multiple of 16.  Loads convert to f32 and the math and
+// the state stay f32; y is rounded once to its type.  One block of 256
+// threads owns (32 columns of P, head, batch) and loops over the chunks
+// itself, with its [32, N] slice of the state in shared memory; a head
+// narrower than 32 columns (P = 16) loads zeros past P, and its rows past P
+// are neither stored nor written to the final state.  The Q x Q matrix M is
+// walked in strips of 32 rows, each seeing only the columns at or below its
+// rows; a chunk under 32 steps is one strip.  Shared memory is f32 with rows
+// padded by one float, sized for 128-step chunks (131 KB at N = 128); each
+// product keeps a small register tile per thread.  The wrapper, not a
+// failure, chooses between the two designs: a shape the wgmma kernels take
+// goes to them, every other shape here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,7 +153,7 @@ __device__ __forceinline__ void strip_scores(float* ms, const float* cs, const f
 // below L; thread (grp, lane) owns rows 2 grp, 2 grp + 1 and columns
 // lane, lane + 16.
 template <typename T, int N, int JT>
-__device__ __forceinline__ void strip_output(T* yb, size_t ystride, int rows_left,
+__device__ __forceinline__ void strip_output(T* yb, size_t ystride, int rows_left, int cols,
                                              const float* ms, const float* xs, const float* cs,
                                              const float* ss, const float* eacs, int r0, int grp,
                                              int lane) {
@@ -173,19 +183,45 @@ __device__ __forceinline__ void strip_output(T* yb, size_t ystride, int rows_lef
     if (r >= rows_left) continue;
     const float e = eacs[r0 + r];
     T* row = yb + static_cast<size_t>(r) * ystride;
-    store(row + lane, intra[i][0] + e * inter[i][0]);
-    store(row + lane + 16, intra[i][1] + e * inter[i][1]);
+    if (lane < cols) store(row + lane, intra[i][0] + e * inter[i][0]);
+    if (lane + 16 < cols) store(row + lane + 16, intra[i][1] + e * inter[i][1]);
   }
 }
 
 template <typename T, int N, int JT>
-__device__ __forceinline__ void strip(T* yb, size_t ystride, int rows_left, float* ms,
+__device__ __forceinline__ void strip(T* yb, size_t ystride, int rows_left, int cols, float* ms,
                                       const float* xs, const float* cs, const float* bs,
                                       const float* ss, const float* acs, const float* eacs,
                                       const float* dts, int r0, int grp, int lane) {
   strip_scores<N, JT>(ms, cs, bs, acs, dts, r0, grp, lane);
   __syncthreads();
-  strip_output<T, N, JT>(yb, ystride, rows_left, ms, xs, cs, ss, eacs, r0, grp, lane);
+  strip_output<T, N, JT>(yb, ystride, rows_left, cols, ms, xs, cs, ss, eacs, r0, grp, lane);
+}
+
+// `rows` rows of D elements into dst as f32 with row stride `stride`, as
+// load_rows_strided, but only the first `cols` columns of each row are read
+// (a multiple of 16 bytes' worth): columns at or past `cols`, and rows at or
+// past `valid`, are zero.  For the last column tile of a head narrower
+// than the tile, whose columns past P belong to the next head.
+template <typename T>
+__device__ __forceinline__ void load_cols_strided(float* dst, int stride, const T* src,
+                                                  size_t src_stride, int rows, int D, int cols,
+                                                  int valid) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = D / kVec;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * kVec;
+    float v[kVec];
+    if (r < valid && c < cols) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * src_stride + c);
+      unpack(raw, v, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[r * stride + c + e] = v[e];
+  }
 }
 
 template <typename T, int N>
@@ -197,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
     const T* __restrict__ Cm,      // [B, L, G, N]
     T* __restrict__ y,             // [B, L, H, P]
     float* __restrict__ fin,       // [B, H, P, N]
-    int L, int H, int G, int P) {
+    int L, int H, int G, int P, int Q) {
   using Lay = Layout<N>;
   constexpr int NS = Lay::NS;
   extern __shared__ float smem[];
@@ -212,6 +248,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
   float* ws = dts + kQ;          // [kQ] exp(acs_Q - acs) * dt
 
   const int p0 = blockIdx.x * kPB, h = blockIdx.y, b = blockIdx.z;
+  const int cols = min(kPB, P - p0);  // this block's columns of P
+  const int rows = (Q + kR - 1) / kR * kR;  // the chunk's steps, whole strips
   const int g = h / (H / G);
   const float a = A[h];
   const int grp = threadIdx.x >> 4, lane = threadIdx.x & 15;
@@ -224,24 +262,24 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
 
   for (int i = threadIdx.x; i < kPB * NS; i += kThreads) ss[i] = 0.f;
 
-  for (int t0 = 0; t0 < L; t0 += kQ) {
-    const int valid = min(kQ, L - t0);
+  for (int t0 = 0; t0 < L; t0 += Q) {
+    const int valid = min(Q, L - t0);
     __syncthreads();  // the previous chunk's tiles are consumed
-    load_rows_strided(bs, NS, bb + t0 * bstride, bstride, kQ, N, valid, 1.f);
-    load_rows_strided(xs, kPB, xb + t0 * xstride, xstride, kQ, kPB, valid, 1.f);
-    for (int i = threadIdx.x; i < kQ; i += kThreads)
+    load_rows_strided(bs, NS, bb + t0 * bstride, bstride, rows, N, valid, 1.f);
+    load_cols_strided(xs, kPB, xb + t0 * xstride, xstride, rows, kPB, cols, valid);
+    for (int i = threadIdx.x; i < rows; i += kThreads)
       dts[i] = i < valid ? dtb[static_cast<size_t>(t0 + i) * H] : 0.f;
     __syncthreads();
     if (threadIdx.x == 0) {
       float sum = 0.f;
-      for (int i = 0; i < kQ; ++i) {
+      for (int i = 0; i < rows; ++i) {
         sum += dts[i] * a;
         acs[i] = sum;
       }
     }
     __syncthreads();
-    const float a_tot = acs[kQ - 1];
-    for (int i = threadIdx.x; i < kQ; i += kThreads) {
+    const float a_tot = acs[Q - 1];
+    for (int i = threadIdx.x; i < rows; i += kThreads) {
       eacs[i] = expf(acs[i]);
       ws[i] = expf(a_tot - acs[i]) * dts[i];
     }
@@ -253,10 +291,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
       T* yrow = yb + (t0 + r0) * xstride;
       const int left = valid - r0;
       switch (r0 / kR) {
-        case 0: strip<T, N, 1>(yrow, xstride, left, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
-        case 1: strip<T, N, 2>(yrow, xstride, left, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
-        case 2: strip<T, N, 3>(yrow, xstride, left, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
-        default: strip<T, N, 4>(yrow, xstride, left, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
+        case 0: strip<T, N, 1>(yrow, xstride, left, cols, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
+        case 1: strip<T, N, 2>(yrow, xstride, left, cols, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
+        case 2: strip<T, N, 3>(yrow, xstride, left, cols, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
+        default: strip<T, N, 4>(yrow, xstride, left, cols, ms, xs, cs, bs, ss, acs, eacs, dts, r0, grp, lane); break;
       }
     }
     __syncthreads();  // every strip has read the old state
@@ -290,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
   __syncthreads();
 
   float* fb = fin + ((static_cast<size_t>(b) * H + h) * P + p0) * N;
-  for (int i = threadIdx.x; i < kPB * N; i += kThreads) fb[i] = ss[(i / N) * NS + i % N];
+  for (int i = threadIdx.x; i < cols * N; i += kThreads) fb[i] = ss[(i / N) * NS + i % N];
 }
 
 
@@ -686,23 +724,27 @@ __global__ void __launch_bounds__(kOutThreads, 1) ssd_chunk_output(
 // launches
 // ---------------------------------------------------------------------------
 
-cudaError_t launch_f32(int N, const void* x, const void* dt, const void* A, const void* Bm,
-                       const void* Cm, void* y, void* fin, int B, int L, int H, int G, int P,
-                       cudaStream_t stream) {
-  const dim3 grid(P / kPB, H, B);
+// The chunk-serial CUDA-core kernel, in f32 or bf16, chunks of Q steps.
+template <typename T>
+cudaError_t launch_serial(int N, const void* x, const void* dt, const void* A, const void* Bm,
+                          const void* Cm, void* y, void* fin, int B, int L, int H, int G, int P,
+                          int Q, cudaStream_t stream) {
+  const dim3 grid((P + kPB - 1) / kPB, H, B);
   auto go = [&](auto kernel, size_t smem) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-        static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<float*>(y),
-        static_cast<float*>(fin), L, H, G, P);
+        static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+        static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<T*>(y),
+        static_cast<float*>(fin), L, H, G, P, Q);
     return cudaGetLastError();
   };
   switch (N) {
-    case 64: return go(ssd_scan_kernel<float, 64>, Layout<64>::bytes);
-    case 128: return go(ssd_scan_kernel<float, 128>, Layout<128>::bytes);
+    case 16: return go(ssd_scan_kernel<T, 16>, Layout<16>::bytes);
+    case 32: return go(ssd_scan_kernel<T, 32>, Layout<32>::bytes);
+    case 64: return go(ssd_scan_kernel<T, 64>, Layout<64>::bytes);
+    case 128: return go(ssd_scan_kernel<T, 128>, Layout<128>::bytes);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -754,18 +796,26 @@ cudaError_t launch_bf16(const void* x, const void* dt, const void* A, const void
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
-// bf16 != 0: x, B, C and y are bfloat16 (the three wgmma kernels, which need
-// the scratch `states` [B, ceil(L / 128), H, N, P] and `atot` [B, ceil(L /
-// 128), H], both f32), else float32 (the CUDA-core kernel; the scratch may
-// be null).  Needs N 64 or 128, P a multiple of 32 and H a multiple of G.
+// The caller picks the kernels by shape (ssd_plan in kernels/ssd_scan.py):
+// wgmma != 0 runs the three wgmma kernels, which take bfloat16 (bf16 != 0),
+// chunk 128, N 64 or 128 and P a multiple of 32, and need the scratch
+// `states` [B, ceil(L / 128), H, N, P] and `atot` [B, ceil(L / 128), H],
+// both f32; wgmma == 0 runs the chunk-serial CUDA-core kernel in chunks of
+// `chunk` steps (the caller passes min(chunk, L)), on float32 or bfloat16
+// (bf16), for N 16, 32, 64 or 128 and P a multiple of 16 (the scratch may
+// be null).  Every shape needs 1 <= chunk <= 128 and H a multiple of G.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                         const void* Cm, void* y, void* fin, void* states, void* atot, int B, int L,
-                        int H, int G, int P, int N, int bf16, void* stream) {
-  if (P % kPB != 0 || G <= 0 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
+                        int H, int G, int P, int N, int chunk, int bf16, int wgmma, void* stream) {
+  if (P % 16 != 0 || G <= 0 || H % G != 0 || chunk < 1 || chunk > kQ)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (!bf16)
-    e = launch_f32(N, x, dt, A, Bm, Cm, y, fin, B, L, H, G, P, s);
+  if (!wgmma)
+    e = bf16 ? launch_serial<__nv_bfloat16>(N, x, dt, A, Bm, Cm, y, fin, B, L, H, G, P, chunk, s)
+             : launch_serial<float>(N, x, dt, A, Bm, Cm, y, fin, B, L, H, G, P, chunk, s);
+  else if (!bf16 || chunk != kQ || P % kPB != 0)
+    e = cudaErrorInvalidValue;
   else if (N == 64)
     e = launch_bf16<64>(x, dt, A, Bm, Cm, y, fin, states, atot, B, L, H, G, P, s);
   else if (N == 128)

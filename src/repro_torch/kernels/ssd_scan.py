@@ -13,8 +13,10 @@ C and all arithmetic in f32:
   form of the reference's ``kernels/ref.py::ssd_scan_chunked_ref``, taken to
   any L;
 * :func:`ssd_scan_cuda` — the wrapper of the hand-written Hopper kernels
-  ``csrc/ssd_scan.cu`` (bf16: chunk-parallel state passing on wgmma, three
-  device kernels; f32: a chunk-serial CUDA-core kernel), which replace the reference's Pallas kernel
+  ``csrc/ssd_scan.cu`` (bf16 at chunk 128, N 64 or 128 and P a multiple of
+  32: chunk-parallel state passing on wgmma, three device kernels; every
+  other shape, f32 or bf16: a chunk-serial CUDA-core kernel, chosen by
+  :func:`ssd_plan`), which replace the reference's Pallas kernel
   ``repro/kernels/ssd_scan.py::ssd_scan_pallas``.  It is the one place that
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
@@ -35,9 +37,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_alignment
 
 DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_CHUNK = 128  # the chunk the kernel is built for
-KERNEL_STATES = (64, 128)  # state widths N the kernel is built for
-KERNEL_P_TILE = 32  # head widths P must be multiples of it
+KERNEL_CHUNK = 128  # the wgmma kernels' chunk, and the longest chunk either design takes
+KERNEL_STATES = (16, 32, 64, 128)  # state widths N the kernels are built for
+KERNEL_P_ALIGN = 16  # head widths P must be multiples of it
+WGMMA_STATES = (64, 128)  # the wgmma kernels' state widths
+WGMMA_P_TILE = 32  # the wgmma kernels' head widths are multiples of it
 _MAX_GRID_YZ = 65535
 
 
@@ -127,7 +131,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C signature declared."""
     lib = _build.load("ssd_scan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    lib.ssd_scan.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
     lib.ssd_scan.restype = i32
     return lib
 
@@ -161,6 +165,25 @@ def check_ssd_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: to
         raise ValueError(f"{H} heads are not a multiple of {G} groups")
 
 
+def ssd_plan(dtype: torch.dtype, L: int, N: int, P: int, chunk: int) -> tuple[bool, int]:
+    """Which of the two kernel designs takes a scan, by its shape alone, and
+    the chunk it runs: ``(wgmma, Q)``.  ``wgmma`` is True for bf16 at chunk
+    128 with N 64 or 128 and P a multiple of 32 (the three wgmma kernels, Q
+    128, which pad a last chunk, or an L under 128, with zero steps); every
+    other shape runs the chunk-serial CUDA-core kernel in chunks of ``Q =
+    min(chunk, L)`` steps (at least 1), the TPU kernel's chunk.  Raises :class:`~repro_torch.kernels._build.
+    KernelInputError` on a chunk outside 1-128, N outside 16/32/64/128 or P
+    not a multiple of 16."""
+    if not 1 <= chunk <= KERNEL_CHUNK:
+        raise _build.KernelInputError(f"the SSD kernels take chunks of 1 to {KERNEL_CHUNK} steps, not {chunk}")
+    if N not in KERNEL_STATES or P % KERNEL_P_ALIGN:
+        raise _build.KernelInputError(f"the SSD kernels take N in {KERNEL_STATES} and P a multiple of "
+                                      f"{KERNEL_P_ALIGN}, not N={N}, P={P}")
+    if dtype == torch.bfloat16 and chunk == KERNEL_CHUNK and N in WGMMA_STATES and P % WGMMA_P_TILE == 0:
+        return True, KERNEL_CHUNK
+    return False, max(1, min(chunk, L))
+
+
 def ssd_scan_cuda(
     x: torch.Tensor,  # [B, L, H, P]
     dt: torch.Tensor,  # [B, L, H] f32
@@ -170,24 +193,26 @@ def ssd_scan_cuda(
     *,
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel ``csrc/ssd_scan.cu`` on PyTorch's current stream, or,
+    """The CUDA kernels ``csrc/ssd_scan.cu`` on PyTorch's current stream, or,
     for tensors on the CPU, :func:`ssd_scan_ref`.  Returns ``(y [B, L, H, P]
     in x.dtype, final_state [B, H, P, N] f32)``.
 
     Checks its arguments (:func:`check_ssd_args`) on the CPU as on the card;
-    on the card it also raises on a chunk other than 128, a state width N
-    other than 64 or 128, a head width P that is not a multiple of 32, and
-    grids beyond the launch limits."""
+    on the card :func:`ssd_plan` picks the kernel by shape and raises on a
+    chunk outside 1-128, a state width N other than 16, 32, 64 or 128, a head
+    width P that is not a multiple of 16, and it raises on grids beyond the
+    launch limits."""
     check_ssd_args(x, dt, A, B_mat, C_mat)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
+    return _on_card(x, dt, A, B_mat, C_mat, chunk)
+
+
+def _on_card(x, dt, A, B_mat, C_mat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plan and launch one scan on the card of ``x``."""
     Bsz, L, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[3]
-    if chunk != KERNEL_CHUNK:
-        raise ValueError(f"the SSD kernel is built for chunk {KERNEL_CHUNK}, not {chunk}")
-    if N not in KERNEL_STATES or P % KERNEL_P_TILE:
-        raise ValueError(f"the SSD kernel takes N in {KERNEL_STATES} and P a multiple of "
-                         f"{KERNEL_P_TILE}, not N={N}, P={P}")
+    wgmma, Q = ssd_plan(x.dtype, L, N, P, chunk)
     if Bsz > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
         raise ValueError(f"batch {Bsz} or heads {H} exceed the kernel grid's {_MAX_GRID_YZ}")
     lib = _library()
@@ -196,16 +221,16 @@ def ssd_scan_cuda(
     state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
     if state.numel() == 0:
         return y, state
-    bf16 = x.dtype == torch.bfloat16
-    # the bf16 kernels' scratch: each chunk's state [N, P] and its total decay
-    chunks = -(-L // KERNEL_CHUNK) if bf16 else 0
+    # the wgmma kernels' scratch: each chunk's state [N, P] and its total decay
+    chunks = -(-L // KERNEL_CHUNK) if wgmma else 0
     states = torch.empty(Bsz, chunks, H, N, P, dtype=torch.float32, device=x.device)
     atot = torch.empty(Bsz, chunks, H, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):  # the library launches on the current card
         err = lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
             y.data_ptr(), state.data_ptr(), states.data_ptr(), atot.data_ptr(), Bsz, L, H, G, P, N,
-            int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
+            Q, int(x.dtype == torch.bfloat16), int(wgmma),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, "ssd_scan launch")
     ssd_scan_cuda.launches += 1

@@ -3,12 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --device cpu
 
-Runs on the card unless ``--device cpu`` asks for the CPU.  On the card the
-reduced ssm and hybrid configs (mamba2-780m, zamba2-7b) are refused by the
-SSD kernel, which takes chunk 128, state width 64 or 128 and head width a
-multiple of 32; the reduced configs have 16 for each.
+Runs on the card unless ``--device cpu`` asks for the CPU.  Every arch of
+the registry serves its reduced config: the dense ones, the MoE ones
+(qwen3-moe-30b-a3b, mixtral-8x7b, whose window of 8 takes the ring-buffer
+caches and the attention kernels' ``window=``), and the ssm and hybrid ones
+(mamba2-780m, zamba2-7b), whose chunk 16, state width 16 and head width 16
+go to the SSD kernel's chunk-serial design.  deepseek-67b's reduced head
+width of 8 is below the attention kernels' 16, so it serves on the CPU only.
 """
 
 from __future__ import annotations

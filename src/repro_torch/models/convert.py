@@ -2,8 +2,11 @@
 
 The reference keeps a model's parameters as a pytree, ``{"embed": {"tok",
 "unembed"?}, "blocks": ..., "ln_final": {"scale"}}``, with the layers
-stacked on a leading axis of each leaf: for a dense transformer ``blocks``
-is one dict per window slot, each leaf with a leading layer-group axis; for
+stacked on a leading axis of each leaf: for a dense or MoE transformer
+``blocks`` is one dict per window slot, each leaf with a leading
+layer-group axis (an MoE block's ``moe`` holds ``router.w`` ``[d, E]``,
+f32 even in a bf16 model, and ``gate``, ``up``, ``down`` ``[E, d, f]`` /
+``[E, f, d]``, each behind that axis); for
 the ssm and hybrid families it is one dict ``{"ln", "mamba"}`` with a
 leading layer axis, and the hybrid's ``shared`` block is not stacked.  The
 port's modules name their parameters by the same keys and give the stacked
@@ -64,7 +67,7 @@ def _unstack(stack: Mapping) -> dict:
 def params_from_arrays(tree: Mapping, cfg: ModelConfig,
                        device: torch.device | str = "cuda") -> Transformer | Mamba2LM | HybridLM:
     """The port's parameters holding the values of the reference pytree
-    ``tree`` of a dense, ssm or hybrid model, in ``cfg.dtype`` on ``device``
+    ``tree`` of a dense, MoE, ssm or hybrid model, in ``cfg.dtype`` on ``device``
     (f32 where the model keeps a parameter in f32)."""
     flat = {"embed": tree["embed"], "ln_final": tree["ln_final"]}
     if cfg.family == "ssm":

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the serving CLI.
 
 Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
-on the CPU, and its family module.  The port has the dense, ssm and
+on the CPU, and its family module.  The port has the dense, MoE, ssm and
 hybrid families; the reference's other architectures raise :class:`KeyError`
 naming the ROADMAP item that ports them.  The reference's dry-run specs (``batch_specs``,
 ``param_specs``, ``cache_specs``) belong to ``launch/dryrun``, not ported
@@ -24,21 +24,22 @@ ARCH_MODULES: dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
 
 # the reference's other architectures, and where ROADMAP ports them
 NOT_PORTED: dict[str, str] = {
-    "deepseek-67b": "Queue A item 8 (dense, but 134 GB in bf16: needs the sharded path)",
-    "qwen3-moe-30b-a3b": "Queue A item 8 (the MoE family)",
-    "mixtral-8x7b": "Queue A item 8 (the MoE family)",
-    "whisper-base": "Queue A item 8 (the encdec family)",
-    "internvl2-76b": "Queue A item 8 (the vlm family)",
+    "whisper-base": "Queue A item 8d (the encdec family)",
+    "internvl2-76b": "Queue A item 8f (the vlm family)",
 }
 
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
+    "moe": "repro_torch.models.transformer",
     "ssm": "repro_torch.models.ssm",
     "hybrid": "repro_torch.models.hybrid",
 }

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and MoE families.
 
 Ported from the reference's ``repro/models/transformer.py``.  The reference
 stacks each window slot's layers along a leading axis and runs them with
@@ -7,7 +7,9 @@ stacks each window slot's layers along a leading axis and runs them with
 groups.  gemma2's alternating local/global attention keeps its layer
 groups: slot 0 is local (window-sized ring-buffer caches), slot 1 global.
 The reference's ``hints.constrain`` sharding hint does nothing on one card
-and is left out.  The MoE family is not ported yet.
+and is left out.  A block of the MoE family holds ``moe``
+(:class:`~repro_torch.models.moe.MoE`) where a dense block holds ``mlp``,
+and ``forward`` returns the sum of its layers' load-balance losses.
 
 API, as the reference's: ``init_params`` / ``forward`` / ``init_cache`` /
 ``prefill`` / ``decode_step``.  The cache is ``{"kv": ({"k", "v"} per
@@ -23,14 +25,16 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoE, moe_ffn
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the MoE family (moe.py) is not ported yet (ROADMAP Queue A item 8)"
+            f"{cfg.name}: the vlm family (vlm.py, prefill with embeds) is not ported yet "
+            "(ROADMAP Queue A item 8f)"
         )
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a transformer LM")
 
 
@@ -52,7 +56,8 @@ class Block(nn.Module):
         self.ln_attn = L.RMSNorm(cfg.d_model, **kw)
         self.attn = L.Attention(cfg, **kw)
         self.ln_mlp = L.RMSNorm(cfg.d_model, **kw)
-        self.mlp = L.MLP(cfg, **kw)
+        self.mlp = L.MLP(cfg, **kw) if cfg.family != "moe" else None
+        self.moe = MoE(cfg, **kw) if cfg.family == "moe" else None
         self.ln_attn_post = L.RMSNorm(cfg.d_model, **kw) if cfg.post_norms else None
         self.ln_mlp_post = L.RMSNorm(cfg.d_model, **kw) if cfg.post_norms else None
 
@@ -93,11 +98,18 @@ def _layers(params: Transformer, cfg: ModelConfig) -> Iterator[tuple[int, int, i
             yield grp, s, w, params.blocks[s][grp]
 
 
-def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
+def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The FFN half of a block: (x + ffn(norm(x)), the MoE load-balance loss
+    or None for a dense block)."""
+    y_in = L.rmsnorm(p.ln_mlp, x, cfg.norm_eps)
+    aux = None
+    if p.moe is not None:
+        h, aux = moe_ffn(p.moe, y_in, cfg)
+    else:
+        h = L.mlp(p.mlp, y_in, cfg)
     if p.ln_mlp_post is not None:
         h = L.rmsnorm(p.ln_mlp_post, h, cfg.norm_eps)
-    return x + h
+    return x + h, aux
 
 
 def _attn_residual(p: Block, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -107,20 +119,25 @@ def _attn_residual(p: Block, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig)
 
 
 def _block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, window: int | None):
-    """Full-sequence block; returns (x, (k, v))."""
+    """Full-sequence block; returns (x, (k, v), aux loss or None)."""
     h, kv = L.attention_forward(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg, window=window)
     x = _attn_residual(p, x, h, cfg)
-    return _mlp_residual(p, x, cfg), kv
+    x, aux = _mlp_residual(p, x, cfg)
+    return x, kv, aux
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0})."""
+    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": the
+    sum of the layers' MoE load-balance losses, 0 for a dense model})."""
     x = L.embed(params.embed, batch["tokens"], cfg)
+    aux_loss = torch.zeros((), device=x.device)
     for _, _, w, p in _layers(params, cfg):
-        x, _ = _block_forward(p, x, cfg, w)
+        x, _, aux = _block_forward(p, x, cfg, w)
+        if aux is not None:
+            aux_loss = aux_loss + aux
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)
-    return logits, {"aux_loss": torch.zeros((), device=logits.device)}
+    return logits, {"aux_loss": aux_loss}
 
 
 # -----------------------------------------------------------------------------
@@ -154,7 +171,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     S = tokens.shape[1]
     x = L.embed(params.embed, tokens, cfg)
     for grp, s, w, p in _layers(params, cfg):
-        x, (kc, vc) = _block_forward(p, x, cfg, w)
+        x, (kc, vc), _ = _block_forward(p, x, cfg, w)
         L.write_prompt_kv(cache["kv"][s]["k"][grp], kc)
         L.write_prompt_kv(cache["kv"][s]["v"][grp], vc)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
@@ -176,7 +193,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
         h, _, _ = L.attention_decode(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg,
                                      kv["k"][grp], kv["v"][grp], posb, window=w)
         x = _attn_residual(p, x, h, cfg)
-        x = _mlp_residual(p, x, cfg)
+        x, _ = _mlp_residual(p, x, cfg)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)[:, 0]
     return logits, {"kv": cache["kv"], "pos": pos + 1}

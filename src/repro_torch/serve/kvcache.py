@@ -1,7 +1,8 @@
 """KV-cache utilities: sizing and slot surgery for continuous batching.
 
-Ported from the reference's ``repro/serve/kvcache.py``, with its own copy of
-``kv_cache_bytes`` (``repro/core/autoshard.py``).  The reference's int8
+Ported from the reference's ``repro/serve/kvcache.py``; ``kv_cache_bytes``
+is re-exported from ``core/autoshard.py``, its one owner, as the reference
+does.  The reference's int8
 block-quantized storage (``quantize_kv`` / ``dequantize_kv``) is not on the
 serving path and is not ported yet.
 """
@@ -12,6 +13,7 @@ from collections.abc import Mapping, Sequence
 
 import torch
 
+from repro_torch.core.autoshard import kv_cache_bytes  # re-export  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
 
@@ -35,28 +37,6 @@ def merge_slot(big_cache, small_cache, slot: int, max_slots: int):
         elif big.dim() >= 1 and big.shape[0] == max_slots and small.shape[0] == 1:
             big[slot].copy_(small[0])
     return big_cache
-
-
-def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int) -> float:
-    """Bytes of a bf16 KV cache (f32 SSM state) for ``batch`` sequences of
-    ``seq`` positions, window slots capped at the window."""
-    hd = cfg.resolved_head_dim
-    if cfg.family == "ssm":
-        return cfg.num_layers * batch * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
-    if cfg.family == "hybrid":
-        ssm = cfg.num_layers * batch * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
-        n_inv = sum(1 for i in range(cfg.num_layers) if (i + 1) % cfg.hybrid_period == 0)
-        return ssm + n_inv * batch * cfg.num_kv_heads * seq * hd * 2 * 2
-    if cfg.num_kv_heads == 0:
-        return 0.0
-    total = 0.0
-    for i in range(cfg.num_layers):
-        w = cfg.window if (cfg.window and (not cfg.local_global or i % 2 == 0)) else None
-        s_eff = min(w, seq) if w else seq
-        total += batch * cfg.num_kv_heads * s_eff * hd * 2 * 2
-    if cfg.family == "encdec":
-        total += cfg.num_layers * batch * cfg.num_kv_heads * cfg.enc_frames * hd * 2 * 2
-    return total
 
 
 def cache_bytes_report(cfg: ModelConfig, batch: int, seq: int) -> dict:

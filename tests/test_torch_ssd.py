@@ -6,7 +6,9 @@ CPU as tests/test_kernels_ssd.py runs it, at lengths its chunk divides, and
 to the reference's sequential oracle at ragged lengths, where the reference
 itself falls back to that oracle.  The wrapper runs the plain version for
 CPU tensors, counts no launch there, and refuses what the kernel does not
-take.
+take; on the card it picks the kernel by shape, and it passes the reduced
+configs' shapes and chunk to the library (checked here through stand-ins
+for the library and the device).
 
 Tolerances are those of tests/test_kernels_ssd.py: 3e-4 in f32, the
 reference's own chunked-against-sequential limit (the two forms sum in
@@ -24,7 +26,8 @@ import jax.numpy as jnp
 from repro.kernels import ref
 from repro.kernels.ssd_scan import ssd_scan_pallas
 
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_ref, ssd_scan_sequential
+from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan_cuda, ssd_scan_ref, ssd_scan_sequential
+from repro_torch.models.registry import get_model
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
@@ -141,3 +144,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             ssd_scan_cuda(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_takes_the_reduced_shapes_at_their_chunk(dtype):
+    """The reduced mamba2-780m and zamba2-7b (chunk 16, N 16, P 16) go to
+    the chunk-serial kernel in chunks of min(chunk, L), as the TPU kernel
+    takes them; the full configs' bf16 shapes keep the wgmma kernels."""
+    for arch in ("mamba2-780m", "zamba2-7b"):
+        cfg = get_model(arch).reduced
+        P, N, chunk = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+        assert (P, N, chunk) == (16, 16, 16)
+        assert ssd_plan(dtype, 9, N, P, chunk) == (False, 9)
+        assert ssd_plan(dtype, 40, N, P, chunk) == (False, 16)
+    for arch in ("mamba2-780m", "zamba2-7b"):
+        cfg = get_model(arch).config
+        wgmma, Q = ssd_plan(dtype, 891, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_chunk)
+        assert (wgmma, Q) == (dtype == torch.bfloat16, 128)
+    assert ssd_plan(torch.bfloat16, 891, 128, 64, 64) == (False, 64)  # another chunk: CUDA cores
+    assert ssd_plan(torch.bfloat16, 891, 32, 64, 128) == (False, 128)  # N 32: CUDA cores
+    assert ssd_plan(torch.bfloat16, 891, 64, 48, 128) == (False, 128)  # P 48: CUDA cores
+    for L, N, P, chunk, match in ((9, 16, 16, 0, "chunks of 1 to 128"), (9, 16, 16, 256, "chunks of 1 to 128"),
+                                  (9, 24, 16, 16, "N in"), (9, 16, 8, 16, "multiple of 16")):
+        with pytest.raises(ValueError, match=match):
+            ssd_plan(dtype, L, N, P, chunk)
+
+
+def test_wrapper_launches_the_reduced_shapes_on_the_card_of_its_tensors(monkeypatch):
+    """The wrapper passes the plan, the chunk it runs and the shape to the library,
+    makes its tensors' card current for the launch and counts one launch.
+    No card here: tensors on the meta device stand for the card's, and the
+    device switch, the stream and the library are stand-ins that record
+    what they are given."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    current, seen = ["cuda:0"], []
+
+    class Current:
+        def __init__(self, device):
+            self.device = "cuda:1"
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.device
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    def ssd_scan(*args):
+        seen.append((current[0], args[9:18]))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Current)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(ssd_mod, "_library", lambda: SimpleNamespace(ssd_scan=ssd_scan))
+    before = ssd_scan_cuda.launches
+    for dtype, (B, L, H, P, G, N), chunk in (
+        (torch.bfloat16, (2, 9, 8, 16, 1, 16), 16),  # the reduced configs, a prompt under one chunk
+        (torch.bfloat16, (1, 40, 8, 16, 1, 16), 16),  # three chunks of 16
+        (torch.float32, (1, 40, 8, 16, 2, 32), 16),
+        (torch.bfloat16, (1, 891, 48, 64, 1, 128), 128),  # mamba2-780m: the wgmma kernels
+    ):
+        x = torch.empty(B, L, H, P, dtype=dtype, device="meta")
+        dt = torch.empty(B, L, H, device="meta")
+        A = torch.empty(H, device="meta")
+        Bm = torch.empty(B, L, G, N, dtype=dtype, device="meta")
+        y, state = ssd_mod._on_card(x, dt, A, Bm, Bm, chunk)
+        assert y.shape == x.shape and y.dtype == dtype and state.shape == (B, H, P, N)
+        wgmma, Q = chunk == 128, min(chunk, L)  # the chunk the kernel runs: min(chunk, L), or 128
+        assert seen[-1] == ("cuda:1", (B, L, H, G, P, N, Q, int(dtype == torch.bfloat16), int(wgmma)))
+    assert current == ["cuda:0"]
+    assert ssd_scan_cuda.launches == before + 4

@@ -1090,6 +1090,96 @@ def job_topology(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_continuum(params: dict, inputs: dict) -> dict:
+    """The reference's ML-job continuum: the roofline estimates, KV bytes
+    and best layouts of each arch and applicable shape, the fleets, the job
+    durations (with their infinities), the HEFT and GA schedules of the job
+    mix (the GA with the draws it made), the step workflows, and the job
+    scenario's JSON and run summary."""
+    import dataclasses
+    import tempfile
+
+    import jax
+
+    from repro.configs.shapes import SHAPES, applicable_shapes
+    from repro.core import api, autoshard, continuum
+    from repro.core.heuristics import heft
+    from repro.core.metaheuristics import _mask_logits
+    from repro.engine.packed import pack
+    from repro.models.registry import get_model
+
+    sm, wm = _modules()
+    out: dict[str, np.ndarray] = {}
+    for arch in params["archs"]:
+        cfg = get_model(arch).config
+        out[f"{arch}/shapes"] = np.array(json.dumps(applicable_shapes(arch)))
+        for shape in applicable_shapes(arch):
+            suite = SHAPES[shape]
+            tag = f"{arch}/{shape}"
+            layouts = autoshard.enumerate_layouts(256, 1, train=suite.kind == "train")
+            layouts += [autoshard.Layout(**kw) for kw in params["layouts"]]
+            rows = []
+            for lay in layouts:
+                e = autoshard.estimate(cfg, suite, lay)
+                rows.append([e.compute_s, e.memory_s, e.collective_s, e.hbm_per_chip, e.step_s])
+            out[f"{tag}/layouts"] = np.array(json.dumps([dataclasses.asdict(lay) for lay in layouts]))
+            out[f"{tag}/estimates"] = np.array(rows, dtype=np.float64)
+            out[f"{tag}/kv"] = np.array(autoshard.kv_cache_bytes(cfg, suite.global_batch, suite.seq_len))
+            for i, kw in enumerate(params["best"]):
+                lay, e = autoshard.best_layout(cfg, suite, **kw)
+                out[f"{tag}/best/{i}"] = np.array(json.dumps(
+                    [dataclasses.asdict(lay), [e.compute_s, e.memory_s, e.collective_s, e.hbm_per_chip],
+                     e.bottleneck]))
+        wf = continuum.training_step_workflow(arch)
+        out[f"{arch}/step"] = np.array(json.dumps(wm.workload_to_json(wm.Workload((wf,)))))
+
+    jobs = continuum.default_job_mix()
+    fleets = {f"fleet{i}": sm.tpu_fleet(**kw) for i, kw in enumerate(params["fleets"])}
+    fleets["mixed"] = sm.make_system(
+        [sm.tpu_slice_node(f"s{i}", chips, fabric=fabric) for i, (chips, fabric) in enumerate(params["mixed"])]
+    )
+    for name, system in fleets.items():
+        out[f"{name}/system"] = np.array(json.dumps(sm.system_to_json(system)))
+        out[f"{name}/dtr"] = system.dtr
+        out[f"{name}/durations"] = continuum.job_durations(jobs, system)
+        prob = wm.build_problem(system, continuum.jobs_to_workload(jobs, system))
+        out[f"{name}/workload"] = np.array(json.dumps(wm.workload_to_json(continuum.jobs_to_workload(jobs, system))))
+        for k, v in pack(prob, pad=False).numpy_arrays().items():
+            out[f"{name}/packed/{k}"] = v
+        sched = heft(prob)
+        out[f"{name}/heft/assignment"] = np.asarray(sched.assignment)
+        out[f"{name}/heft/makespan"] = np.array(sched.makespan)
+
+    rep, system = continuum.schedule_jobs(technique="heft")
+    out["schedule/heft/assignment"] = np.asarray(rep.schedule.assignment)
+    out["schedule/heft/makespan"] = np.array(rep.schedule.makespan)
+    ga = params["ga"]
+    seed = ga["seed"]
+    opts = {k: v for k, v in ga.items() if k != "seed"}
+    rep, system = continuum.schedule_jobs(technique="ga", seed=seed, **opts)
+    out["schedule/ga/assignment"] = np.asarray(rep.schedule.assignment)
+    out["schedule/ga/history"] = np.asarray(rep.history)
+    out["schedule/ga/makespan"] = np.array(rep.schedule.makespan)
+    draws = _ga_draws(jax.random.PRNGKey(seed), _mask_logits(rep.problem), opts["pop_size"],
+                      opts["generations"], opts["tournament"], opts["mutation_rate"])
+    for key, v in draws.items():
+        out[f"schedule/ga/draws/{key}"] = v
+
+    for technique in ("auto", "heft"):
+        sc = continuum.jobs_scenario(technique=technique)
+        tag = f"scenario/{technique}"
+        out[f"{tag}/json"] = np.array(json.dumps(sc.to_json(), indent=2))
+        out[f"{tag}/fingerprint"] = np.array(sc.fingerprint())
+        with tempfile.TemporaryDirectory() as tmp:
+            run = []
+            out[f"{tag}/error"] = np.array(_error_of(lambda: run.append(api.Orchestrator(sc, out_dir=tmp).run())))
+            if run:
+                summary = run[0].summary()
+                summary.pop("artifacts", None)
+                out[f"{tag}/summary"] = np.array(json.dumps(summary, sort_keys=True))
+    return out
+
+
 JOBS = {
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
     "shard": job_shard, "topology": job_topology,
@@ -1097,6 +1187,7 @@ JOBS = {
     "scenario": job_scenario,
     "model": job_model, "engine": job_engine, "ga": job_ga, "pallas": job_pallas,
     "mh": job_mh, "heuristics": job_heuristics, "milp": job_milp,
+    "continuum": job_continuum,
 }
 
 
