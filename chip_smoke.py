@@ -35,8 +35,13 @@ result line:
    and decode at the lockstep and mixed lengths; qwen3-moe-30b-a3b's 32
    heads over 4 KV heads of width 128, prefill at the longest prompt and
    decode at the lockstep length), at the reduced configs'
-   head width 16 and, at small shapes, at every width 16-256 in steps of
-   16, in bf16 and f32, each kernel's dynamic shared
+   head width 16 and, at small shapes, at every width 8-256 in steps of
+   8, in bf16 and f32; at the encdec and vlm families' shapes (whisper-base's
+   encoder not causal at 1500 frames, its cross-attention with 8 and 64
+   query rows against 1500 keys, its decode cross-attention at G = 1 over
+   1500 keys; internvl2-76b's 64 heads over 8 KV heads of 128 behind 256
+   patches, prefill and decode), with an explicit ``scale=`` and at
+   deepseek-67b's reduced head width 8, each timed; each kernel's dynamic shared
    memory printed, timed (qwen's and zamba2's longest prefill and their
    4-slot decodes among others) beside their plain versions and one
    PyTorch call that computes the same function
@@ -70,14 +75,16 @@ result line:
     after the second;
 11. the serving CLI (``repro_torch.launch.serve``) with no ``--device``
     for the reduced qwen2.5-3b, qwen3-moe-30b-a3b and mixtral-8x7b (head
-    width 16, mixtral's window 8) through both attention kernels, and the
+    width 16, mixtral's window 8), deepseek-67b (head width 8) and
+    internvl2-76b (text-only) through both attention kernels, and the
     reduced mamba2-780m and zamba2-7b (chunk 16, N 16, P 16) through the SSD
-    kernel's chunk-serial design;
+    kernel's chunk-serial design; ``--arch whisper-base`` must exit with the
+    reference CLI's message;
 12. PSO, SA and ACO at Table IX 500x500 with the reference's defaults (PSO
     64 particles x 60 iterations, SA 32 chains x 200 steps, ACO 48 ants x
     60 iterations): each once through the kernel and once through the
-    plain version on the card from the same seed (SA's comparison at 50
-    steps, both sides), which must agree bit for
+    plain version on the card from the same seed (SA's comparison at 20
+    steps, PSO's and ACO's at 20 iterations, both sides), which must agree bit for
     bit in the best assignment and the history; exactly 61 / 201 / 60
     kernel launches; a valid schedule whose f32 oracle re-score equals the
     kernel's makespan; a ``torch.profiler`` pass over a warm run of each;
@@ -153,7 +160,26 @@ result line:
 18. the ML-job continuum: ``schedule_jobs`` with the GA at its defaults on
     the makespan kernel (61 launches, a valid schedule, the kernel's
     makespan == the f32 oracle's), HEFT and ``auto`` beside it, and the job
-    scenario through the ``Orchestrator`` with the GA.
+    scenario through the ``Orchestrator`` with the GA;
+19. whisper-base at full width and depth (6 + 6 layers, d 512, 1500
+    frames, 88,187,392 parameters, random bf16 weights from a seed): 8
+    requests of random frames and 8-token prompts in batches of 4 through
+    ``prefill(frames=)`` and 32 greedy decode ticks (18 flash launches a
+    prefill, 12 decode a tick), request 0 alone against its row of the
+    batch, a profiled batch, and the whole model in f32 card against CPU;
+20. internvl2-76b at full width cut to 8 of its 80 layers (8,948,686,848
+    parameters): served text-only by ``ServeEngine`` as in phase 7, then 4
+    requests of 256 random patch embeddings and 128 tokens through
+    ``prefill(patches=)`` and 31 decode ticks (8 flash a prefill, 8 decode a
+    tick), request 0 alone against its row, the peak memory, the tick
+    beside the bytes of the weights it reads, and a 1-layer f32 cut card
+    against CPU;
+21. sampling and the int8 KV cache: greedy == argmax, the top-k and top-p
+    masks on the card == on the CPU bit for bit, draws from a CUDA
+    generator inside the mask; ``quantize_kv`` / ``dequantize_kv`` of
+    whisper's real cache on the card == on the CPU bit for bit, and decode
+    attention through the kernel over the dequantized cache within 0.05 of
+    the bf16 cache.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -162,6 +188,7 @@ CUDA device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -621,9 +648,80 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                                  dtype)
             print(f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} "
                   f"(from f32 plain {err32:.3g})", flush=True)
+    # the encdec and vlm families' shapes (whisper-base: H 8, D 64, 1500
+    # frames, its encoder and cross-attention not causal, its decode
+    # cross-attention at G = 1 over every frame; internvl2-76b: H 64, Hkv 8,
+    # D 128 behind 256 patches), an explicit scale and deepseek-67b's reduced
+    # head width 8: each held in bf16 and f32 as above, timed in bf16 beside
+    # its plain version, its bound and SDPA
+    vlm_len = 256 + max(prompt_lens)
+    more_flash = [
+        ("whisper encoder S=1500 not causal B=4", 4, 8, 8, 1500, 1500, 64, {"causal": False}),
+        ("whisper cross Sq=8 Skv=1500 B=4", 4, 8, 8, 8, 1500, 64, {"causal": False}),
+        ("whisper cross Sq=64 Skv=1500 B=4", 4, 8, 8, 64, 1500, 64, {"causal": False}),
+        (f"internvl2 prefill S={vlm_len}", 1, 64, 8, vlm_len, vlm_len, 128, {}),
+        (f"qwen prefill S={max(prompt_lens)} scale 0.1", 1, 16, 2, max(prompt_lens), max(prompt_lens), 128,
+         {"scale": 0.1}),
+        ("deepseek reduced D=8 S=200 B=2", 2, 8, 2, 200, 200, 8, {}),
+    ]
+    more_decode = [
+        ("whisper cross 4 x 1500 keys, G 1", 4, 8, 8, 1500, 64, [1500] * 4, {}),
+        (f"internvl2 decode 4 x {vlm_len + 32} keys, cache 2048", 4, 64, 8, 2048, 128, [vlm_len + 32] * 4, {}),
+        ("qwen decode 4 slots lockstep, cache 2048, scale 0.1", 4, 16, 2, 2048, 128, [lockstep] * 4,
+         {"scale": 0.1}),
+        ("deepseek reduced D=8, cache 128", 4, 8, 2, 128, 8, [0, 5, 64, 128], {}),
+    ]
+    more = {"flash_attention": {}, "decode_attention": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, Sq, Skv, D, kw in more_flash:
+            q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
+            err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
+                                 flash_attention_ref(q, k, v, **kw),
+                                 flash_attention_ref(q.float(), k.float(), v.float(), **kw), dtype)
+            line = f"flash {label} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain {err32:.3g})"
+            if dtype == torch.bfloat16:
+                causal = kw.get("causal", True)
+                mask = attention_mask(Sq, Skv, causal=causal, window=None, device=dev)
+                sdpa = {"enable_gqa": True, "scale": kw.get("scale")}
+                if causal and Sq == Skv:
+                    sdpa["is_causal"] = True
+                elif causal:
+                    sdpa["attn_mask"] = mask
+                row = {
+                    "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20),
+                    "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3, warmup=1),
+                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), reps=20),
+                }
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(
+                    q, k, B * H * int(mask.sum()), B * Hkv * int(mask.any(dim=0).sum()))
+                more["flash_attention"][label] = row
+                line += (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+            print(line, flush=True)
+        for label, B, H, Hkv, S, D, lens, kw in more_decode:
+            q, k, v = normal((B, H, D), dtype), normal((B, Hkv, S, D), dtype), normal((B, Hkv, S, D), dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err, err32 = compare("decode_attention", label, decode_attention_cuda(q, k, v, lengths, **kw),
+                                 decode_attention_ref(q, k, v, lengths, **kw),
+                                 decode_attention_ref(q.float(), k.float(), v.float(), lengths, **kw), dtype)
+            line = f"decode {label} lengths {lens} {str(dtype)[6:]}: max abs diff {err:.3g} (from f32 plain {err32:.3g})"
+            if dtype == torch.bfloat16:
+                valid = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+                row = {
+                    "ms": cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, **kw), reps=50),
+                    "plain_ms": cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, **kw), reps=10),
+                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], k, v, attn_mask=valid, enable_gqa=True, scale=kw.get("scale")), reps=50),
+                }
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, H * sum(lens), Hkv * sum(lens))
+                more["decode_attention"][label] = row
+                line += (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+            print(line, flush=True)
+
     # every head width the kernels take, at small shapes, held as above and
     # not timed
-    for D in range(16, 257, 16):
+    for D in range(8, 257, 8):
         for dtype in (torch.bfloat16, torch.float32):
             kw = {"window": 50, "softcap": 30.0}
             q, k, v = normal((2, 4, 77, D), dtype), normal((2, 2, 130, D), dtype), normal((2, 2, 130, D), dtype)
@@ -635,10 +733,10 @@ def attention_phase(prompt_lens: list[int]) -> dict:
             compare("decode_attention", f"decode D={D}", decode_attention_cuda(q, k, v, lengths, softcap=30.0),
                     decode_attention_ref(q, k, v, lengths, softcap=30.0),
                     decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=30.0), dtype)
-    print("flash and decode == plain at every head width 16-256 (step 16), bf16 and f32, GQA 2, "
+    print("flash and decode == plain at every head width 8-256 (step 8), bf16 and f32, GQA 2, "
           "window 50 and softcap 30 (flash), lengths 0/150/300 and softcap 30 (decode)", flush=True)
     for name in records:
-        records[name].update(zamba[name], **moe[name], max_abs_err=max_err[name])
+        records[name].update(zamba[name], **moe[name], more_shapes=more[name], max_abs_err=max_err[name])
     return records
 
 
@@ -1225,16 +1323,368 @@ def continuum_phase() -> dict[str, int]:
     return out
 
 
+WHISPER = {"requests": 8, "batch": 4, "prompt": 8, "ticks": 32, "max_len": 64}
+VLM = {"layers": 8, "requests": 4, "prompt": 128, "ticks": 31, "max_len": 512, "cut_prompt": 32}
+BF16_TOL = 5e-2  # atol = rtol of two bf16 runs of one model that round at other places
+
+
+def load_like(params: torch.nn.Module, cfg, device: str) -> torch.nn.Module:
+    """A copy of ``params`` (a model of ``cfg``) on ``device``."""
+    copy = type(params)(cfg, torch.device("meta")).to_empty(device=device)
+    copy.load_state_dict(params.state_dict())
+    return copy
+
+
+def teacher_forced(api, cfg, params, prompt, extras: dict, tokens: torch.Tensor, max_len: int) -> list:
+    """Logits [1, V] of one request alone: its prefill, then a decode step
+    on each of ``tokens`` (the batch's greedy tokens of that request)."""
+    cache = api.init_cache(1, max_len, cfg)
+    logits, cache = api.prefill(params, prompt, cache, cfg, **extras)
+    out = [logits]
+    for tok in tokens:
+        logits, cache = api.decode_step(params, tok.reshape(1).to(torch.int32), cache, cfg)
+        out.append(logits)
+    return out
+
+
+def alone_against_batch(label: str, batch_logits: list, alone_logits: list, alone_tokens: list) -> None:
+    """Request 0 alone against its row of the batch: the teacher-forced
+    logits within :data:`BF16_TOL` at every step (checked), and how many of
+    the greedy tokens of a free run alone agree with the batch's (printed,
+    with the gap of the alone run's two best logits where they part)."""
+    worst = 0.0
+    for step, (b, a) in enumerate(zip(batch_logits, alone_logits)):
+        diff = float((b[0].float() - a[0].float()).abs().max())
+        check(torch.allclose(b[0].float(), a[0].float(), atol=BF16_TOL, rtol=BF16_TOL),
+              f"{label}: request 0 alone == its row of the batch at step {step} within {BF16_TOL} (max {diff})")
+        worst = max(worst, diff)
+    batch_tokens = [int(b[0].argmax()) for b in batch_logits]
+    agree = sum(x == y for x, y in zip(batch_tokens, alone_tokens))
+    first = next((i for i, (x, y) in enumerate(zip(batch_tokens, alone_tokens)) if x != y), None)
+    gap = ""
+    if first is not None:
+        top2 = alone_logits[first][0].float().topk(2).values
+        gap = f", first apart at token {first}, where the batch row's two best logits are {float(top2[0] - top2[1]):.4g} apart"
+    print(f"{label}: request 0 alone, teacher-forced on its batch tokens, within {worst:.4g} of its row of the "
+          f"batch ({len(batch_logits)} steps); greedy alone {agree}/{len(batch_tokens)} tokens as in the batch"
+          + gap, flush=True)
+
+
+def whisper_phase() -> tuple[dict[str, int], dict]:
+    """Phase 19: whisper-base at full width and depth (6 + 6 layers, d 512,
+    8 heads of 64, vocab 51,865, 1500 frames; random bf16 weights made on
+    the card from a seed).  8 requests of 1500 random frames (numpy seed 0,
+    normals x 0.1, as the reference's test makes them) and 8-token decoder
+    prompts, in batches of 4 through ``prefill(frames=)`` and 32 greedy
+    ``decode_step`` ticks: every encoder, decoder and cross-attention layer
+    of a prefill through the flash kernel (18), every self- and
+    cross-attention layer of a tick through the decode kernel (12).
+    Request 0 alone against its row of the batch; one batch under the
+    profiler; the whole model in f32 on the card against the CPU, prefill
+    and 4 ticks within 1e-3.  Returns the launches and the last batch's
+    self- and cross-attention caches (a real KV cache for phase 21)."""
+    import gc
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    W = WHISPER
+    api = get_model("whisper-base")
+    cfg = api.config
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count() == 88_187_392, f"whisper-base: {n_params} parameters")
+    print(f"whisper: {cfg.name} {cfg.enc_layers} + {cfg.num_layers} layers d_model {cfg.d_model}, {n_params} "
+          f"parameters made on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    frames32 = (rng.standard_normal((W["requests"], cfg.enc_frames, cfg.d_model)) * 0.1).astype(np.float32)
+    frames = torch.from_numpy(frames32).to("cuda", torch.bfloat16)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (W["requests"], W["prompt"])).astype(np.int32)).cuda()
+
+    def generate(rows: slice):
+        """The requests ``rows`` as one batch: (each step's logits, prefill s, decode s, cache)."""
+        cache = api.init_cache(rows.stop - rows.start, W["max_len"], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, prompts[rows], cache, cfg, frames=frames[rows])
+        steps = [logits]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(W["ticks"]):
+            logits, cache = api.decode_step(params, logits.argmax(-1).to(torch.int32), cache, cfg)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        return steps, t1 - t0, time.perf_counter() - t1, cache
+
+    generate(slice(0, W["batch"]))  # warm-up: cuBLAS handles, first launches, allocator pools
+    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+    runs = [generate(slice(b, b + W["batch"])) for b in range(0, W["requests"], W["batch"])]
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    batches = len(runs)
+    check(launches["flash_attention"] == 18 * batches,
+          f"whisper: flash launches {launches['flash_attention']} == 18 a prefill x {batches}")
+    check(launches["decode_attention"] == 12 * W["ticks"] * batches,
+          f"whisper: decode launches {launches['decode_attention']} == 12 a tick x {W['ticks']} x {batches}")
+    tokens = torch.cat([torch.stack([s.argmax(-1) for s in steps], 1) for steps, _, _, _ in runs]).cpu()
+    check(all(bool(torch.isfinite(s.float()).all()) for steps, _, _, _ in runs for s in steps), "whisper: finite logits")
+    check(tuple(tokens.shape) == (W["requests"], W["ticks"] + 1) and bool((tokens < cfg.vocab).all()),
+          "whisper: every request's tokens in the vocabulary")
+    prefill_s = [r[1] for r in runs]
+    tick_ms = [1e3 * r[2] / W["ticks"] for r in runs]
+    print(f"whisper: {W['requests']} requests of {cfg.enc_frames} frames and {W['prompt']}-token prompts in "
+          f"batches of {W['batch']}: prefill {[round(x, 4) for x in prefill_s]} s, decode "
+          f"{[round(x, 3) for x in tick_ms]} ms a tick ({W['ticks']} ticks); launches {launches}", flush=True)
+
+    steps0 = runs[0][0]
+    batch0 = [s[:1] for s in steps0]
+    alone = teacher_forced(api, cfg, params, prompts[:1], {"frames": frames[:1]},
+                           torch.stack([s[0].argmax() for s in steps0[:-1]]), W["max_len"])
+    free = generate(slice(0, 1))[0]
+    alone_against_batch("whisper", batch0, alone, [int(s[0].argmax()) for s in free])
+
+    profile = device_time_breakdown(lambda: generate(slice(0, W["batch"])), classify=kernel_class)
+    print(json.dumps({"arch": "whisper-base", "serve_profile": profile}), flush=True)
+    cache = runs[-1][3]
+
+    # the whole model in f32, on the card and on the CPU, the same weights
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    on_cpu = api.init(torch.Generator().manual_seed(1), cfg32, device="cpu")
+    on_gpu = load_like(on_cpu, cfg32, "cuda")
+    f32 = torch.from_numpy(frames32[:1])
+    prompt = prompts[:1].cpu()
+    caches = {d: api.init_cache(1, W["max_len"], cfg32, device=d) for d in ("cpu", "cuda")}
+    lg, caches["cuda"] = api.prefill(on_gpu, prompt.cuda(), caches["cuda"], cfg32, frames=f32.cuda())
+    lc, caches["cpu"] = api.prefill(on_cpu, prompt, caches["cpu"], cfg32, frames=f32)
+    worst = 0.0
+    for step in range(5):
+        diff = float((lg.cpu() - lc).abs().max())
+        check(torch.allclose(lg.cpu(), lc, atol=1e-3, rtol=1e-3),
+              f"whisper f32 full model, step {step}: card == CPU within 1e-3 (max abs diff {diff})")
+        worst = max(worst, diff)
+        tok = lc.argmax(-1).to(torch.int32)
+        if step < 4:
+            lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cfg32)
+            lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cfg32)
+    print(f"whisper: the whole model in f32, card vs CPU, prefill + 4 decode steps: max abs logit diff "
+          f"{worst:.4g} (tolerance 1e-3; {time.perf_counter() - t0:.1f} s)", flush=True)
+    del on_cpu, on_gpu, caches, params
+    return launches, {k: cache[k] for k in ("self_k", "cross_k", "cross_v")}
+
+
+def weights_read_bound_ms(params: torch.nn.Module, cfg, slots: int, length: int) -> tuple[float, int]:
+    """Least time of a decode tick of a dense LM on an H100 (bytes): every
+    weight read once but the input embedding (a row a slot) and a vlm's
+    patch positions, and the keys
+    and values of ``slots`` sequences of ``length`` positions in every
+    layer."""
+    nbytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                 if name not in ("embed.tok", "patch_pos"))
+    size = params.embed.tok.element_size()
+    nbytes += slots * cfg.d_model * size
+    nbytes += cfg.num_layers * 2 * slots * length * cfg.num_kv_heads * cfg.resolved_head_dim * size
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def internvl2_phase() -> dict[str, dict[str, int]]:
+    """Phase 20: internvl2-76b at full width (d 8192, 64 heads over 8 KV
+    heads of 128, d_ff 28,672, vocab 128,256, 256 patches) cut to 8 of its
+    80 layers (full depth is 141.1 GB in bf16).  The reference's serving
+    path for a vlm, text-only through ``ServeEngine`` as phase 17 serves
+    mixtral; then the multimodal path: 4 requests of 256 random patch
+    embeddings and a 128-token prompt through ``prefill(patches=)`` at batch
+    4 and 31 greedy decode ticks (8 flash launches a prefill, 8 decode a
+    tick), request 0 alone against its row; the peak memory; the decode
+    tick beside the bytes of the weights it reads; a cut of 1 layer at full
+    width in f32 held card against CPU on 256 patches and a 32-token prompt.
+    Returns each path's launches."""
+    import gc
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    V = VLM
+    arch, layers = "internvl2-76b", V["layers"]
+    api = get_model(arch)
+    cfg = dataclasses.replace(api.config, num_layers=layers)
+    check(cfg.param_count() == 8_948_686_848, f"{arch} cut to {layers} layers: {cfg.param_count()} parameters")
+    out: dict[str, dict[str, int]] = {}
+    served = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", layers),
+                                "decode_attention": (decode_attention_cuda, "tick", layers)},
+                         cut=None, layers=layers, profile_tokens=8)
+    out[f"{arch} {layers} layers"] = served.launches
+    params, readings = served.params, served.readings
+    del served
+    init_peak = torch.cuda.max_memory_allocated()  # the weights' f32 draws on the card, then serving
+    torch.cuda.reset_peak_memory_stats()
+    bound_ms, bound_bytes = weights_read_bound_ms(params, cfg, SERVE["slots"], readings["lockstep_len"])
+    print(f"vlm {arch}: decode {readings['decode_ms_per_tick']:.2f} ms a tick against a bound of {bound_ms:.3f} ms "
+          f"(bytes: {bound_bytes / 1e9:.2f} GB of weights and KV read once a tick)", flush=True)
+
+    rng = np.random.default_rng(0)
+    patches = torch.from_numpy((rng.standard_normal((V["requests"], cfg.num_patches, cfg.d_model)) * 0.1)
+                               .astype(np.float32)).to("cuda", torch.bfloat16)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (V["requests"], V["prompt"])).astype(np.int32)).cuda()
+
+    def multimodal(n: int):
+        cache = api.init_cache(n, V["max_len"], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, prompts[:n], cache, cfg, patches=patches[:n])
+        steps = [logits]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(V["ticks"]):
+            logits, cache = api.decode_step(params, logits.argmax(-1).to(torch.int32), cache, cfg)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        check(cache["pos"] == cfg.num_patches + V["prompt"] + V["ticks"], "vlm: the cache position counts the patches")
+        return steps, t1 - t0, time.perf_counter() - t1
+
+    multimodal(1)  # warm-up at the multimodal shapes
+    flash_attention_cuda.launches = decode_attention_cuda.launches = 0
+    steps, prefill_s, decode_s = multimodal(V["requests"])
+    mm = {"flash_attention": flash_attention_cuda.launches, "decode_attention": decode_attention_cuda.launches}
+    check(mm["flash_attention"] == layers, f"vlm multimodal: flash launches {mm['flash_attention']} == {layers}")
+    check(mm["decode_attention"] == layers * V["ticks"],
+          f"vlm multimodal: decode launches {mm['decode_attention']} == {layers} x {V['ticks']}")
+    check(all(bool(torch.isfinite(s).all()) for s in steps), "vlm multimodal: finite logits")
+    out[f"{arch} multimodal"] = mm
+    peak = torch.cuda.max_memory_allocated()
+    print(f"vlm {arch}: {V['requests']} requests of {cfg.num_patches} patches + {V['prompt']} tokens at batch "
+          f"{V['requests']}: prefill {prefill_s:.4f} s, decode {1e3 * decode_s / V['ticks']:.3f} ms a tick "
+          f"({V['ticks']} ticks), launches {mm}; peak {peak / 1e9:.2f} GB allocated of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB (with the weights' f32 draws at "
+          f"their making and the text-only serving run: {init_peak / 1e9:.2f} GB)", flush=True)
+    alone = teacher_forced(api, cfg, params, prompts[:1], {"patches": patches[:1]},
+                           torch.stack([s[0].argmax() for s in steps[:-1]]), V["max_len"])
+    free = multimodal(1)[0]
+    alone_against_batch(f"vlm {arch} multimodal", [s[:1] for s in steps], alone, [int(s[0].argmax()) for s in free])
+    mm_bound_ms, _ = weights_read_bound_ms(params, cfg, V["requests"], cfg.num_patches + V["prompt"] + V["ticks"])
+    print(json.dumps({"vlm": {"arch": arch, "layers": layers, "peak_bytes": peak, "init_peak_bytes": init_peak,
+                              "serve_decode_ms_per_tick": readings["decode_ms_per_tick"],
+                              "serve_decode_bound_ms": bound_ms, "multimodal_prefill_s": prefill_s,
+                              "multimodal_decode_ms_per_tick": 1e3 * decode_s / V["ticks"],
+                              "multimodal_decode_bound_ms": mm_bound_ms}}), flush=True)
+    del params, steps, alone, free
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one layer at full width in f32, on the card and on the CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
+    on_gpu = load_like(on_cpu, cut, "cuda")
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = V["cut_prompt"]
+    caches = {d: api.init_cache(1, 512, cut, device=d) for d in ("cpu", "cuda")}
+    extras = {d: {"patches": patches[:1].float().to(d)} for d in ("cpu", "cuda")}
+    lg, caches["cuda"] = api.prefill(on_gpu, prompts[:1, :n], caches["cuda"], cut, **extras["cuda"])
+    lc, caches["cpu"] = api.prefill(on_cpu, prompts[:1, :n].cpu(), caches["cpu"], cut, **extras["cpu"])
+    worst = 0.0
+    for step in range(4):
+        diff = float((lg.cpu() - lc).abs().max())
+        check(torch.allclose(lg.cpu(), lc, atol=1e-3, rtol=1e-3),
+              f"vlm f32 1-layer cut, step {step}: card == CPU within 1e-3 (max abs diff {diff})")
+        worst = max(worst, diff)
+        tok = lc.argmax(-1).to(torch.int32)
+        if step < 3:
+            lg, caches["cuda"] = api.decode_step(on_gpu, tok.cuda(), caches["cuda"], cut)
+            lc, caches["cpu"] = api.decode_step(on_cpu, tok, caches["cpu"], cut)
+    print(f"vlm {arch}: a 1-layer full-width cut in f32 ({cut.param_count()} parameters, made in {made_s:.1f} s), "
+          f"card vs CPU on {cfg.num_patches} patches + {n} tokens, prefill + 3 decode steps: max abs logit diff "
+          f"{worst:.4g} (tolerance 1e-3; {time.perf_counter() - t0:.1f} s)", flush=True)
+    del on_cpu, on_gpu, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampling_phase(kv: dict) -> None:
+    """Phase 21: sampling and the int8 KV cache on the card.  Seeded logits
+    [4, V] at qwen2.5-3b's vocabulary, ties planted at the top-k cut of row
+    0: greedy == argmax; each mask on the card == on the CPU bit for bit;
+    draws from a CUDA ``torch.Generator`` inside the mask.  whisper's real
+    KV cache from phase 19: ``quantize_kv`` / ``dequantize_kv`` on the card
+    == on the CPU bit for bit, and decode attention through the kernel over
+    the dequantized cross-attention cache within the reference's 0.05 of
+    the bf16 cache."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.kvcache import dequantize_kv, quantize_kv
+    from repro_torch.serve.sampling import SamplingConfig, mask_logits, sample
+
+    vocab = get_model("qwen2.5-3b").config.vocab
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy((rng.standard_normal((4, vocab)) * 3).astype(np.float32))
+    order = torch.argsort(logits[0], descending=True)
+    logits[0, order[30:60]] = float(logits[0, order[49]])  # ties across the 50th value
+    on_card = logits.cuda()
+    greedy = sample(on_card, torch.Generator(device="cuda").manual_seed(0))
+    check(torch.equal(greedy.cpu(), logits.argmax(-1).to(torch.int32)), "sampling: greedy == argmax on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for cfg in (SamplingConfig(temperature=0.7), SamplingConfig(temperature=1.0, top_k=50),
+                SamplingConfig(temperature=1.0, top_p=0.9), SamplingConfig(temperature=0.8, top_k=200, top_p=0.7)):
+        masked = mask_logits(on_card, cfg)
+        plain = mask_logits(logits, cfg)
+        check(torch.equal(masked.cpu(), plain), f"sampling {cfg}: the mask on the card == on the CPU, bit for bit")
+        kept = torch.isfinite(plain).sum(-1).tolist()
+        if cfg.top_k == 50 and not cfg.top_p < 1.0:
+            check(kept == [60, 50, 50, 50], f"sampling {cfg}: the tied row keeps its 30 ties at the 50th value")
+        draws = torch.stack([sample(on_card, gen, cfg) for _ in range(50)])
+        inside = torch.isfinite(masked.gather(1, draws.T.long())).all()
+        check(bool(inside), f"sampling {cfg}: 50 draws a row from a CUDA generator inside the mask")
+        print(f"sampling {cfg}: mask card == CPU bit for bit, kept {kept} of {vocab} a row, 50 draws a row "
+              f"inside it", flush=True)
+
+    for name, t in kv.items():
+        codes, scale = quantize_kv(t)
+        codes_c, scale_c = quantize_kv(t.cpu())
+        check(torch.equal(codes.cpu(), codes_c) and torch.equal(scale.cpu(), scale_c),
+              f"int8 {name} {tuple(t.shape)}: codes and scales on the card == on the CPU")
+        back = dequantize_kv(codes, scale)
+        check(torch.equal(back.cpu(), dequantize_kv(codes_c, scale_c)), f"int8 {name}: dequantized card == CPU")
+        print(f"int8 {name} {tuple(t.shape)} {t.dtype}: card == CPU bit for bit; round trip max abs error "
+              f"{float((back.float() - t.float()).abs().max()):.4g} (largest scale {float(scale.max()):.4g})",
+              flush=True)
+    k, v = kv["cross_k"][0], kv["cross_v"][0]  # layer 0: [B, Hkv, 1500, D] bf16
+    B, Hkv, S, D = k.shape
+    q = torch.from_numpy(rng.standard_normal((B, 8, D)).astype(np.float32)).to("cuda", k.dtype)
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    out = decode_attention_cuda(q, k, v, lengths)
+    out_q = decode_attention_cuda(q, dequantize_kv(kq, ks), dequantize_kv(vq, vs), lengths)
+    err = float((out.float() - out_q.float()).abs().max())
+    check(err < 0.05, f"int8: decode attention over the dequantized cache within 0.05 of the bf16 cache ({err})")
+    print(f"int8: decode attention (the kernel) over whisper's dequantized cross-attention cache {tuple(k.shape)}: "
+          f"max abs diff {err:.4g} from the bf16 cache (bound 0.05)", flush=True)
+
+
 MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launches a run
     "pso": ({"pop_size": 64, "iterations": 60}, 61),
     "sa": ({"chains": 32, "steps": 200}, 201),
     "aco": ({"ants": 48, "iterations": 60}, 60),
 }
-# The kernel == plain comparison's options where they differ from MH: SA's
-# plain run (94 s of a 930.9 s run on an H100 at 700 W) is cut to 50 steps,
-# the first cut the ROADMAP's facts allow once a run passes 800 s; the
-# kernel runs the same 50 steps beside it.
-MH_PLAIN = {"sa": {"chains": 32, "steps": 50}}
+# The kernel == plain comparison's options where they differ from MH, the
+# cuts the ROADMAP's facts allow, in their order, once a run passes 800 s:
+# SA's plain run (94 s of a 930.9 s run on an H100 at 700 W) was cut to 50
+# steps, then, at 912 s before phase 21 with the encdec and vlm phases,
+# to 20 steps, and PSO's and ACO's (25-28 s each) to 20 iterations; the
+# kernel runs the same options beside each.
+MH_PLAIN = {"pso": {"pop_size": 64, "iterations": 20}, "sa": {"chains": 32, "steps": 20},
+            "aco": {"ants": 48, "iterations": 20}}
 
 
 def makespan_class(name: str) -> str:
@@ -2627,7 +3077,9 @@ def main() -> int:
                    "qwen3-moe-30b-a3b": ("flash_attention", "decode_attention"),
                    "mixtral-8x7b": ("flash_attention", "decode_attention"),
                    "mamba2-780m": ("ssd_scan",),
-                   "zamba2-7b": ("ssd_scan", "flash_attention", "decode_attention")}
+                   "zamba2-7b": ("ssd_scan", "flash_attention", "decode_attention"),
+                   "deepseek-67b": ("flash_attention", "decode_attention"),
+                   "internvl2-76b": ("flash_attention", "decode_attention")}
     cli_launches: dict[str, dict[str, int]] = {}
     for arch, names in cli_kernels.items():
         for w in wrappers.values():
@@ -2637,6 +3089,14 @@ def main() -> int:
         cli_launches[arch] = {name: wrappers[name].launches for name in names}
         check(all(n > 0 for n in cli_launches[arch].values()), f"the {arch} CLI ran its kernels: {cli_launches[arch]}")
         print(f"cli {arch}: launches {cli_launches[arch]}", flush=True)
+    refused = None
+    try:
+        serve_cli.main(["--arch", "whisper-base"])
+    except SystemExit as e:
+        refused = str(e)
+    check(refused == "whisper-base serving needs frames input; see tests/test_models_smoke.py",
+          f"the whisper-base CLI exits with the reference's message, not {refused!r}")
+    print(f"cli whisper-base: exits with {refused!r}, as the reference's CLI", flush=True)
     phase_done(11, "the serving CLI on the card")
 
     # 12. PSO, SA and ACO on the makespan kernel at Table IX --------------------
@@ -2667,6 +3127,18 @@ def main() -> int:
     continuum_launches = continuum_phase()
     phase_done(18, "the ML-job continuum on the card")
 
+    # 19. the encdec family: whisper-base at full width and depth
+    whisper_launches, whisper_cache = whisper_phase()
+    phase_done(19, "whisper-base at full width and depth")
+
+    # 20. the vlm family: internvl2-76b at full width, 8 of its 80 layers
+    vlm_launches = internvl2_phase()
+    phase_done(20, "internvl2-76b at full width, 8 layers")
+
+    # 21. sampling and the int8 KV cache on the card
+    sampling_phase(whisper_cache)
+    phase_done(21, "sampling and the int8 KV cache")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
                         **service_launches, **campaign_launches, **topology_launches, **continuum_launches}
     record.update(service_record)
@@ -2679,7 +3151,8 @@ def main() -> int:
     by_path: dict[str, dict[str, int]] = {}
     paths = [("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches), ("zamba2-7b", zamba_launches),
              ("qwen3-moe-30b-a3b", moe_launches["qwen3-moe-30b-a3b"]),
-             ("mixtral-8x7b 8 layers", moe_launches["mixtral-8x7b"])]
+             ("mixtral-8x7b 8 layers", moe_launches["mixtral-8x7b"]), ("whisper-base", whisper_launches),
+             *vlm_launches.items()]
     paths += [(f"cli {arch}", run) for arch, run in cli_launches.items()]
     for path, run in paths:
         for name, n in run.items():

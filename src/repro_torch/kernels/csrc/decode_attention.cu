@@ -9,8 +9,8 @@
 //
 // What it computes, for q [B, H, D], caches [B, Hkv, S, D] and lengths [B]:
 // head h reads kv head h / (H / Hkv); key c is visible when c < lengths[b]
-// (clamped to [0, S]); logits are (q / sqrt(D)).k, then softcap * tanh(s /
-// softcap); f32 softmax state; no visible key gives 0.  The order of the
+// (clamped to [0, S]); logits are (q * scale).k (the caller's scale, D^-0.5
+// by default), then softcap * tanh(s / softcap); f32 softmax state; no visible key gives 0.  The order of the
 // keys does not matter, so a ring-buffered window cache needs only its
 // length.
 //
@@ -47,8 +47,8 @@
 // lengths on the device (none: zeros).  All on the CUDA cores: the function
 // is bound by bytes.
 //
-// Head widths: every D that is a multiple of 16 from 16 to 256, as the TPU
-// kernel takes any D.  The split kernel is built for a padded width DP of
+// Head widths: every D that is a multiple of 8 from 8 to 256 (a bf16 row is
+// whole 16-byte cp.async units), as the TPU kernel takes any D.  The split kernel is built for a padded width DP of
 // 64, 128, 192 or 256, the true D a runtime argument: its shared-memory
 // rows of q and k are DP wide, the pad zeroed once, so each lane reads an
 // even number of columns (DP / 32) of every row; cp.async copies only the D
@@ -353,9 +353,8 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* o,
                    float* scratch, int B, int H, int Hkv, int S, int D, int splits, int chunk,
-                   float softcap, cudaStream_t stream) {
+                   float softcap, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const size_t smem = smem_bytes<T, DP>(G);
   cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -390,17 +389,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* lengths,
                      void* o, float* scratch, int B, int H, int Hkv, int S, int splits, int chunk,
-                     float softcap, cudaStream_t stream) {
+                     float softcap, float scale, cudaStream_t stream) {
   if (!takes_head_dim(D)) return cudaErrorInvalidValue;
   switch (padded_width(D)) {
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
+      return launch<T, 64>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
+      return launch<T, 128>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     case 192:
-      return launch<T, 192>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
+      return launch<T, 192>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     default:
-      return launch<T, 256>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, stream);
+      return launch<T, 256>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
   }
 }
 
@@ -432,16 +431,18 @@ extern "C" long long decode_attention_max_smem() {
 // Launches both kernels on `stream` and returns cudaGetLastError(); 0 means
 // launched.  scratch: B * H * splits * (D + 2) floats; chunk: keys per split,
 // splits * chunk >= S.  bf16 != 0:
-// bfloat16 tensors, else float32.  softcap <= 0: no softcap.
+// bfloat16 tensors, else float32.  softcap <= 0: no softcap; scale
+// multiplies the logits (the wrapper passes D^-0.5 unless asked).
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* lengths,
                                 void* o, void* scratch, int B, int H, int Hkv, int S, int D,
-                                int splits, int chunk, int bf16, float softcap, void* stream) {
+                                int splits, int chunk, int bf16, float softcap, float scale,
+                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* sc = static_cast<float*>(scratch);
   const cudaError_t e =
-      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, s)
-           : launch_d<float>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, s);
+      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s)
+           : launch_d<float>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s);
   return static_cast<int>(e);
 }
 

@@ -7,17 +7,19 @@
 //
 // What it computes, for q [B, H, Sq, D] and k, v [B, Hkv, Skv, D]: query row
 // r sits at kv position r + (Skv - Sq); it sees column c when c <= r + off
-// (causal) and c > r + off - window (window); logits are q.k / sqrt(D), then
+// (causal) and c > r + off - window (window); logits are q.k * scale (the
+// caller's, D^-0.5 by default), then
 // softcap * tanh(s / softcap); the running max, sum and accumulator are f32;
 // a row that sees nothing (l == 0) gives zeros.  Unlike the TPU kernel it
 // takes any Sq and Skv.  Fully masked kv tiles are skipped, as the TPU
 // kernel's pl.when does.
 //
 // Head widths.  The TPU kernel takes any D; this one takes every D that is
-// a multiple of 16 from 16 to 256 (wgmma's k16 steps).  Each kernel is built
+// a multiple of 8 from 8 to 256, so that a bf16 row is whole 16-byte units
+// (TMA's row stride).  Each kernel is built
 // for a padded width DP of 64, 128, 192 or 256 columns, the true D a
 // runtime argument: the columns from D to DP are zeros in shared memory and
-// are never stored.  The bf16 kernel's products both run over DP, so at
+// are never stored, so the k16 steps of wgmma past D multiply zeros.  The bf16 kernel's products both run over DP, so at
 // zamba2-7b's D 112 (DP 128) it does 8/7 of the products the function
 // needs: stopping the Q K^T steps at D on a runtime condition made ptxas
 // put warpgroup.arrive between the products and spill at DP 256.
@@ -44,7 +46,7 @@
 // DP/16 steps, each 128-byte box of a row reached through the descriptor's
 // start address.  A row of D columns arrives as ceil(D/64) boxes of 64: the
 // tensor maps' width is D, so the columns of the last box past D (all but
-// 16 of them at D 16) are filled with zeros by TMA.  The f32 S fragment
+// 8 of them at D 8) are filled with zeros by TMA.  The f32 S fragment
 // holds, per thread, two rows' values at the columns of the next product's
 // register A fragment, so a row's max and sum are two shuffles across a
 // quad, and P goes to O += P V straight from registers; V [keys, D] is the
@@ -132,12 +134,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float* ks = qs + C::BQ * C::QS;   // [BK][QS]
   float* vs = ks + C::BK * C::QS;   // [BK][DP]
   float* ps = vs + C::BK * DP;      // [BQ][PS]
-  const int dn = D / 8;             // this thread's real output columns
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int q0 = blockIdx.x * C::BQ;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+  const int dn = (D - cg + 7) / 8;  // this thread's real output columns: cg + 8 j < D
   const int off = Skv - Sq;  // kv position of query row 0
   const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
   const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
@@ -503,7 +505,7 @@ bool bf16_map(CUtensorMap* map, const void* base, int D, int rows, int planes) {
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                         int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap,
-                        cudaStream_t stream) {
+                        float scale, cudaStream_t stream) {
   using C = TcTile<DP>;
   if (Skv == 0)  // no row sees a key
     return cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Sq * D * 2, stream);
@@ -512,7 +514,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   if (!bf16_map(&qm, q, D, Sq, B * H) || !bf16_map(&km, k, D, Skv, B * Hkv) ||
       !bf16_map(&vm, v, D, Skv, B * Hkv))
     return cudaErrorInvalidValue;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel_bf16_wgmma<DP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(C::smem));
@@ -527,9 +528,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                        int Sq, int Skv, int D, int causal, int window, float softcap,
-                       cudaStream_t stream) {
+                       float scale, cudaStream_t stream) {
   using C = Tile<DP>;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel<float, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::smem));
@@ -544,14 +544,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 template <int DP>
 cudaError_t launch(int bf16, const void* q, const void* k, const void* v, void* o, int B, int H,
                    int Hkv, int Sq, int Skv, int D, int causal, int window, float softcap,
-                   cudaStream_t stream) {
-  return bf16 ? launch_bf16<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, stream)
-              : launch_f32<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, stream);
+                   float scale, cudaStream_t stream) {
+  return bf16 ? launch_bf16<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, stream)
+              : launch_f32<DP>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, stream);
 }
 
 }  // namespace
 
-// Head widths the kernel takes: multiples of 16 from 16 to 256.
+// Head widths the kernel takes: multiples of 8 from 8 to 256.
 extern "C" int flash_attention_supports(int D) { return takes_head_dim(D); }
 
 // Dynamic shared memory of one block at head width D, for bf16 (wgmma) or
@@ -568,18 +568,19 @@ extern "C" long long flash_attention_smem(int D, int bf16) {
 
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
 // bf16 != 0: bfloat16 tensors (the wgmma kernel), else float32 (the
-// CUDA-core kernel).  window <= 0: no window; softcap <= 0: no softcap.
+// CUDA-core kernel).  window <= 0: no window; softcap <= 0: no softcap;
+// scale multiplies the logits (the wrapper passes D^-0.5 unless asked).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
                                int Hkv, int Sq, int Skv, int D, int bf16, int causal, int window,
-                               float softcap, void* stream) {
+                               float softcap, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!flash_attention_supports(D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   switch (padded_width(D)) {
-    case 64: e = launch<64>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
-    case 128: e = launch<128>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
-    case 192: e = launch<192>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s); break;
-    default: e = launch<256>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, s);
+    case 64: e = launch<64>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, s); break;
+    case 128: e = launch<128>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, s); break;
+    case 192: e = launch<192>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, s); break;
+    default: e = launch<256>(bf16, q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale, s);
   }
   return static_cast<int>(e);
 }

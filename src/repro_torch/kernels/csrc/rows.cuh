@@ -10,10 +10,11 @@
 
 namespace {
 
-// Head widths the attention kernels take: multiples of 16 (wgmma's k16
-// steps) from 16 to 256, each held in a padded width of 64, 128, 192 or
-// 256 columns.
-__host__ __device__ constexpr bool takes_head_dim(int D) { return D >= 16 && D <= 256 && D % 16 == 0; }
+// Head widths the attention kernels take: multiples of 8 from 8 to 256,
+// so a bf16 row is whole 16-byte units (TMA's row stride, the 16-byte
+// loads), each held in a padded width of 64, 128, 192 or 256 columns whose
+// columns past D are zeros.
+__host__ __device__ constexpr bool takes_head_dim(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
 __host__ __device__ constexpr int padded_width(int D) { return (D + 63) / 64 * 64; }
 
 __device__ __forceinline__ void unpack(const uint4& raw, float* x, const float*) {

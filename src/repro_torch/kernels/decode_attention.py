@@ -3,7 +3,8 @@
 Two versions of one function, ``(q [B, H, D], k_cache, v_cache [B, Hkv, S,
 D], lengths [B] int32) -> o [B, H, D]`` in q's dtype: head ``h`` reads kv
 head ``h // (H // Hkv)``, key ``c`` is visible when ``c < lengths[b]``, the
-logits are softcapped where asked, and the softmax state is f32:
+logits are scaled (``D**-0.5`` unless the caller gives a scale) and
+softcapped where asked, and the softmax state is f32:
 
 * :func:`decode_attention_ref` — the plain PyTorch version.  Its numerics
   follow the TPU kernel ``repro/kernels/decode_attention.py::_decode_kernel``,
@@ -36,6 +37,7 @@ from repro_torch.kernels.flash_attention import (
     check_alignment,
     check_attention_args,
     kernel_takes_head_dim,
+    softmax_scale,
 )
 
 _MAX_GRID_YZ = 65535
@@ -59,10 +61,10 @@ def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple[int, int
 
 def check_decode_launch(B: int, Hkv: int, D: int) -> None:
     """Raise on what the split-KV kernel does not take: a head width that is
-    not a multiple of 16 from 16 to 256, and a batch or kv-head count beyond
+    not a multiple of 8 from 8 to 256, and a batch or kv-head count beyond
     the grid's y and z limits."""
     if not kernel_takes_head_dim(D):
-        raise ValueError(f"the decode kernel takes head widths that are multiples of 16 from 16 "
+        raise ValueError(f"the decode kernel takes head widths that are multiples of 8 from 8 "
                          f"to {MAX_HEAD_DIM}, not {D}")
     if B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or kv heads {Hkv} exceed the kernel grid's {_MAX_GRID_YZ}")
@@ -93,16 +95,18 @@ def decode_attention_ref(
     lengths: torch.Tensor,  # [B] int32
     *,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch decode attention with the kernel's arithmetic: f32
-    logits of the query scaled by ``D**-0.5``, softcap, masked max, ``p = exp(s - m)`` on
-    the valid prefix only, ``(p v) / l`` with p in f32."""
+    logits of the query scaled by ``scale`` (``D**-0.5`` when None),
+    softcap, masked max, ``p = exp(s - m)`` on the valid prefix only,
+    ``(p v) / l`` with p in f32."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     if S == 0:
         return torch.zeros_like(q)
     group = H // Hkv
-    qg = (q.float() * D**-0.5).reshape(B, Hkv, group, D)
+    qg = (q.float() * softmax_scale(D, scale)).reshape(B, Hkv, group, D)
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -122,7 +126,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared."""
     lib = _build.load("decode_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [f32, ptr]
+    lib.decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [f32, f32, ptr]
     lib.decode_attention.restype = i32
     lib.decode_attention_smem.argtypes = [i32, i32, i32]
     lib.decode_attention_smem.restype = ctypes.c_longlong
@@ -138,9 +142,11 @@ def decode_attention_cuda(
     lengths: torch.Tensor,  # [B] int32
     *,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """The CUDA kernel ``csrc/decode_attention.cu`` on PyTorch's current
-    stream, or, for tensors on the CPU, :func:`decode_attention_ref`.
+    stream, or, for tensors on the CPU, :func:`decode_attention_ref`.  The
+    logits are scaled by ``scale``, ``D**-0.5`` when it is None.
 
     Takes contiguous float32 or bfloat16 tensors of one dtype and contiguous
     int32 lengths, all on one device, on the CPU as on the card, and raises
@@ -158,7 +164,7 @@ def decode_attention_cuda(
             f"{tuple(lengths.shape)} on {lengths.device}"
         )
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap)
+        return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
     with torch.cuda.device(q.device):  # the library queries the current card
         splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
     check_alignment(q, k_cache, v_cache)
@@ -171,7 +177,8 @@ def decode_attention_cuda(
         err = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(),
             scratch.data_ptr(), B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16),
-            0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
+            0.0 if softcap is None else softcap, softmax_scale(D, scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "decode_attention launch")
     decode_attention_cuda.launches += 1

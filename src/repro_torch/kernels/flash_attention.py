@@ -4,7 +4,8 @@ Two versions of one function, ``(q [B, H, Sq, D], k, v [B, Hkv, Skv, D]) ->
 o [B, H, Sq, D]`` in q's dtype, with GQA (head ``h`` reads kv head
 ``h // (H // Hkv)``), causal masking with the query rows at the end of the
 keys (``q_offset = Skv - Sq``), a sliding window (``col > row - window``)
-and a logit softcap (``c * tanh(s / c)``), all in f32:
+a logit softcap (``c * tanh(s / c)``) and a softmax scale (``D**-0.5``
+unless the caller gives one), all in f32:
 
 * :func:`flash_attention_ref` — the plain PyTorch version.  It follows the
   TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``, not the
@@ -18,8 +19,9 @@ and a logit softcap (``c * tanh(s / c)``), all in f32:
   ``flash_attention_cuda.launches`` counts its kernel launches.
 
 Unlike the TPU kernel, both take any ``Sq`` and ``Skv``.  The TPU kernel
-takes any head width D; the CUDA kernel takes every multiple of 16 from 16 to
-:data:`MAX_HEAD_DIM` (:func:`kernel_takes_head_dim`).
+takes any head width D; the CUDA kernel takes every multiple of 8 from 8 to
+:data:`MAX_HEAD_DIM` (:func:`kernel_takes_head_dim`): a bf16 row is then
+whole 16-byte units, as TMA's row stride needs.
 """
 
 from __future__ import annotations
@@ -39,8 +41,15 @@ MAX_HEAD_DIM = 256  # the widest head the CUDA kernels take
 
 def kernel_takes_head_dim(D: int) -> bool:
     """Whether the CUDA attention kernels (flash and decode) take head
-    width ``D``: a multiple of 16 (wgmma's k16 steps) from 16 to 256."""
-    return 16 <= D <= MAX_HEAD_DIM and D % 16 == 0
+    width ``D``: a multiple of 8 from 8 to 256, so a bf16 row is whole
+    16-byte units (TMA's row stride, the 16-byte loads); the kernels hold
+    it zero-padded to 64, 128, 192 or 256 columns."""
+    return 8 <= D <= MAX_HEAD_DIM and D % 8 == 0
+
+
+def softmax_scale(D: int, scale: float | None) -> float:
+    """The logits' scale: ``scale``, or ``D**-0.5`` when it is None."""
+    return D**-0.5 if scale is None else float(scale)
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int | None,
@@ -65,17 +74,18 @@ def flash_attention_ref(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch attention over the whole ``[Sq, Skv]`` score matrix,
     with the kernel's arithmetic: f32 logits of the query scaled by
-    ``D**-0.5``, softcap,
+    ``scale`` (``D**-0.5`` when None), softcap,
     masked max, ``p = exp(s - m)`` on visible keys only, ``(p v) / l``."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if Skv == 0:
         return torch.zeros_like(q)
     group = H // Hkv
-    qg = (q.float() * D**-0.5).reshape(B, Hkv, group, Sq, D)
+    qg = (q.float() * softmax_scale(D, scale)).reshape(B, Hkv, group, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -94,7 +104,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared."""
     lib = _build.load("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention.argtypes = [ptr] * 4 + [i32] * 9 + [f32, ptr]
+    lib.flash_attention.argtypes = [ptr] * 4 + [i32] * 9 + [f32, f32, ptr]
     lib.flash_attention.restype = i32
     lib.flash_attention_supports.argtypes = [i32]
     lib.flash_attention_supports.restype = i32
@@ -151,9 +161,11 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """The CUDA kernel ``csrc/flash_attention.cu`` on PyTorch's current
-    stream, or, for tensors on the CPU, :func:`flash_attention_ref`.
+    stream, or, for tensors on the CPU, :func:`flash_attention_ref`.  The
+    logits are scaled by ``scale``, ``D**-0.5`` when it is None.
 
     Takes contiguous float32 or bfloat16 tensors of one dtype on one device,
     on the CPU as on the card, and raises on anything else; on the card also
@@ -161,11 +173,12 @@ def flash_attention_cuda(
     and on grids beyond the launch limits."""
     check_attention_args(q, k, v, q_dims=4, window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   scale=scale)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if not kernel_takes_head_dim(D):
-        raise ValueError(f"the flash kernel takes head widths that are multiples of 16 from 16 "
+        raise ValueError(f"the flash kernel takes head widths that are multiples of 8 from 8 "
                          f"to {MAX_HEAD_DIM}, not {D}")
     lib = _library()
     if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
@@ -178,7 +191,8 @@ def flash_attention_cuda(
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, Sq, Skv, D,
             int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else window,
-            0.0 if softcap is None else softcap, torch.cuda.current_stream(q.device).cuda_stream,
+            0.0 if softcap is None else softcap, softmax_scale(D, scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash_attention launch")
     flash_attention_cuda.launches += 1

@@ -6,14 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --device cpu
 
 Runs on the card unless ``--device cpu`` asks for the CPU.  Every arch of
-the registry serves its reduced config: the dense ones, the MoE ones
-(qwen3-moe-30b-a3b, mixtral-8x7b, whose window of 8 takes the ring-buffer
-caches and the attention kernels' ``window=``), and the ssm and hybrid ones
-(mamba2-780m, zamba2-7b), whose chunk 16, state width 16 and head width 16
-go to the SSD kernel's chunk-serial design.  deepseek-67b's reduced head
-width of 8 is below the attention kernels' 16, so it serves on the CPU only.
+the registry but whisper-base serves its reduced config: the dense ones
+(deepseek-67b's head width 8 too), the MoE ones (qwen3-moe-30b-a3b,
+mixtral-8x7b, whose window of 8 takes the ring-buffer caches and the
+attention kernels' ``window=``), the ssm and hybrid ones (mamba2-780m,
+zamba2-7b), whose chunk 16, state width 16 and head width 16 go to the SSD
+kernel's chunk-serial design, and internvl2-76b text-only, as the
+reference's engine passes no patches.  whisper-base needs frames, which
+the engine does not pass: the CLI exits with the reference's message.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ def main(argv: list[str] | None = None) -> None:
 
     api = get_model(args.arch)
     cfg = api.reduced
+    if cfg.family == "encdec":
+        raise SystemExit("whisper-base serving needs frames input; see tests/test_models_smoke.py")
     device = torch.device(args.device)
     generator = torch.Generator(device=device).manual_seed(0)
     params = api.init(generator, cfg, device=device)

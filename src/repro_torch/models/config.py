@@ -4,7 +4,7 @@
 One frozen dataclass describes every architecture family of the reference:
 dense decoder LMs (llama/qwen style, gemma2 local-global + softcaps), MoE,
 SSM (mamba2 SSD), hybrid (zamba2), encoder-decoder (whisper) and VLM
-backbones.  The port serves the dense, MoE, ssm and hybrid families;
+backbones.  The port has every one of these families;
 ``param_count`` covers all of them, as in the reference.
 """
 from __future__ import annotations

@@ -8,12 +8,17 @@ layer-group axis (an MoE block's ``moe`` holds ``router.w`` ``[d, E]``,
 f32 even in a bf16 model, and ``gate``, ``up``, ``down`` ``[E, d, f]`` /
 ``[E, f, d]``, each behind that axis); for
 the ssm and hybrid families it is one dict ``{"ln", "mamba"}`` with a
-leading layer axis, and the hybrid's ``shared`` block is not stacked.  The
-port's modules name their parameters by the same keys and give the stacked
-axis as a module index: ``blocks.<slot>.<group>.<path>``
-(:class:`~repro_torch.models.transformer.Transformer`) or
-``blocks.<layer>.<path>`` (:class:`~repro_torch.models.ssm.Mamba2LM`,
-:class:`~repro_torch.models.hybrid.HybridLM`).
+leading layer axis, and the hybrid's ``shared`` block is not stacked; a vlm
+is a transformer with ``patch_pos``; an encdec model has ``enc_blocks`` and
+``dec_blocks``, each stacked on a layer axis, and ``pos_enc``, ``pos_dec``
+and ``ln_enc_final`` beside ``embed`` and ``ln_final``.  The port's modules
+name their parameters by the same keys and give the stacked axis as a
+module index: ``blocks.<slot>.<group>.<path>``
+(:class:`~repro_torch.models.transformer.Transformer`,
+:class:`~repro_torch.models.vlm.VLM`), ``blocks.<layer>.<path>``
+(:class:`~repro_torch.models.ssm.Mamba2LM`,
+:class:`~repro_torch.models.hybrid.HybridLM`) or ``enc_blocks.<layer>``,
+``dec_blocks.<layer>`` (:class:`~repro_torch.models.encdec.EncDec`).
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.vlm import VLM
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Iterator[tuple[str, object]]:
@@ -64,13 +71,18 @@ def _unstack(stack: Mapping) -> dict:
     return {str(i): {k: np.asarray(v)[i] for k, v in leaves.items()} for i in range(n)}
 
 
-def params_from_arrays(tree: Mapping, cfg: ModelConfig,
-                       device: torch.device | str = "cuda") -> Transformer | Mamba2LM | HybridLM:
+def params_from_arrays(tree: Mapping, cfg: ModelConfig, device: torch.device | str = "cuda"
+                       ) -> Transformer | VLM | Mamba2LM | HybridLM | EncDec:
     """The port's parameters holding the values of the reference pytree
-    ``tree`` of a dense, MoE, ssm or hybrid model, in ``cfg.dtype`` on ``device``
-    (f32 where the model keeps a parameter in f32)."""
+    ``tree`` of a model of any family, in ``cfg.dtype`` on ``device`` (f32
+    where the model keeps a parameter in f32)."""
     flat = {"embed": tree["embed"], "ln_final": tree["ln_final"]}
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        flat.update({k: tree[k] for k in ("pos_enc", "pos_dec", "ln_enc_final")})
+        flat["enc_blocks"] = _unstack(tree["enc_blocks"])
+        flat["dec_blocks"] = _unstack(tree["dec_blocks"])
+        params = EncDec(cfg, torch.device("meta"))
+    elif cfg.family == "ssm":
         flat["blocks"] = _unstack(tree["blocks"])
         params = Mamba2LM(cfg, torch.device("meta"))
     elif cfg.family == "hybrid":
@@ -79,5 +91,9 @@ def params_from_arrays(tree: Mapping, cfg: ModelConfig,
         params = HybridLM(cfg, torch.device("meta"))
     else:
         flat["blocks"] = {str(slot): _unstack(stack) for slot, stack in enumerate(tree["blocks"])}
-        params = Transformer(cfg, torch.device("meta"))
+        if cfg.family == "vlm":
+            flat["patch_pos"] = tree["patch_pos"]
+            params = VLM(cfg, torch.device("meta"))
+        else:
+            params = Transformer(cfg, torch.device("meta"))
     return load_arrays(params.to_empty(device=device), flat)

@@ -182,18 +182,32 @@ def attention_forward(
     cfg: ModelConfig,
     *,
     window: int | None = None,
+    causal: bool = True,
+    use_rope: bool = True,
+    positions: torch.Tensor | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Causal full-sequence attention (prefill) at positions ``0 .. S-1``.
-    Returns (out, (k, v)) with k, v in the cache layout ``[B, Hkv, S, D]``."""
+    """Full-sequence attention (prefill): causal by default, with RoPE at
+    ``positions`` (default ``0 .. S-1``).  ``kv_override`` gives the keys
+    and values ``[B, Hkv, Skv, D]`` from elsewhere (cross-attention: no
+    RoPE; the reference projects this block's k and v and drops them, the
+    port does not project them).  Returns
+    (out, (k, v)) with k, v in the cache layout ``[B, Hkv, S, D]``."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    sin, cos = rope_tables(torch.arange(S, device=x.device), cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
-    kc = k.transpose(1, 2).contiguous()  # [B, Hkv, S, D]
-    vc = v.transpose(1, 2).contiguous()
+    if kv_override is not None:
+        q = linear(p.q, x).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+        kc, vc = kv_override
+    else:
+        q, k, v = _project_qkv(p, x, cfg)
+        if use_rope:
+            pos = torch.arange(S, device=x.device) if positions is None else positions
+            sin, cos = rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+            q = apply_rope(q, sin, cos)
+            k = apply_rope(k, sin, cos)
+        kc = k.transpose(1, 2).contiguous()  # [B, Hkv, S, D]
+        vc = v.transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()  # [B, H, S, D]
-    o = flash_attention_cuda(qh, kc, vc, window=window, softcap=cfg.attn_softcap)
+    o = flash_attention_cuda(qh, kc, vc, causal=causal, window=window, softcap=cfg.attn_softcap)
     o = o.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
     return linear(p.o, o), (kc, vc)
 
@@ -219,24 +233,29 @@ def attention_decode(
     pos: int | torch.Tensor,  # [] or [B]: the position of the new token
     *,
     window: int | None = None,
+    use_rope: bool = True,
+    update_cache: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode against a KV cache; returns (out, k_cache, v_cache).
 
     The new token's k and v are written into the caches in place (the
     reference returns updated copies; writing in place saves a copy of the
-    cache per layer and step).  A window-sized cache is a ring buffer: the
-    token goes to slot ``pos % S`` and at most ``S`` keys are visible."""
+    cache per layer and step), unless ``update_cache`` is False.  A
+    window-sized cache is a ring buffer: the token goes to slot ``pos % S``
+    and at most ``S`` keys are visible."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)  # S == 1
     posb = torch.as_tensor(pos, device=x.device).broadcast_to((B,))
-    sin, cos = rope_tables(posb[:, None], cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)  # q, k [B, 1, H, D]; sin, cos [B, 1, D/2]
-    k = apply_rope(k, sin, cos)
+    if use_rope:
+        sin, cos = rope_tables(posb[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)  # q, k [B, 1, H, D]; sin, cos [B, 1, D/2]
+        k = apply_rope(k, sin, cos)
     S = k_cache.shape[2]
-    slot = posb % S
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
+    if update_cache:
+        slot = posb % S
+        bidx = torch.arange(B, device=x.device)
+        k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
     lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
     o = decode_attention_cuda(q[:, 0].contiguous(), k_cache, v_cache, lengths,
                               softcap=cfg.attn_softcap)

@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution for the serving CLI.
 
 Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
-on the CPU, and its family module.  The port has the dense, MoE, ssm and
-hybrid families; the reference's other architectures raise :class:`KeyError`
-naming the ROADMAP item that ports them.  The reference's dry-run specs (``batch_specs``,
-``param_specs``, ``cache_specs``) belong to ``launch/dryrun``, not ported
-yet.
+on the CPU, and its family module: every architecture of the reference, in
+the dense, MoE, ssm, hybrid, encdec and vlm families.  The reference's
+dry-run specs (``batch_specs``, ``param_specs``, ``cache_specs``) belong to
+``launch/dryrun``, not ported yet.
 """
 
 from __future__ import annotations
@@ -27,21 +26,19 @@ ARCH_MODULES: dict[str, str] = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
-
-# the reference's other architectures, and where ROADMAP ports them
-NOT_PORTED: dict[str, str] = {
-    "whisper-base": "Queue A item 8d (the encdec family)",
-    "internvl2-76b": "Queue A item 8f (the vlm family)",
-}
 
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "moe": "repro_torch.models.transformer",
     "ssm": "repro_torch.models.ssm",
     "hybrid": "repro_torch.models.hybrid",
+    "encdec": "repro_torch.models.encdec",
+    "vlm": "repro_torch.models.vlm",
 }
 
 
@@ -57,14 +54,17 @@ class ModelApi:
         return self.module.init_params(generator, cfg or self.config, device)
 
     def forward(self, params, batch: dict, cfg: ModelConfig | None = None):
+        """batch {"tokens"}, with {"frames"} (encdec) or {"patches"} (vlm)."""
         return self.module.forward(params, cfg or self.config, batch)
 
     def init_cache(self, batch: int, max_len: int, cfg: ModelConfig | None = None,
                    device: torch.device | str = "cuda") -> dict:
         return self.module.init_cache(cfg or self.config, batch, max_len, device)
 
-    def prefill(self, params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig | None = None):
-        return self.module.prefill(params, cfg or self.config, tokens, cache)
+    def prefill(self, params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig | None = None,
+                **extras):
+        """``extras``: ``frames=`` (encdec, required) or ``patches=`` (vlm)."""
+        return self.module.prefill(params, cfg or self.config, tokens, cache, **extras)
 
     def decode_step(self, params, token: torch.Tensor, cache: dict,
                     cfg: ModelConfig | None = None):
@@ -73,8 +73,6 @@ class ModelApi:
 
 def get_model(arch: str) -> ModelApi:
     if arch not in ARCH_MODULES:
-        if arch in NOT_PORTED:
-            raise KeyError(f"arch {arch!r} is not ported yet: ROADMAP {NOT_PORTED[arch]}")
         raise KeyError(f"unknown arch {arch!r}; options: {sorted(ARCH_MODULES)}")
     cfg_mod = importlib.import_module(ARCH_MODULES[arch])
     config: ModelConfig = cfg_mod.CONFIG

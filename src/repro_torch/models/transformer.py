@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, dense and MoE families.
+"""Decoder-only transformer LM, dense and MoE families, and the vlm family's
+language model (``models/vlm.py`` prepends patch embeddings through
+``forward({"embeds": ...})`` and ``prefill(embeds=)``).
 
 Ported from the reference's ``repro/models/transformer.py``.  The reference
 stacks each window slot's layers along a leading axis and runs them with
@@ -29,12 +31,7 @@ from repro_torch.models.moe import MoE, moe_ffn
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm family (vlm.py, prefill with embeds) is not ported yet "
-            "(ROADMAP Queue A item 8f)"
-        )
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a transformer LM")
 
 
@@ -127,9 +124,10 @@ def _block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, window: int | No
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": the
-    sum of the layers' MoE load-balance losses, 0 for a dense model})."""
-    x = L.embed(params.embed, batch["tokens"], cfg)
+    """batch {"tokens": [B, S]} (or {"embeds": [B, S, d]}, the vlm's prefix
+    path) -> (logits [B, S, V] f32, {"aux_loss": the sum of the layers' MoE
+    load-balance losses, 0 for a dense model})."""
+    x = batch["embeds"] if "embeds" in batch else L.embed(params.embed, batch["tokens"], cfg)
     aux_loss = torch.zeros((), device=x.device)
     for _, _, w, p in _layers(params, cfg):
         x, _, aux = _block_forward(p, x, cfg, w)
@@ -162,14 +160,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"kv": tuple(caches), "pos": 0}
 
 
-def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict) -> tuple[torch.Tensor, dict]:
-    """Run the whole prompt ``tokens [B, S]`` and write its keys and values
-    into ``cache`` in place (a window slot keeps the last ``window``
-    positions, laid out as its ring buffer).  Returns (last-position logits
-    [B, V] f32, the cache at position S)."""
-    S = tokens.shape[1]
-    x = L.embed(params.embed, tokens, cfg)
+def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+            embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """Run the whole prompt ``tokens [B, S]``, or ``embeds [B, S, d]`` in
+    their place, and write its keys and values into ``cache`` in place (a
+    window slot keeps the last ``window`` positions, laid out as its ring
+    buffer).  Returns (last-position logits [B, V] f32, the cache at
+    position S)."""
+    x = L.embed(params.embed, tokens, cfg) if embeds is None else embeds
+    S = x.shape[1]
     for grp, s, w, p in _layers(params, cfg):
         x, (kc, vc), _ = _block_forward(p, x, cfg, w)
         L.write_prompt_kv(cache["kv"][s]["k"][grp], kc)

@@ -112,6 +112,20 @@ def test_flash_plain_matches_oracle_at_ragged_lengths(Sq, Skv, kw, dtype):
     _close(flash_attention_ref(q, k, v, **kw), ref.flash_attention_ref(jq, jk, jv, **kw), TOL[dtype])
 
 
+@pytest.mark.parametrize("D,scale", [(32, 0.1), (8, None), (8, 0.1)],
+                         ids=["scale-0.1", "width-8", "width-8-scale-0.1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_scale_and_width_8(D, scale, dtype):
+    """An explicit softmax scale, and deepseek-67b's reduced head width 8,
+    GQA 4 (8 heads over 2), causal and not."""
+    (jq, jk, jv), (q, k, v) = _inputs(12, [(2, 8, 128, D), (2, 2, 128, D), (2, 2, 128, D)], dtype)
+    for causal in (True, False):
+        out = flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        _close(out, flash_attention_pallas(jq, jk, jv, causal=causal, scale=scale, block_q=64, block_k=64),
+               TOL[dtype])
+        assert torch.equal(flash_attention_cuda(q, k, v, causal=causal, scale=scale), out)
+
+
 # -----------------------------------------------------------------------------
 # decode attention
 # -----------------------------------------------------------------------------
@@ -149,6 +163,20 @@ def test_decode_plain_matches_pallas_ragged_lengths_and_softcap(dtype):
     out = decode_attention_ref(q, k, v, torch.from_numpy(lengths), softcap=50.0)
     _close(out, decode_attention_pallas(jq, jk, jv, jnp.asarray(lengths), softcap=50.0), TOL[dtype])
     assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("D,scale", [(32, 0.1), (8, None), (8, 0.1)],
+                         ids=["scale-0.1", "width-8", "width-8-scale-0.1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_scale_and_width_8(D, scale, dtype):
+    """An explicit softmax scale, and deepseek-67b's reduced head width 8,
+    GQA 4, at ragged lengths with a softcap."""
+    (jq, jk, jv), (q, k, v) = _inputs(13, [(3, 8, D), (3, 2, 256, D), (3, 2, 256, D)], dtype)
+    lengths = np.asarray([256, 1, 100], np.int32)
+    out = decode_attention_ref(q, k, v, torch.from_numpy(lengths), softcap=30.0, scale=scale)
+    _close(out, decode_attention_pallas(jq, jk, jv, jnp.asarray(lengths), softcap=30.0, scale=scale,
+                                        block_k=128), TOL[dtype])
+    assert torch.equal(decode_attention_cuda(q, k, v, torch.from_numpy(lengths), softcap=30.0, scale=scale), out)
 
 
 def test_decode_keeps_probabilities_in_f32_unlike_the_jnp_oracle():

@@ -244,14 +244,16 @@ def test_split_then_combine_at_padded_widths(H, Hkv, D, dtype):
     torch.testing.assert_close(out, ref, atol=2e-6, rtol=2e-6)
 
 
-@pytest.mark.parametrize("B,Hkv,D", [(2, 2, 120), (2, 2, 8), (65536, 1, 128), (1, 65536, 64)],
-                         ids=["width-120", "width-8", "batch", "kv-heads"])
+@pytest.mark.parametrize("B,Hkv,D", [(2, 2, 124), (2, 2, 4), (2, 2, 264), (65536, 1, 128), (1, 65536, 64)],
+                         ids=["width-124", "width-4", "width-264", "batch", "kv-heads"])
 def test_decode_launch_check_refuses(B, Hkv, D):
+    """Head widths that are no multiple of 8 (a bf16 row of 16-byte units)
+    or past 256, and grids past the launch limits."""
     with pytest.raises(ValueError):
         check_decode_launch(B, Hkv, D)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256, 16, 112])
+@pytest.mark.parametrize("D", [64, 128, 256, 16, 112, 8, 120, 24])
 def test_decode_launch_check_takes_the_built_widths(D):
     check_decode_launch(4, 2, D)
     check_decode_launch(65535, 65535, D)
@@ -259,9 +261,9 @@ def test_decode_launch_check_takes_the_built_widths(D):
 
 def test_cpu_decode_wrapper_takes_widths_the_kernel_does_not():
     """On the CPU the wrapper runs the plain version at any width (here
-    40, no multiple of 16); the kernel's own limits apply on the card only."""
+    36, no multiple of 8); the kernel's own limits apply on the card only."""
     rng = np.random.default_rng(12)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-               for s in [(2, 4, 40), (2, 2, 40, 40), (2, 2, 40, 40)])
+               for s in [(2, 4, 36), (2, 2, 40, 36), (2, 2, 40, 36)])
     lengths = torch.tensor([3, 40], dtype=torch.int32)
     assert torch.equal(decode_attention_cuda(q, k, v, lengths), decode_attention_ref(q, k, v, lengths))

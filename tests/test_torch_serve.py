@@ -26,16 +26,17 @@ import jax
 import jax.numpy as jnp
 from repro.kernels import ops
 from repro.models import layers as jL
+from repro.models import registry as jax_registry
 from repro.models.registry import get_model as jax_get_model
 from repro.serve.engine import EngineConfig as JaxEngineConfig
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import encdec, registry, transformer, vlm
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 from repro_torch.models.convert import load_arrays, params_from_arrays
-from repro_torch.models.registry import ALL_ARCHS, NOT_PORTED, get_model
+from repro_torch.models.registry import ALL_ARCHS, get_model
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.kvcache import cache_bytes_report, kv_cache_bytes, merge_slot
 
@@ -309,17 +310,28 @@ def test_cli_serves_on_the_cpu(arch, capsys):
 
 
 def test_cli_and_registry_refuse_what_is_not_ported():
-    with pytest.raises(SystemExit):
+    """Every architecture of the reference is ported; the CLI refuses
+    whisper-base with the reference's message (its engine passes no
+    frames), the registry an unknown arch, the transformer a family that is
+    no decoder-only LM."""
+    assert set(ALL_ARCHS) == set(jax_registry.ALL_ARCHS)
+    with pytest.raises(SystemExit, match="whisper-base serving needs frames input"):
         serve_cli.main(["--device", "cpu", "--arch", "whisper-base"])
-    assert set(NOT_PORTED) == {"whisper-base", "internvl2-76b"}
-    for arch, item in NOT_PORTED.items():
-        with pytest.raises(KeyError, match="ROADMAP Queue A item 8[df]"):
-            get_model(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_model("gpt-2")
-    vlm = dataclasses.replace(get_model("qwen2.5-3b").reduced, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator().manual_seed(0), vlm, device="cpu")
+    encdec_cfg = dataclasses.replace(get_model("qwen2.5-3b").reduced, family="encdec")
+    with pytest.raises(ValueError, match="not a transformer LM"):
+        transformer.init_params(torch.Generator().manual_seed(0), encdec_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch,module", [("whisper-base", encdec), ("internvl2-76b", vlm)])
+def test_registry_loads_the_encdec_and_vlm_families(arch, module):
+    api = get_model(arch)
+    assert api.module is module
+    japi = jax_get_model(arch)
+    for cfg, jcfg in ((api.config, japi.config), (api.reduced, japi.reduced)):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert not hasattr(registry, "NOT_PORTED")
 
 
 def test_entry_points_default_to_the_card():

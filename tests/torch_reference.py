@@ -1180,7 +1180,33 @@ def job_continuum(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_kvcache(params: dict, inputs: dict) -> dict:
+    """The reference's int8 KV storage (``repro.serve.kvcache``, which
+    reaches ``repro.core``): each input quantized as f32 and as bf16, its
+    codes, scales and the dequantized values in f32 and bf16 (as f32); and
+    ``cache_bytes_report`` of each (arch, batch, seq)."""
+    import jax.numpy as jnp
+
+    from repro.models.registry import get_model
+    from repro.serve.kvcache import cache_bytes_report, dequantize_kv, quantize_kv
+
+    out: dict[str, np.ndarray] = {}
+    for name, x in inputs.items():
+        for dtype in ("float32", "bfloat16"):
+            codes, scale = quantize_kv(jnp.asarray(x).astype(dtype))
+            out[f"{name}/{dtype}/codes"] = np.asarray(codes)
+            out[f"{name}/{dtype}/scale"] = np.asarray(scale)
+            for back in ("float32", "bfloat16"):
+                deq = dequantize_kv(codes, scale, jnp.dtype(back))
+                out[f"{name}/{dtype}/back/{back}"] = np.asarray(deq.astype(jnp.float32))
+    for arch, batch, seq in params["reports"]:
+        report = cache_bytes_report(get_model(arch).config, batch, seq)
+        out[f"report/{arch}/{batch}/{seq}"] = np.array(json.dumps(report, sort_keys=True))
+    return out
+
+
 JOBS = {
+    "kvcache": job_kvcache,
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
     "shard": job_shard, "topology": job_topology,
     "service": job_service, "cycling": job_cycling,
