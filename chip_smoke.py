@@ -67,8 +67,9 @@ result line:
 9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
    served as in phase 7, every prefill layer through the SSD kernel, with
    the same checks and readings;
-10. zamba2-7b at full width (81 Mamba2 layers and 13 invocations of one
-    shared attention + MLP block, random bf16 weights from a seed) served
+10. zamba2-7b at full width cut to 27 of its 81 Mamba2 layers (4
+    invocations of one shared attention + MLP block, random bf16 weights
+    from a seed; the ROADMAP's cut once the run passed 1000 s) served
     as in phase 7: every prefill layer through the SSD kernel, every shared
     invocation through the flash kernel in prefill and the decode kernel in
     decode; the card-against-CPU cut is 2 layers with the shared block
@@ -179,7 +180,27 @@ result line:
     generator inside the mask; ``quantize_kv`` / ``dequantize_kv`` of
     whisper's real cache on the card == on the CPU bit for bit, and decode
     attention through the kernel over the dequantized cache within 0.05 of
-    the bf16 cache.
+    the bf16 cache;
+22. training: ``FlashAttentionFn`` and ``SSDScanFn`` (the kernel's forward,
+    a backward by autograd of the plain version recomputed) against
+    autograd of the plain version at the training shapes (qwen2.5-3b B 4 ×
+    S 1024, gemma2-2b's D 256 with softcap and window, whisper-base's cross
+    Sq 8 against 1500 keys, mamba2-780m's scan B 4 × L 1024) in bf16 and
+    f32, timed beside SDPA's forward and backward; qwen2.5-3b and
+    mamba2-780m at full width and depth in bf16 (random weights from a
+    seed) trained for 5 steps at batch 4 × 1024 tokens with remat (72 flash
+    launches a qwen step, 96 SSD launches a mamba2 step: the forward and
+    its recomputation), every parameter's gradient finite and non-zero at
+    step 1, ms a step against the bound 6·N·tokens (8·N·tokens beside
+    it, with the remat forward), one step at
+    ``microbatches=2``, a profiled step's idle share, the peak memory and
+    ``evaluate`` on 2 batches; both cut to 2 layers in f32, card against
+    CPU (loss, every gradient, one AdamW step); the ``Trainer`` at the
+    reduced qwen2.5-3b, straight against checkpointed and resumed, in the
+    default and the deterministic mode; the training CLI with no
+    ``--device`` for every reduced config the token stream can train (and
+    gemma2-2b in a child process), whisper-base and internvl2-76b stopping
+    with the reference's ``KeyError``.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -190,6 +211,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -213,6 +235,11 @@ BF16_OPS_PER_S = 989e12  # dense, tensor cores
 GA = {"pop_size": 64, "generations": 60}
 SWEEP_SEEDS = range(8)
 SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
+# zamba2-7b's serving depth in phase 10: 81 layers took 118-139 s; with
+# phase 22 the whole run took 1026.2 s (H100 at 700 W), past the 1000 s
+# at which the ROADMAP cuts this path's depth first (phases 6 and 8 still
+# hold its attention and SSD shapes against the plain versions)
+ZAMBA_LAYERS = 27
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr",
         "init_free", "node_cores")
 
@@ -392,11 +419,13 @@ def device_time_breakdown(run, classify=None) -> dict:
     the device's kernel time, by kernel name (and by ``classify(name)``
     where given), and the rest (host work and device idle).  Kernels of one
     stream run one at a time, so their durations add up to the device's
-    busy time."""
+    busy time.  Only the device's kernels are recorded, not the host's
+    operators: the busy time needs only the kernels, and recording every
+    host operator slows the host enough to inflate the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2781,6 +2810,579 @@ def shard_topology_phase(sweep_problems) -> tuple[dict[str, int], dict]:
     return launches, record
 
 
+# -----------------------------------------------------------------------------
+# phase 22: training
+# -----------------------------------------------------------------------------
+
+#: the training runs at full width and depth: batch 4 × 1024 tokens, the
+#: training CLI's AdamW settings, 5 steps, then 2 held-out batches
+TRAIN = {"batch": 4, "seq": 1024, "steps": 5, "eval_batches": 2}
+
+
+def train_attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int) -> tuple[float, str]:
+    """Least time an H100 could take for attention's forward and backward:
+    q, k, v and the output's cotangent read once, the output and the three
+    gradients written once, against 12·D operations a visible pair (QKᵀ and
+    PV forward; dV, dP, dQ and dK backward) at the rate of the dtype."""
+    D, size = q.shape[-1], q.element_size()
+    nbytes = 4 * q.numel() * size + 4 * kv_rows * D * size
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * D * pairs / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def train_ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
+    """Least time for the SSD scan's forward and backward: x, B, C, dt, A
+    and y's cotangent read once, y, the final state and the five gradients
+    written once, against 12·P·N operations a (batch, step, head): the
+    forward's 4·P·N (:func:`ssd_bound_ms`) and twice that backward."""
+    Bsz, L, H, P = x.shape
+    size = x.element_size()
+    nbytes = (4 * x.numel() * size + 4 * Bsz * L * G * N * size + 2 * Bsz * L * H * 4 + 2 * H * 4
+              + Bsz * H * P * N * 4)
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * P * N * Bsz * L * H / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def with_grads(fn, inputs: tuple, cotangents: tuple):
+    """``fn``'s outputs on fresh leaves of ``inputs`` and the leaves'
+    gradients for ``cotangents``."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs, leaves, cotangents)
+
+
+def autograd_phase() -> dict[str, dict]:
+    """Phase 22, first part: ``FlashAttentionFn`` and ``SSDScanFn`` on the
+    card against autograd of their plain versions on the same inputs and
+    output cotangents, in bf16 and f32, at the training shapes: qwen2.5-3b's
+    attention (B 4, S 1024, H 16 over Hkv 2, D 128, causal), gemma2-2b's D
+    256 with softcap 50 and a window of 512 (B 2, S 1024, H 8 over 4),
+    whisper-base's cross-attention (B 4, H 8, D 64, Sq 8 against 1500 keys,
+    not causal) and mamba2-780m's scan (B 4, L 1024, H 48, P 64, N 128,
+    chunk 128; the final state's cotangent zero, as in training).
+
+    The Function's output is the kernel's, held to the plain version in f32
+    as in phases 6 and 8.  Its gradients are autograd of the plain version
+    recomputed, so they are held to the plain version's own within
+    2**-7·max|g| (bf16) or 1e-6·max|g| (f32), and the run prints whether they
+    are equal bit for bit.  Timed in bf16 (``cuda_ms``): the kernel's
+    forward, the Function's forward and backward, the plain version's, and
+    SDPA's where one call computes the function (not with a softcap), beside
+    the bounds of the forward and of both; returns the records by kernel and
+    shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn,
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_cuda, ssd_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    records: dict[str, dict] = {"flash_attention": {}, "ssd_scan": {}}
+
+    def normal(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def held(label, fn, plain, inputs, cotangents, plain32_out, dtype, out_tol) -> dict:
+        (outs, grads), (plain_outs, plain_grads) = with_grads(fn, inputs, cotangents), with_grads(
+            plain, inputs, cotangents)
+        torch.cuda.synchronize()
+        atol, rtol = out_tol
+        y = outs[0].detach().float()
+        out_err = float((y - plain32_out).abs().max())
+        check(bool(torch.isfinite(y).all()), f"{label}: finite output")
+        check(torch.allclose(y, plain32_out, atol=atol, rtol=rtol),
+              f"{label}: the Function's output == plain in f32 within atol {atol} rtol {rtol} (max abs diff {out_err})")
+        rel = 2**-7 if dtype == torch.bfloat16 else 1e-6
+        worst = 0.0
+        for i, (g, g_plain) in enumerate(zip(grads, plain_grads)):
+            check(g.dtype == inputs[i].dtype and bool(torch.isfinite(g.float()).all()), f"{label}: gradient {i} finite")
+            scale = float(g_plain.float().abs().max())
+            err = float((g.float() - g_plain.float()).abs().max())
+            check(err <= rel * scale, f"{label}: gradient {i} == plain autograd within {rel}·max|g| "
+                                      f"(max abs diff {err}, max|g| {scale})")
+            worst = max(worst, err / scale if scale else err)
+        bits = all(torch.equal(g, g_plain) for g, g_plain in zip(grads, plain_grads))
+        return {"out_max_abs_err": out_err, "grad_max_rel_err": worst, "grads_bit_equal": bits}
+
+    flash_cases = [  # (label, B, H, Hkv, Sq, Skv, D, options)
+        ("qwen2.5-3b", 4, 16, 2, 1024, 1024, 128, {"causal": True}),
+        ("gemma2-2b D 256 softcap 50 window 512", 2, 8, 4, 1024, 1024, 256,
+         {"causal": True, "window": 512, "softcap": 50.0}),
+        ("whisper-base cross Sq 8 against 1500", 4, 8, 8, 8, 1500, 64, {"causal": False}),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, Sq, Skv, D, kw in flash_cases:
+            opts = {"causal": kw["causal"], "window": kw.get("window"), "softcap": kw.get("softcap"), "scale": None}
+            q, k, v = normal((B, H, Sq, D), dtype), normal((B, Hkv, Skv, D), dtype), normal((B, Hkv, Skv, D), dtype)
+            go = normal((B, H, Sq, D), dtype)
+
+            def fn(q, k, v):
+                return FlashAttentionFn.apply(q, k, v, *opts.values())
+
+            def plain(q, k, v):
+                return flash_attention_ref(q, k, v, **opts)
+
+            row = held(f"train flash {label} {str(dtype)[6:]}", fn, plain, (q, k, v), (go,),
+                       flash_attention_ref(q.float(), k.float(), v.float(), **opts), dtype,
+                       (2e-5, 2**-8) if dtype == torch.bfloat16 else (2e-5, 2e-5))
+            line = (f"train flash {label} {str(dtype)[6:]}: Function output from f32 plain {row['out_max_abs_err']:.3g}, "
+                    f"gradients from plain autograd {row['grad_max_rel_err']:.3g}·max|g| "
+                    f"(bit for bit: {row['grads_bit_equal']})")
+            if dtype == torch.bfloat16:
+                mask = attention_mask(Sq, Skv, causal=opts["causal"], window=opts["window"], device=dev)
+                pairs = int(mask.sum()) * B * H
+                row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, **opts), reps=20)
+                row["fwd_bwd_ms"] = cuda_ms(lambda: with_grads(fn, (q, k, v), (go,)), reps=5)
+                row["plain_fwd_bwd_ms"] = cuda_ms(lambda: with_grads(plain, (q, k, v), (go,)), reps=5)
+                row["backward_ms"] = row["fwd_bwd_ms"] - row["ms"]
+                row["library_fwd_bwd_ms"] = None
+                if opts["softcap"] is None:
+                    sdpa_mask = None if opts["window"] is None and not (opts["causal"] and Sq != Skv) else mask
+                    causal = opts["causal"] and sdpa_mask is None
+
+                    def sdpa(q, k, v):
+                        return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, is_causal=causal,
+                                                              enable_gqa=True)
+
+                    row["library_fwd_bwd_ms"] = cuda_ms(lambda: with_grads(sdpa, (q, k, v), (go,)), reps=5)
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, pairs, B * Hkv * Skv)
+                row["fwd_bwd_bound_ms"], row["fwd_bwd_bound_by"] = train_attention_bound_ms(q, k, pairs,
+                                                                                         B * Hkv * Skv)
+                lib = row["library_fwd_bwd_ms"]
+                line += (f"; kernel forward {row['ms']:.4f} ms (bound {row['bound_ms']:.6f}, {row['bound_by']}), "
+                         f"Function forward + backward {row['fwd_bwd_ms']:.4f} ms (the plain backward "
+                         f"{row['backward_ms']:.4f}), plain {row['plain_fwd_bwd_ms']:.4f}, sdpa "
+                         f"{'none' if lib is None else f'{lib:.4f}'} ms, bound {row['fwd_bwd_bound_ms']:.6f} "
+                         f"({row['fwd_bwd_bound_by']})")
+            records["flash_attention"][f"{label} {str(dtype)[6:]}"] = row
+            print(line, flush=True)
+
+    B, L, H, P, G, N, chunk = 4, 1024, 48, 64, 1, 128, 128  # mamba2-780m
+    for dtype in (torch.bfloat16, torch.float32):
+        x = normal((B, L, H, P), dtype)
+        dt = torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1 + 0.01
+        A = -(torch.randn(H, generator=gen, device=dev).abs() + 0.2)
+        Bm, Cm = normal((B, L, G, N), dtype), normal((B, L, G, N), dtype)
+        inputs = (x, dt, A, Bm, Cm)
+        cot = (normal((B, L, H, P), dtype), torch.zeros(B, H, P, N, device=dev))
+
+        def fn(*a):
+            return SSDScanFn.apply(*a, chunk)
+
+        def plain(*a):
+            return ssd_scan_ref(*a, chunk=chunk)
+
+        label = f"train ssd mamba2-780m B={B} L={L} {str(dtype)[6:]}"
+        row = held(label, fn, plain, inputs, cot, ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk)[0],
+                   dtype, (3e-4, 2**-8) if dtype == torch.bfloat16 else (3e-4, 3e-4))
+        line = (f"{label}: Function output from f32 plain {row['out_max_abs_err']:.3g}, gradients from plain "
+                f"autograd {row['grad_max_rel_err']:.3g}·max|g| (bit for bit: {row['grads_bit_equal']})")
+        if dtype == torch.bfloat16:
+            row["ms"] = cuda_ms(lambda: ssd_scan_cuda(*inputs, chunk=chunk), reps=20)
+            row["fwd_bwd_ms"] = cuda_ms(lambda: with_grads(fn, inputs, cot), reps=3)
+            row["plain_fwd_bwd_ms"] = cuda_ms(lambda: with_grads(plain, inputs, cot), reps=3)
+            row["backward_ms"] = row["fwd_bwd_ms"] - row["ms"]
+            row["library_fwd_bwd_ms"] = None
+            row["bound_ms"], row["bound_by"] = ssd_bound_ms(x, G, N)
+            row["fwd_bwd_bound_ms"], row["fwd_bwd_bound_by"] = train_ssd_bound_ms(x, G, N)
+            line += (f"; kernel forward {row['ms']:.4f} ms (bound {row['bound_ms']:.6f}, {row['bound_by']}), "
+                     f"Function forward + backward {row['fwd_bwd_ms']:.4f} ms (the plain backward "
+                     f"{row['backward_ms']:.4f}), plain {row['plain_fwd_bwd_ms']:.4f}, bound "
+                     f"{row['fwd_bwd_bound_ms']:.6f} ({row['fwd_bwd_bound_by']})")
+        records["ssd_scan"][f"mamba2-780m {str(dtype)[6:]}"] = row
+        print(line, flush=True)
+    return records
+
+
+def per_forward(cfg) -> dict[str, int]:
+    """Each kernel's launches in one forward of a model of ``cfg``."""
+    from repro_torch.models.hybrid import num_shared_invocations
+
+    if cfg.family == "ssm":
+        return {"ssd_scan": cfg.num_layers}
+    if cfg.family == "hybrid":
+        return {"ssd_scan": cfg.num_layers, "flash_attention": num_shared_invocations(cfg)}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.num_layers}
+    return {"flash_attention": cfg.num_layers}
+
+
+def train_full_width(arch: str) -> tuple[int, dict]:
+    """Phase 22: ``arch`` at full width and depth in bf16 (random weights
+    from a seed) trained for ``TRAIN["steps"]`` steps on the synthetic
+    stream (batch 4 × 1024 tokens, two bigram chains) with the training
+    CLI's AdamW settings and remat: step 1 through the step's two halves
+    (``make_grad_fn``, then ``adamw.update``), so that every parameter's
+    gradient is held to a finite, non-zero norm; steps 2-5 through
+    ``make_train_step``, timed until the loss reaches the host; one step at
+    ``microbatches=2``; one profiled step; then ``evaluate`` on 2 held-out
+    batches.  Every step makes 2 kernel launches a layer (the forward and
+    the remat recomputation), a microbatched step 4, an evaluation batch 1.
+    Returns (the launches of the run, its readings)."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.evaluate import evaluate
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+
+    api = get_model(arch)
+    cfg = api.config
+    (kernel, per), = per_forward(cfg).items()
+    wrapper = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}[kernel]
+    steps, tokens = TRAIN["steps"], TRAIN["batch"] * TRAIN["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = L.trainable(api.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"))
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(), f"{arch}: {n_params} parameters, the config's {cfg.param_count()}")
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], seed=0,
+                          mixture_components=2)
+    stream = SyntheticLMStream(data_cfg)
+    state = {"opt": adamw.init(opt_cfg, params)}
+    torch.cuda.synchronize()
+    state_gb = sum(p.numel() * (p.element_size() * 2 + 8) for p in params.parameters()) / 1e9
+    print(f"train {arch}: {n_params:,} parameters made in {time.perf_counter() - t0:.1f} s; parameters, "
+          f"gradients and f32 moments {state_gb:.2f} GB; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+
+    def batch() -> dict:
+        return {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+
+    step_fn = make_train_step(api, cfg, opt_cfg, remat=True)
+
+    def one_step(fn=step_fn) -> dict:
+        _, state["opt"], metrics = fn(params, state["opt"], batch())
+        return {k: float(v) for k, v in metrics.items()}
+
+    # step 1: the gradients, each parameter's checked, then the update
+    wrapper.launches = 0
+    t0 = time.perf_counter()
+    grads, metrics = make_grad_fn(api, cfg, remat=True)(params, batch())
+    norms = torch.stack([g.float().norm() for g in grads.values()]).cpu()
+    grad_s = time.perf_counter() - t0
+    check(wrapper.launches == 2 * per, f"{arch} step 1: {wrapper.launches} {kernel} launches, expected {2 * per}")
+    check(sorted(grads) == sorted(dict(params.named_parameters())), f"{arch}: every parameter has a gradient")
+    check(bool(torch.isfinite(norms).all() and (norms > 0).all()),
+          f"{arch}: every gradient finite with a non-zero norm ({int((norms == 0).sum())} zero)")
+    t1 = time.perf_counter()
+    _, state["opt"], opt_metrics = adamw.update(opt_cfg, grads, state["opt"], params)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t1
+    del grads
+    losses, gnorms = [float(metrics["loss"])], [float(opt_metrics["grad_norm"])]
+    step_s = [time.perf_counter() - t0]
+    for _ in range(1, steps):
+        t0 = time.perf_counter()
+        m = one_step()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"{arch}: finite losses {losses} and grad norms {gnorms}")
+    check(wrapper.launches == steps * 2 * per, f"{arch}: {wrapper.launches} launches in {steps} steps, expected "
+                                               f"{steps * 2 * per}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"steps": wrapper.launches}
+
+    before = wrapper.launches
+    t0 = time.perf_counter()
+    m = one_step(make_train_step(api, cfg, opt_cfg, remat=True, microbatches=2))
+    mb_s = time.perf_counter() - t0
+    launches["microbatches=2 step"] = wrapper.launches - before
+    check(launches["microbatches=2 step"] == 4 * per and np.isfinite(m["loss"]),
+          f"{arch}: a microbatches=2 step made {launches['microbatches=2 step']} launches, expected {4 * per}")
+
+    before = wrapper.launches
+    profile = device_time_breakdown(one_step, classify=kernel_class)
+    launches["profiled step"] = wrapper.launches - before
+    check(profile["device_busy_ms"] is not None, f"{arch}: the profiler saw the step's kernels")
+
+    before = wrapper.launches
+    t0 = time.perf_counter()
+    ev = evaluate(api, cfg, params, data_cfg, batches=TRAIN["eval_batches"])
+    eval_s = time.perf_counter() - t0
+    launches["evaluate"] = wrapper.launches - before
+    check(launches["evaluate"] == TRAIN["eval_batches"] * per and np.isfinite(ev["nll"]),
+          f"{arch}: evaluate made {launches['evaluate']} launches, expected {TRAIN['eval_batches'] * per}; {ev}")
+
+    steady = step_s[1:]
+    step_ms = 1e3 * statistics.median(steady)
+    bound_ms = 1e3 * 6 * n_params * tokens / BF16_OPS_PER_S  # a forward and a backward
+    remat_bound_ms = 1e3 * 8 * n_params * tokens / BF16_OPS_PER_S  # and the remat recomputation
+    readings = {
+        "parameters": n_params, "tokens_per_step": tokens, "losses": losses, "grad_norms": gnorms,
+        "step_s": step_s, "step_ms_steps_2_to_5": [1e3 * s for s in steady], "step_ms_median": step_ms,
+        "tokens_per_s": tokens / statistics.median(steady), "bound_ms_6NT": bound_ms,
+        "bound_ms_8NT_with_remat": remat_bound_ms,
+        "step1_grad_s": grad_s, "step1_adamw_update_s": update_s, "microbatches_2_step_s": mb_s,
+        "peak_memory_gb": peak_gb, "state_gb": state_gb, "evaluate": ev, "evaluate_s": eval_s,
+        "profile": profile, "launches": launches,
+    }
+    print(f"train {arch}: losses {[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in gnorms]}; "
+          f"steps 2-{steps} {[round(1e3 * s, 2) for s in steady]} ms (median {step_ms:.2f} ms, "
+          f"{readings['tokens_per_s']:.0f} tokens/s) against a bound of {bound_ms:.2f} ms (6·N·tokens, "
+          f"operations; {remat_bound_ms:.2f} ms at 8·N·tokens with the remat forward); step 1 {1e3 * step_s[0]:.1f} ms (gradients {1e3 * grad_s:.1f}, AdamW {1e3 * update_s:.1f}); "
+          f"microbatches=2 {1e3 * mb_s:.1f} ms; peak {peak_gb:.2f} GB; idle share of a profiled step "
+          f"{profile['device_idle_share']}; evaluate nll {ev['nll']:.4f} in {eval_s:.2f} s; launches {launches}",
+          flush=True)
+    print(json.dumps({f"train_{arch}": readings}), flush=True)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(launches.values()), readings
+
+
+def train_card_against_cpu(arch: str, layers: int) -> dict:
+    """Phase 22: ``arch`` at full width cut to ``layers`` layers in f32
+    (TF32 off), the same weights on the card and on the CPU, one batch of 1
+    × 128 tokens: the loss within rtol 1e-5 and each gradient within 1e-5 +
+    1e-4·max|g|, the tolerances of the CPU tests against the reference;
+    then one AdamW step on each side from the CPU's gradients, whose
+    parameters and moments are held within 1e-6 of their largest value, the
+    tests' tolerance for AdamW on the same inputs; then the composed step,
+    the card's gradients through AdamW on the card against the CPU's through
+    AdamW on the CPU.  AdamW's first step moves each element by lr·g/(|g| +
+    eps) of its clipped gradient g, whose slope is at most 1/(|g| + eps), so
+    the composed step's parameters are held per element within lr·|Δg| /
+    (min|g| + eps) + 1e-6·max|p|, and the largest deviation is printed
+    beside the two gradients at that element.  Returns the measured maxima."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grad_fn
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 products run in f32 (TF32 off)")
+    api = get_model(arch)
+    cut = dataclasses.replace(api.config, num_layers=layers, dtype="float32")
+    t0 = time.perf_counter()
+    on_gpu = L.trainable(api.init(torch.Generator(device="cuda").manual_seed(1), cut, device="cuda"))
+    on_cpu = L.trainable(load_like(on_gpu, cut, "cpu"))
+    tokens = torch.from_numpy(np.random.default_rng(22).integers(0, cut.vocab, (1, 128)).astype(np.int32))
+    sides = {"cpu": on_cpu, "card": on_gpu}
+    grads, losses = {}, {}
+    for side, params in sides.items():
+        dev = next(params.parameters()).device
+        g, metrics = make_grad_fn(api, cut, remat=True)(params, {"tokens": tokens.to(dev)})
+        grads[side], losses[side] = g, float(metrics["loss"])
+    worst = {"loss_rel": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])}
+    check(worst["loss_rel"] <= 1e-5, f"{arch} {layers} layers f32: loss card {losses['card']} against CPU {losses['cpu']}")
+
+    def held(part: str, on_card: dict, on_host: dict, atol: float, rel: float) -> None:
+        high = 0.0
+        for k, ref in on_host.items():
+            scale = float(ref.abs().max())
+            err = float((on_card[k].detach().cpu() - ref).abs().max())
+            check(err <= atol + rel * scale, f"{arch} {layers} layers f32: {part} {k} card against CPU {err} > "
+                                             f"{atol} + {rel}·{scale}")
+            high = max(high, err / scale if scale else err)
+        worst[f"{part}_max_rel_err"] = high
+
+    held("grads", grads["card"], grads["cpu"], 1e-5, 1e-4)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=5)
+    start = {k: p.detach().clone() for k, p in on_gpu.named_parameters()}
+    states = {}
+    for side, params in sides.items():
+        g = {k: t.to(next(params.parameters()).device) for k, t in grads["cpu"].items()}
+        _, states[side], _ = adamw.update(opt_cfg, g, adamw.init(opt_cfg, params), params)
+    held("adamw params", dict(on_gpu.named_parameters()), {k: p.detach() for k, p in on_cpu.named_parameters()},
+         0.0, 1e-6)
+    held("adamw m", states["card"]["m"], states["cpu"]["m"], 0.0, 1e-6)
+    held("adamw v", states["card"]["v"], states["cpu"]["v"], 0.0, 1e-6)
+
+    adamw.update(opt_cfg, grads["card"], adamw.init(opt_cfg, start), start)  # the composed step on the card
+    lr = float(adamw.lr_at(opt_cfg, torch.tensor(1)))
+    clip = {side: min(1.0, opt_cfg.grad_clip / (float(adamw.global_norm(g)) + 1e-9)) for side, g in grads.items()}
+    high = {"excess": -math.inf}
+    for k, ref in on_cpu.named_parameters():
+        g_card, g_cpu = grads["card"][k].detach().cpu() * clip["card"], grads["cpu"][k] * clip["cpu"]
+        dev = (start[k].cpu() - ref.detach()).abs()
+        bound = lr * (g_card - g_cpu).abs() / (torch.minimum(g_card.abs(), g_cpu.abs()) + opt_cfg.eps)
+        bound += 1e-6 * float(ref.detach().abs().max())
+        excess = dev - bound
+        i = int(excess.argmax())
+        if float(excess.flatten()[i]) > high["excess"]:
+            high = {"excess": float(excess.flatten()[i]), "param": k, "deviation": float(dev.flatten()[i]),
+                    "bound": float(bound.flatten()[i]), "g_card": float(g_card.flatten()[i]),
+                    "g_cpu": float(g_cpu.flatten()[i])}
+        j = int(dev.argmax())
+        if float(dev.flatten()[j]) > worst.get("composed_max_abs_dev", -1.0):
+            worst["composed_max_abs_dev"] = float(dev.flatten()[j])
+            worst["composed_at_max"] = {"param": k, "bound": float(bound.flatten()[j]),
+                                        "g_card": float(g_card.flatten()[j]), "g_cpu": float(g_cpu.flatten()[j])}
+    worst["composed_closest_to_bound"] = high
+    check(high["excess"] <= 0, f"{arch} {layers} layers f32: the composed step's parameters beyond lr·|Δg|/(min|g| + "
+                               f"eps) + 1e-6·max|p|: {high}")
+    print(f"train {arch} cut to {layers} layers, f32, B 1 × S 128: card against CPU {json.dumps(worst)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def trainer_phase() -> tuple[int, dict]:
+    """Phase 22: the ``Trainer`` on the card at the reference's resume test
+    (reduced qwen2.5-3b in f32 at vocab 64, batch 4 × 32, checkpoints every 5
+    steps in a temporary directory): 10 steps straight, then 5 and a resume
+    for 5 more.  Once in PyTorch's default mode (the losses compared, their
+    largest difference printed) and once under
+    ``torch.use_deterministic_algorithms``, where they must be equal bit for
+    bit.  Returns (the flash launches, the readings)."""
+    import tempfile
+    import warnings
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    api = get_model("qwen2.5-3b")
+    cfg = dataclasses.replace(api.reduced, dtype="float32", vocab=64)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20, schedule="constant")
+    data_cfg = DataConfig(vocab=64, seq_len=32, global_batch=4, seed=5)
+    readings = {}
+    flash_attention_cuda.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("default", "deterministic"):
+            def make(name: str, steps: int) -> Trainer:
+                return Trainer(api, cfg, opt_cfg, data_cfg,
+                               TrainerConfig(steps=steps, checkpoint_every=5, checkpoint_dir=f"{tmp}/{mode}-{name}",
+                                             remat=False, resume=True), device="cuda")
+
+            t0 = time.perf_counter()
+            torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")  # warn_only: cuBLAS's workspace setting
+                    full = make("full", 10).run()
+                    make("resume", 5).run()
+                    resumed = make("resume", 10).run()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            check(resumed.resumed_from == 5 and len(resumed.losses) == 5, f"trainer {mode}: resumed from step 5")
+            check(all(np.isfinite(full.losses)) and full.losses[-1] < full.losses[0],
+                  f"trainer {mode}: finite, falling losses {full.losses}")
+            diff = max(abs(a - b) for a, b in zip(resumed.losses, full.losses[5:]))
+            bits = resumed.losses == full.losses[5:]
+            if mode == "deterministic":
+                check(bits, f"trainer deterministic: resumed losses {resumed.losses} == straight {full.losses[5:]}")
+            readings[mode] = {"losses": full.losses, "resumed": resumed.losses, "max_abs_diff": diff,
+                              "bit_for_bit": bits, "s": time.perf_counter() - t0}
+            print(f"trainer qwen2.5-3b reduced f32 on the card ({mode}): 10 steps {[round(x, 5) for x in full.losses]}; "
+                  f"resumed at 5: bit for bit {bits}, max abs diff {diff:.3g} ({readings[mode]['s']:.1f} s)",
+                  flush=True)
+    return flash_attention_cuda.launches, readings
+
+
+def train_cli_phase() -> dict[str, dict[str, int]]:
+    """Phase 22: ``python -m repro_torch.launch.train`` with no ``--device``
+    for every reduced config the stream can train (its batches hold tokens
+    only), 3 steps each in process (2 launches a layer a step: the forward
+    and the remat recomputation), gemma2-2b again as a real child process,
+    and whisper-base and internvl2-76b, which stop with the reference's
+    ``KeyError``.  Returns each arch's launches by kernel."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import ALL_ARCHS, get_model
+
+    wrappers = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    out: dict[str, dict[str, int]] = {}
+    steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in ALL_ARCHS:
+            cfg = get_model(arch).reduced
+            argv = ["--arch", arch, "--steps", str(steps), "--ckpt-dir", f"{tmp}/{arch}"]
+            if cfg.family in ("encdec", "vlm"):
+                key = "frames" if cfg.family == "encdec" else "patches"
+                try:
+                    train_cli.main(argv)
+                    got = None
+                except KeyError as e:
+                    got = e.args[0]
+                check(got == key, f"the {arch} training CLI stops with the reference's KeyError({key!r}), not {got!r}")
+                print(f"train cli {arch}: KeyError({got!r}), as the reference's CLI", flush=True)
+                continue
+            for w in wrappers.values():
+                w.launches = 0
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                train_cli.main(argv)
+            torch.cuda.synchronize()
+            line = text.getvalue().strip().splitlines()[-1]
+            check(line.startswith(f"arch={arch} steps={steps} loss "), f"the {arch} training CLI printed {line!r}")
+            out[arch] = {name: wrappers[name].launches for name in per_forward(cfg)}
+            expected = {name: steps * 2 * n for name, n in per_forward(cfg).items()}
+            check(out[arch] == expected, f"the {arch} training CLI made {out[arch]} launches, expected {expected}")
+            print(f"train cli {arch}: {line}; launches {out[arch]}", flush=True)
+        src = Path(__file__).resolve().parent / "src"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma2-2b", "--steps",
+                               str(steps), "--ckpt-dir", f"{tmp}/child"], env={**os.environ, "PYTHONPATH": str(src)},
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0 and proc.stdout.strip().startswith(f"arch=gemma2-2b steps={steps} loss "),
+              f"python -m repro_torch.launch.train: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        print(f"train cli gemma2-2b in a child process: {proc.stdout.strip()} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return out
+
+
+def training_phase() -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 22, training (see the module docstring); returns each kernel's
+    launches by path and the readings, by kernel for the record."""
+    clock = [time.perf_counter()]
+
+    def part(what: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 22 {what}: {now - clock[0]:.2f} s", flush=True)
+        clock[0] = now
+
+    autograd = autograd_phase()
+    part("the autograd Functions at the training shapes")
+    qwen_launches, qwen = train_full_width("qwen2.5-3b")
+    part("qwen2.5-3b at full width")
+    mamba_launches, mamba = train_full_width("mamba2-780m")
+    part("mamba2-780m at full width")
+    cut = {"qwen2.5-3b": train_card_against_cpu("qwen2.5-3b", 2),
+           "mamba2-780m": train_card_against_cpu("mamba2-780m", 2)}
+    part("the f32 cuts against the CPU")
+    trainer_launches, trainer = trainer_phase()
+    part("the Trainer")
+    cli = train_cli_phase()
+    part("the training CLI")
+    by_path = {"flash_attention": {"train qwen2.5-3b": qwen_launches,
+                                   "train Trainer qwen2.5-3b reduced": trainer_launches},
+               "ssd_scan": {"train mamba2-780m": mamba_launches}}
+    for arch, run in cli.items():
+        for name, n in run.items():
+            by_path[name][f"train cli {arch}"] = n
+    readings = {
+        "flash_attention": {"training_shapes": autograd["flash_attention"],
+                            "training": {"qwen2.5-3b": qwen, "card_against_cpu_f32": cut["qwen2.5-3b"],
+                                         "trainer": trainer}},
+        "ssd_scan": {"training_shapes": autograd["ssd_scan"],
+                     "training": {"mamba2-780m": mamba, "card_against_cpu_f32": cut["mamba2-780m"]}},
+    }
+    return by_path, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3055,14 +3657,14 @@ def main() -> int:
     # 10. zamba2-7b served at full width: the hybrid family's serving path ----------
     from repro_torch.models.hybrid import num_shared_invocations
 
-    zamba_cfg = get_model("zamba2-7b").config
+    zamba_cfg = dataclasses.replace(get_model("zamba2-7b").config, num_layers=ZAMBA_LAYERS)
     n_inv = num_shared_invocations(zamba_cfg)
     zamba_launches = serve_phase("zamba2-7b", {
         "ssd_scan": (ssd_scan_cuda, "prefill", zamba_cfg.num_layers),
         "flash_attention": (flash_attention_cuda, "prefill", n_inv),
         "decode_attention": (decode_attention_cuda, "tick", n_inv),
-    }, cut={"num_layers": 2, "hybrid_period": 2}).launches  # one Mamba2 layer, then the shared block
-    phase_done(10, "zamba2-7b served at full width")
+    }, cut={"num_layers": 2, "hybrid_period": 2}, layers=ZAMBA_LAYERS).launches  # the cut: one Mamba2 layer, then the shared block
+    phase_done(10, f"zamba2-7b served at full width, {ZAMBA_LAYERS} layers")
 
     # 11. the serving CLI on the card, as a user runs it: the reduced configs
     # (head width 16) through the attention kernels, the reduced MoE ones
@@ -3139,6 +3741,17 @@ def main() -> int:
     sampling_phase(whisper_cache)
     phase_done(21, "sampling and the int8 KV cache")
 
+    # 22. training: the autograd Functions, qwen2.5-3b and mamba2-780m at full
+    # width and depth, f32 cuts against the CPU, the Trainer and the CLI
+    import gc
+
+    del whisper_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 22: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    train_by_path, train_record = training_phase()
+    phase_done(22, "training")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
                         **service_launches, **campaign_launches, **topology_launches, **continuum_launches}
     record.update(service_record)
@@ -3157,6 +3770,8 @@ def main() -> int:
     for path, run in paths:
         for name, n in run.items():
             by_path.setdefault(name, {})[path] = n
+    for name, run in train_by_path.items():
+        by_path[name].update(run)
 
     kernels = [{
         "name": "population_makespan",
@@ -3180,6 +3795,7 @@ def main() -> int:
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
             **attention[name],
+            **train_record.get(name, {}),
         })
     kernels.append({
         "name": "ssd_scan",
@@ -3189,6 +3805,7 @@ def main() -> int:
         "launches": sum(by_path["ssd_scan"].values()),
         "launches_by_path": by_path["ssd_scan"],
         **ssd,
+        **train_record["ssd_scan"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,11 @@ unless the caller gives one), all in f32:
   ``wgmma`` fed by TMA, f32 on the CUDA cores).  It is the one place that
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
-  ``flash_attention_cuda.launches`` counts its kernel launches.
+  ``flash_attention_cuda.launches`` counts its kernel launches.  When a
+  gradient is wanted it goes through :class:`FlashAttentionFn`: the same
+  forward, and a backward that is PyTorch's autodiff of the plain version
+  recomputed (the TPU kernel has no backward either: the reference
+  differentiates its jnp path).
 
 Unlike the TPU kernel, both take any ``Sq`` and ``Skv``.  The TPU kernel
 takes any head width D; the CUDA kernel takes every multiple of 8 from 8 to
@@ -170,8 +174,19 @@ def flash_attention_cuda(
     Takes contiguous float32 or bfloat16 tensors of one dtype on one device,
     on the CPU as on the card, and raises on anything else; on the card also
     on head widths the kernel does not take (:func:`kernel_takes_head_dim`)
-    and on grids beyond the launch limits."""
+    and on grids beyond the launch limits.
+
+    Differentiable: when grad mode is on and an input requires a gradient,
+    the call goes through :class:`FlashAttentionFn`."""
     check_attention_args(q, k, v, q_dims=4, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale)
+    return _flash_forward(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                   window: int | None, softcap: float | None, scale: float | None) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card; arguments checked."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                                    scale=scale)
@@ -200,3 +215,29 @@ def flash_attention_cuda(
 
 
 flash_attention_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward of
+    :func:`flash_attention_cuda` (the kernel on the card, the plain version
+    on the CPU), the backward PyTorch's autodiff of
+    :func:`flash_attention_ref` recomputed from the saved q, k, v.  The
+    recomputation holds the whole f32 ``[B, H, Sq, Skv]`` score matrix and
+    its softmax (268 MB each at B 4, H 16, S 1024).  Takes what the wrapper
+    takes: causal or not, ``window``, ``softcap``, ``scale``, GQA and Sq !=
+    Skv.  A hand-written backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return _flash_forward(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            o = flash_attention_ref(*inputs, **ctx.opts)
+        grads = iter(torch.autograd.grad(o, wanted, grad_o))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None, None)

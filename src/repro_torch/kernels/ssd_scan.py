@@ -20,7 +20,9 @@ C and all arithmetic in f32:
   ``repro/kernels/ssd_scan.py::ssd_scan_pallas``.  It is the one place that
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
-  ``ssd_scan_cuda.launches`` counts its calls that launch, one per call;
+  ``ssd_scan_cuda.launches`` counts its calls that launch, one per call.
+  When a gradient is wanted it goes through :class:`SSDScanFn`, whose
+  backward is PyTorch's autodiff of :func:`ssd_scan_ref` recomputed;
 * :func:`ssd_scan_sequential` — the step-by-step recurrence, the reference's
   ``ssd_scan_ref``, an oracle for the tests.
 """
@@ -201,11 +203,45 @@ def ssd_scan_cuda(
     on the card :func:`ssd_plan` picks the kernel by shape and raises on a
     chunk outside 1-128, a state width N other than 16, 32, 64 or 128, a head
     width P that is not a multiple of 16, and it raises on grids beyond the
-    launch limits."""
+    launch limits.
+
+    Differentiable: when grad mode is on and an input requires a gradient,
+    the call goes through :class:`SSDScanFn`."""
     check_ssd_args(x, dt, A, B_mat, C_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B_mat, C_mat)):
+        return SSDScanFn.apply(x, dt, A, B_mat, C_mat, chunk)
+    return _ssd_forward(x, dt, A, B_mat, C_mat, chunk)
+
+
+def _ssd_forward(x, dt, A, B_mat, C_mat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version on the CPU, the kernels on the card; arguments checked."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
     return _on_card(x, dt, A, B_mat, C_mat, chunk)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward of :func:`ssd_scan_cuda`
+    (the kernels on the card, the plain version on the CPU), returning ``(y,
+    final_state)``; the backward PyTorch's autodiff of :func:`ssd_scan_ref`
+    recomputed from the saved inputs, giving x, dt, A, B and C their
+    gradients (a final state that nothing used has a zero gradient).  A
+    hand-written backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_mat, C_mat, chunk):
+        ctx.save_for_backward(x, dt, A, B_mat, C_mat)
+        ctx.chunk = chunk
+        return _ssd_forward(x, dt, A, B_mat, C_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y, state = ssd_scan_ref(*inputs, chunk=ctx.chunk)
+        grads = iter(torch.autograd.grad((y, state), wanted, (grad_y, grad_state)))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
 
 
 def _on_card(x, dt, A, B_mat, C_mat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -23,6 +23,7 @@ module index: ``blocks.<slot>.<group>.<path>``
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Iterator, Mapping
 
 import numpy as np
@@ -97,3 +98,11 @@ def params_from_arrays(tree: Mapping, cfg: ModelConfig, device: torch.device | s
         else:
             params = Transformer(cfg, torch.device("meta"))
     return load_arrays(params.to_empty(device=device), flat)
+
+
+def named_arrays(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """A reference pytree shaped as the model's parameters (its gradients,
+    its AdamW moments) as ``{port parameter name: f32 CPU tensor}``, for
+    comparing leaf by leaf."""
+    module = params_from_arrays(tree, dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    return {k: p.detach() for k, p in module.named_parameters()}

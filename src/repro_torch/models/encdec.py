@@ -115,31 +115,42 @@ def _cross_kv(p: L.Attention, enc: torch.Tensor, cfg: ModelConfig) -> tuple[torc
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
-def _decoder(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
-             enc: torch.Tensor) -> tuple[torch.Tensor, list[tuple[torch.Tensor, ...]]]:
+def _dec_block(p: DecBlock, x: torch.Tensor, enc: torch.Tensor,
+               cfg: ModelConfig) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """One decoder layer over the whole prompt: (x, (self k, self v, cross
+    k, cross v))."""
+    h, (kc, vc) = L.attention_forward(p.self_attn, L.rmsnorm(p.ln_self, x, cfg.norm_eps), cfg,
+                                      causal=True, use_rope=False)
+    x = x + h
+    ck, cv = _cross_kv(p.cross_attn, enc, cfg)
+    h, _ = L.attention_forward(p.cross_attn, L.rmsnorm(p.ln_cross, x, cfg.norm_eps), cfg,
+                               causal=False, use_rope=False, kv_override=(ck, cv))
+    x = x + h
+    x = x + L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
+    return x, (kc, vc, ck, cv)
+
+
+def _decoder(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor, enc: torch.Tensor, *,
+             remat: bool = False) -> tuple[torch.Tensor, list[tuple[torch.Tensor, ...]]]:
     """The decoder over the whole prompt ``tokens [B, S]`` against the
     encoder states: (final states [B, S, d], each layer's (self k, self v,
-    cross k, cross v))."""
+    cross k, cross v)).  With ``remat`` each decoder layer is recomputed in
+    the backward (the reference checkpoints the decoder's blocks, not the
+    encoder's)."""
     S = tokens.shape[1]
     x = L.embed(params.embed, tokens, cfg) + params.pos_dec[:S][None]
     kvs = []
     for p in params.dec_blocks:
-        h, (kc, vc) = L.attention_forward(p.self_attn, L.rmsnorm(p.ln_self, x, cfg.norm_eps), cfg,
-                                          causal=True, use_rope=False)
-        x = x + h
-        ck, cv = _cross_kv(p.cross_attn, enc, cfg)
-        h, _ = L.attention_forward(p.cross_attn, L.rmsnorm(p.ln_cross, x, cfg.norm_eps), cfg,
-                                   causal=False, use_rope=False, kv_override=(ck, cv))
-        x = x + h
-        x = x + L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
-        kvs.append((kc, vc, ck, cv))
+        x, kv = L.remat(_dec_block, p, x, enc, cfg, enabled=remat)
+        kvs.append(kv)
     return L.rmsnorm(params.ln_final, x, cfg.norm_eps), kvs
 
 
-def forward(params: EncDec, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+def forward(params: EncDec, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
     """batch {"frames": [B, F, d], "tokens": [B, S]} -> (logits [B, S, V]
-    f32, {"aux_loss": 0})."""
-    x, _ = _decoder(params, cfg, batch["tokens"], encode(params, cfg, batch["frames"]))
+    f32, {"aux_loss": 0}); ``remat`` recomputes each decoder layer."""
+    x, _ = _decoder(params, cfg, batch["tokens"], encode(params, cfg, batch["frames"]), remat=remat)
     logits = L.unembed(params.embed, x, cfg)
     return logits, {"aux_loss": torch.zeros((), device=logits.device)}
 

@@ -97,13 +97,21 @@ def _shared_forward(p: SharedBlock, x: torch.Tensor, cfg: ModelConfig):
     return _mlp_residual(p, x + h, cfg), kv
 
 
-def forward(params: HybridLM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0})."""
-    x = L.embed(params.embed, batch["tokens"], cfg)
-    for p, inv in zip(params.blocks, _invocations(cfg)):
+def forward(params: HybridLM, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0}).
+    With ``remat`` each block (a Mamba2 layer and the shared invocation
+    after it, if any) is recomputed in the backward."""
+
+    def block_fn(x: torch.Tensor, p: ssm.Block, inv: int | None) -> torch.Tensor:
         x = x + M.mamba_forward(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
         if inv is not None:
             x, _ = _shared_forward(params.shared, x, cfg)
+        return x
+
+    x = L.embed(params.embed, batch["tokens"], cfg)
+    for p, inv in zip(params.blocks, _invocations(cfg)):
+        x = L.remat(block_fn, x, p, inv, enabled=remat)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)
     return logits, {"aux_loss": torch.zeros((), device=logits.device)}

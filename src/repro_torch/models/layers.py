@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -45,8 +46,27 @@ def truncated_normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that takes no gradient (the port serves; it does not train)."""
+    """A parameter that takes no gradient until :func:`trainable` turns
+    gradients on, so that serving builds no autograd graph."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable(module: nn.Module) -> nn.Module:
+    """Turn gradients on for every parameter of ``module`` (in place, as
+    training does before its first step); returns ``module``."""
+    for p in module.parameters():
+        p.requires_grad_(True)
+    return module
+
+
+def remat(fn, *args, enabled: bool):
+    """``fn(*args)``; with ``enabled`` and grad mode on, under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+    and recomputed in the backward, as the reference's ``jax.checkpoint``
+    does for a layer group or a block."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_modules(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -53,9 +53,9 @@ class ModelApi:
              device: torch.device | str = "cuda"):
         return self.module.init_params(generator, cfg or self.config, device)
 
-    def forward(self, params, batch: dict, cfg: ModelConfig | None = None):
+    def forward(self, params, batch: dict, cfg: ModelConfig | None = None, *, remat: bool = False):
         """batch {"tokens"}, with {"frames"} (encdec) or {"patches"} (vlm)."""
-        return self.module.forward(params, cfg or self.config, batch)
+        return self.module.forward(params, cfg or self.config, batch, remat=remat)
 
     def init_cache(self, batch: int, max_len: int, cfg: ModelConfig | None = None,
                    device: torch.device | str = "cuda") -> dict:

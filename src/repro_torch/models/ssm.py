@@ -56,11 +56,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return L.init_modules(Mamba2LM(cfg, torch.device("meta")).to_empty(device=device), generator)
 
 
-def forward(params: Mamba2LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0})."""
+def forward(params: Mamba2LM, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """batch {"tokens": [B, S]} -> (logits [B, S, V] f32, {"aux_loss": 0}).
+    With ``remat`` each block is recomputed in the backward."""
+
+    def block_fn(x: torch.Tensor, p: Block) -> torch.Tensor:
+        return x + M.mamba_forward(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
+
     x = L.embed(params.embed, batch["tokens"], cfg)
     for p in params.blocks:
-        x = x + M.mamba_forward(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
+        x = L.remat(block_fn, x, p, enabled=remat)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)
     return logits, {"aux_loss": torch.zeros((), device=logits.device)}

@@ -123,16 +123,28 @@ def _block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, window: int | No
     return x, kv, aux
 
 
-def forward(params: Transformer, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
     """batch {"tokens": [B, S]} (or {"embeds": [B, S, d]}, the vlm's prefix
     path) -> (logits [B, S, V] f32, {"aux_loss": the sum of the layers' MoE
-    load-balance losses, 0 for a dense model})."""
+    load-balance losses, 0 for a dense model}).  With ``remat`` each layer
+    group (gemma2's local and global pair, else one layer) is recomputed in
+    the backward, as the reference's ``jax.checkpoint`` of its group."""
     x = batch["embeds"] if "embeds" in batch else L.embed(params.embed, batch["tokens"], cfg)
+    windows = layer_windows(cfg)
+
+    def group_fn(x: torch.Tensor, grp: int) -> tuple[torch.Tensor, torch.Tensor]:
+        aux_total = torch.zeros((), device=x.device)
+        for s, w in enumerate(windows):
+            x, _, aux = _block_forward(params.blocks[s][grp], x, cfg, w)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+
     aux_loss = torch.zeros((), device=x.device)
-    for _, _, w, p in _layers(params, cfg):
-        x, _, aux = _block_forward(p, x, cfg, w)
-        if aux is not None:
-            aux_loss = aux_loss + aux
+    for grp in range(cfg.num_layers // len(windows)):
+        x, aux = L.remat(group_fn, x, grp, enabled=remat)
+        aux_loss = aux_loss + aux
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)
     return logits, {"aux_loss": aux_loss}

@@ -46,11 +46,12 @@ def _prefix_embeds(params: VLM, cfg: ModelConfig, patches: torch.Tensor, tokens:
     return torch.cat([pre, tok], dim=1)
 
 
-def forward(params: VLM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+def forward(params: VLM, cfg: ModelConfig, batch: dict, *, remat: bool = False) -> tuple[torch.Tensor, dict]:
     """batch {"patches": [B, P, d], "tokens": [B, S]} -> logits over the
-    whole (prefix + text) sequence, [B, P + S, V] f32, and the aux dict."""
+    whole (prefix + text) sequence, [B, P + S, V] f32, and the aux dict;
+    ``remat`` as the transformer's."""
     embeds = _prefix_embeds(params, cfg, batch["patches"], batch["tokens"])
-    return T.forward(params, cfg, {"embeds": embeds})
+    return T.forward(params, cfg, {"embeds": embeds}, remat=remat)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str = "cuda") -> dict:

@@ -1,0 +1,47 @@
+"""Training losses: next-token cross-entropy with z-loss, target masking,
+the vlm's prefix and the MoE load-balance term.
+
+Ported from the reference's ``repro/train/losses.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+def next_token_loss(
+    logits: torch.Tensor,  # [B, S, V] f32
+    tokens: torch.Tensor,  # [B, S] (inputs; targets = shift-left)
+    cfg: ModelConfig,
+    *,
+    mask: torch.Tensor | None = None,  # [B, S]: 1 where the *target* counts
+    aux_loss: torch.Tensor | None = None,
+    prefix_len: int = 0,  # vlm: logits cover [prefix | text]; loss on text only
+) -> tuple[torch.Tensor, dict]:
+    """(loss, metrics {"nll", "tokens", "z_loss"?, "moe_aux"?, "loss"}): the
+    mean over counted targets of ``logsumexp - target logit``, plus
+    ``z_loss`` times the mean squared ``logsumexp`` and the aux loss."""
+    if prefix_len:
+        logits = logits[:, prefix_len:]
+    S = tokens.shape[1]
+    pred = logits[:, : S - 1]
+    targets = tokens[:, 1:].long()
+    m = (torch.ones(targets.shape, dtype=torch.float32, device=pred.device) if mask is None
+         else mask[:, 1:].float())
+    logz = torch.logsumexp(pred, dim=-1)
+    tgt_logit = pred.gather(-1, targets[..., None])[..., 0]
+    nll = (logz - tgt_logit) * m
+    denom = torch.clamp(m.sum(), min=1.0)
+    loss = nll.sum() / denom
+    metrics = {"nll": loss, "tokens": denom}
+    if cfg.z_loss:
+        zl = cfg.z_loss * torch.sum(torch.square(logz) * m) / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    if aux_loss is not None:
+        loss = loss + aux_loss
+        metrics["moe_aux"] = aux_loss
+    metrics["loss"] = loss
+    return loss, metrics

@@ -1205,7 +1205,21 @@ def job_kvcache(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_replacement(params: dict, inputs: dict) -> dict:
+    """The reference's ``replacement_schedule`` (HEFT on ``tpu_fleet``, which
+    reaches ``repro.core``) for each (jobs, surviving pods) case."""
+    from repro.distributed.fault_tolerance import replacement_schedule
+
+    out: dict[str, np.ndarray] = {}
+    for i, case in enumerate(params["cases"]):
+        rep = replacement_schedule(case["jobs"], case["pods"])
+        _schedule_arrays(out, f"{i}", rep.schedule)
+        out[f"{i}/assignment"] = np.asarray(rep.schedule.assignment)
+    return out
+
+
 JOBS = {
+    "replacement": job_replacement,
     "kvcache": job_kvcache,
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
     "shard": job_shard, "topology": job_topology,
