@@ -200,7 +200,20 @@ result line:
     default and the deterministic mode; the training CLI with no
     ``--device`` for every reduced config the token stream can train (and
     gemma2-2b in a child process), whisper-base and internvl2-76b stopping
-    with the reference's ``KeyError``.
+    with the reference's ``KeyError``;
+23. the dry-run (``launch/dryrun.py``): the whole sweep (10 architectures x
+    their shape suites x the meshes (16, 16) and (2, 16, 16), 68 cells on
+    meta) in a child started before phase 1 on a core of its own, every
+    cell ``ok``; on a (1, 1)
+    mesh its prediction of qwen2.5-3b's and mamba2-780m's training steps at
+    4 x 1024 and a qwen2.5-3b decode tick of 4 slots against the same steps
+    on the card: argument bytes equal, FLOPs equal to the same counter
+    (``launch/op_costs.py``) run over the real step, the peak within
+    ``PEAK_BAND`` of ``torch.cuda.max_memory_allocated``, the roofline
+    beside the measured ms; the four-card plan (per-card parameter bytes
+    and the ``decode_32k`` peak of deepseek-67b, internvl2-76b and
+    mixtral-8x7b under serve-tp on (data 1, model 4)); no kernel launch in
+    any dry-run.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -209,6 +222,7 @@ CUDA device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -454,18 +468,33 @@ def device_time_breakdown(run, classify=None) -> dict:
     return out
 
 
+def roofline_ms(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time of ``flops`` at the dtype's peak (bf16 tensor cores, or
+    f32 outside them) and ``nbytes`` at the HBM rate, and which bounds."""
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def attention_work(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int):
+    """The attention kernels' one formula (``kernels/work.py``, read by the
+    dry-run's counter too) for ``pairs`` visible (query head, key) pairs
+    and the ``kv_rows`` rows of k and v they touch."""
+    from repro_torch.launch import op_costs
+
+    return op_costs.attention_work("attention", B=q.shape[0], H=q.shape[1], Hkv=k.shape[1], D=q.shape[-1],
+                                   q_rows=q.shape[2] if q.dim() == 4 else 1, pairs=pairs, kv_rows=kv_rows,
+                                   dtype=q.dtype)
+
+
 def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int) -> tuple[float, str]:
     """Least time an H100 could take for an attention call (flash or decode):
     q read and the output written once, the ``kv_rows`` rows of k and v that
     some visible pair touches read once, against 4 * D operations per
     visible (query head, key) pair at the rate of the dtype (bf16 tensor
-    cores, or f32 outside them)."""
-    D, size = q.shape[-1], q.element_size()
-    nbytes = 2 * q.numel() * size + 2 * kv_rows * D * size
-    ops = 4 * D * pairs
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+    cores, or f32 outside them): :func:`attention_work`."""
+    w = attention_work(q, k, pairs, kv_rows)
+    return roofline_ms(w.flops, w.bytes, q.dtype)
 
 
 def attention_phase(prompt_lens: list[int]) -> dict:
@@ -975,20 +1004,24 @@ def _card_against_cpu(api, cut, prompts: tuple[int, ...], ticks: int) -> None:
           f"{agree}/{total} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def ssd_work(x: torch.Tensor, G: int, N: int):
+    """The SSD kernel's one formula (``kernels/work.py``, read by the
+    dry-run's counter too) for ``x [B, L, H, P]`` with B and C of ``G``
+    groups of width ``N``."""
+    from repro_torch.launch import op_costs
+
+    return op_costs.ssd_scan_work(x, torch.empty(x.shape[0], x.shape[1], G, N, dtype=x.dtype, device="meta"))
+
+
 def ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
     """Least time an H100 could take for an SSD scan of ``x [B, L, H, P]``
     with B and C of ``G`` groups of width ``N``: x, B, C, dt and A read
     once, y and the f32 final state written once, against the recurrence's
     4 * P * N operations per (batch, step, head) (a multiply-add each for the
     state update and the read of y) at the rate of x's dtype (bf16 tensor
-    cores, or f32 outside them)."""
-    Bsz, L, H, P = x.shape
-    size = x.element_size()
-    nbytes = 2 * x.numel() * size + 2 * Bsz * L * G * N * size + Bsz * L * H * 4 + H * 4 + Bsz * H * P * N * 4
-    ops = 4 * P * N * Bsz * L * H
-    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+    cores, or f32 outside them): :func:`ssd_work`."""
+    w = ssd_work(x, G, N)
+    return roofline_ms(w.flops, w.bytes, x.dtype)
 
 
 def ssd_phase(prompt_lens: list[int]) -> dict:
@@ -1710,10 +1743,12 @@ MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launch
 # cuts the ROADMAP's facts allow, in their order, once a run passes 800 s:
 # SA's plain run (94 s of a 930.9 s run on an H100 at 700 W) was cut to 50
 # steps, then, at 912 s before phase 21 with the encdec and vlm phases,
-# to 20 steps, and PSO's and ACO's (25-28 s each) to 20 iterations; the
-# kernel runs the same options beside each.
-MH_PLAIN = {"pso": {"pop_size": 64, "iterations": 20}, "sa": {"chains": 32, "steps": 20},
-            "aco": {"ants": 48, "iterations": 20}}
+# to 20 steps, and PSO's and ACO's (25-28 s each) to 20 iterations; with
+# phase 23 (the dry-run, 64 s in its probe) after an 837.3 s run, SA's to 10
+# steps and PSO's and ACO's to 10 iterations; the kernel runs the same
+# options beside each.
+MH_PLAIN = {"pso": {"pop_size": 64, "iterations": 10}, "sa": {"chains": 32, "steps": 10},
+            "aco": {"ants": 48, "iterations": 10}}
 
 
 def makespan_class(name: str) -> str:
@@ -2822,27 +2857,22 @@ TRAIN = {"batch": 4, "seq": 1024, "steps": 5, "eval_batches": 2}
 def train_attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int) -> tuple[float, str]:
     """Least time an H100 could take for attention's forward and backward:
     q, k, v and the output's cotangent read once, the output and the three
-    gradients written once, against 12·D operations a visible pair (QKᵀ and
-    PV forward; dV, dP, dQ and dK backward) at the rate of the dtype."""
-    D, size = q.shape[-1], q.element_size()
-    nbytes = 4 * q.numel() * size + 4 * kv_rows * D * size
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * D * pairs / rate
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+    gradients written once (twice the forward's bytes), against 12·D
+    operations a visible pair (QKᵀ and PV forward; dV, dP, dQ and dK
+    backward: three times the forward's) at the rate of the dtype."""
+    w = attention_work(q, k, pairs, kv_rows)
+    return roofline_ms(3 * w.flops, 2 * w.bytes, q.dtype)
 
 
 def train_ssd_bound_ms(x: torch.Tensor, G: int, N: int) -> tuple[float, str]:
     """Least time for the SSD scan's forward and backward: x, B, C, dt, A
     and y's cotangent read once, y, the final state and the five gradients
-    written once, against 12·P·N operations a (batch, step, head): the
-    forward's 4·P·N (:func:`ssd_bound_ms`) and twice that backward."""
-    Bsz, L, H, P = x.shape
-    size = x.element_size()
-    nbytes = (4 * x.numel() * size + 4 * Bsz * L * G * N * size + 2 * Bsz * L * H * 4 + 2 * H * 4
-              + Bsz * H * P * N * 4)
-    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * P * N * Bsz * L * H / rate
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+    written once (twice the forward's bytes less one final state), against
+    12·P·N operations a (batch, step, head): the forward's 4·P·N
+    (:func:`ssd_bound_ms`) and twice that backward."""
+    w = ssd_work(x, G, N)
+    Bsz, _, H, P = x.shape
+    return roofline_ms(3 * w.flops, 2 * w.bytes - Bsz * H * P * N * 4, x.dtype)
 
 
 def with_grads(fn, inputs: tuple, cotangents: tuple):
@@ -3383,6 +3413,197 @@ def training_phase() -> tuple[dict[str, dict[str, int]], dict]:
     return by_path, readings
 
 
+# -----------------------------------------------------------------------------
+# 23. the dry-run and its cost model
+# -----------------------------------------------------------------------------
+
+#: phase 23's steps on the card, (batch, sequence): phase 22's training
+#: shape and a decode tick of 4 slots against a full cache of 2048
+PREDICT = {"train": (4, 1024), "decode": (4, 2048)}
+#: the band the dry-run's peak bytes must fall in, as a share of the
+#: card's ``torch.cuda.max_memory_allocated`` over the same step
+PEAK_BAND = (0.9, 1.1)
+#: the four-card plan for the sharded step: the layouts that do not fit one
+#: card, under serve-tp on (data 1, model 4)
+FOUR_CARDS = ("deepseek-67b", "internvl2-76b", "mixtral-8x7b")
+
+
+def start_dryrun_sweep() -> tuple[subprocess.Popen, Path]:
+    """Phase 23 (a), started before phase 1: the whole dry-run
+    (``python -m repro_torch.launch.dryrun --all --mesh both --force``) in a
+    child on the host's CPU beside the card's phases, its log in
+    ``build/dryrun_sweep.log``.  The child runs on the last core of this
+    process's set and this process (with the children it starts later) on
+    the others, so the host-bound phases' readings do not share a core with
+    the sweep."""
+    repo = Path(__file__).resolve().parent
+    log = repo / "build" / "dryrun_sweep.log"
+    log.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    pin = None
+    if len(cores) > 1:
+        os.sched_setaffinity(0, cores[:-1])
+        torch.set_num_threads(len(cores) - 1)
+        pin = cores[-1]
+    print(f"dryrun sweep: its child on core {pin}, this process on cores {sorted(os.sched_getaffinity(0))}",
+          flush=True)
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+                                 "--force"], env=env, stdout=out, stderr=subprocess.STDOUT, cwd=repo,
+                                preexec_fn=None if pin is None else (lambda: os.sched_setaffinity(0, {pin})))
+
+    def stop() -> None:  # a run that fails before phase 23 leaves no child behind
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log
+
+
+def finish_dryrun_sweep(proc: subprocess.Popen, log: Path) -> dict:
+    """Phase 23 (a): wait for the sweep, require every cell ``ok`` and no
+    kernel launch in the child."""
+    rc = proc.wait(timeout=900)
+    text = log.read_text()
+    ok = len(re.findall(r"^\[ok", text, re.M))
+    errors = re.findall(r"^\[error\].*$", text, re.M)
+    done = re.search(r"^done: (\d+) cells, (\d+) failures in ([\d.]+) s; kernel launches (\{.*\})$", text, re.M)
+    check(rc == 0 and done is not None and not errors, f"the dry-run sweep: rc {rc}, {errors[:3]}, {text[-1500:]}")
+    cells, failures, seconds, launches = int(done[1]), int(done[2]), float(done[3]), json.loads(done[4])
+    check(cells == ok == 68 and failures == 0, f"the dry-run sweep: {ok} of {cells} cells ok")
+    check(not any(launches.values()), f"the dry-run child launched kernels: {launches}")
+    print(f"dryrun sweep: {ok} of {cells} cells ok (10 architectures x their suites x meshes (16, 16) and "
+          f"(2, 16, 16)) in {seconds:.1f} s on the host beside the card's phases; launches {launches}", flush=True)
+    return {"cells": cells, "ok": ok, "seconds": seconds}
+
+
+def _card_step(arch: str, kind: str):
+    """``(run, arguments)`` of one step of ``arch`` at full width and depth on
+    the card: a training step (remat, AdamW) at phase 22's shape, or a
+    decode tick of 4 slots at position 2047 of a 2048-long cache."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    api = get_model(arch)
+    cfg = api.config
+    B, S = PREDICT[kind]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(g, cfg, device="cuda")
+    if kind == "train":
+        L.trainable(params)
+        opt_cfg = adamw.AdamWConfig()
+        state = adamw.init(opt_cfg, params)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), dtype=torch.int32, device="cuda", generator=g)}
+        step = make_train_step(api, cfg, opt_cfg, remat=True)
+        return (lambda: step(params, state, batch)), (params, state, batch)
+    cache = api.init_cache(B, S, cfg, device="cuda")
+    cache["pos"] = S - 1
+    token = torch.randint(0, cfg.vocab, (B,), dtype=torch.int32, device="cuda", generator=g)
+
+    def tick():
+        with torch.no_grad():
+            return api.decode_step(params, token, cache)
+
+    return tick, (params, token, cache)
+
+
+def dryrun_phase() -> dict:
+    """Phase 23 (b)-(d): the dry-run's prediction of one step on a (1, 1)
+    mesh against the same step on the card (qwen2.5-3b and mamba2-780m
+    training steps, a qwen2.5-3b decode tick): argument bytes equal,
+    FLOPs equal to the counter run over the real step, the peak within
+    ``PEAK_BAND`` of ``max_memory_allocated``, the roofline beside the
+    measured ms; the four-card plan of ``FOUR_CARDS``; no kernel launch
+    during any dry-run."""
+    import gc
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_costs import OpCounter
+
+    one = make_mesh((1, 1), ("data", "model"))
+    rows = {}
+    for arch, kind in (("qwen2.5-3b", "train"), ("mamba2-780m", "train"), ("qwen2.5-3b", "decode")):
+        B, S = PREDICT[kind]
+        before = dryrun._launches()
+        t0 = time.perf_counter()
+        cell = dryrun.build_cell(arch, ShapeSuite(f"{kind}_{B}x{S}", kind, S, B), one, dryrun.POLICIES["baseline"])
+        _, meta = dryrun.count_cell(cell, scopes=False)
+        trace_s = time.perf_counter() - t0
+        check(dryrun._launches() == before, f"{arch} {kind}: the dry-run launched no kernel")
+        predicted = meta.memory()
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+        run, args = _card_step(arch, kind)
+        run()  # warm: the libraries, cuBLAS's workspace
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        with OpCounter(arguments=args) as card:  # not timed
+            run()
+            torch.cuda.synchronize()
+        card_args = card.memory()["argument_bytes"]
+        flops, nbytes = meta.costs.flops, meta.costs.bytes
+        roof_ms, bound_by = roofline_ms(flops, nbytes, torch.bfloat16)
+        ratio = predicted["peak_bytes"] / peak
+        label = f"{arch} {kind} {B}x{S}"
+        check(predicted["argument_bytes"] == card_args,
+              f"{label}: dry-run argument bytes {predicted['argument_bytes']} == the card's {card_args}")
+        check(card.costs.flops == flops,
+              f"{label}: dry-run FLOPs {flops:.0f} == the counter over the card's step {card.costs.flops:.0f}")
+        check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+              f"{label}: dry-run peak {predicted['peak_bytes']} within {PEAK_BAND} of the card's {peak} ({ratio:.4f})")
+        rows[label] = {
+            "argument_bytes": predicted["argument_bytes"], "card_argument_bytes": card_args,
+            "flops": flops, "card_flops": card.costs.flops, "matmul_flops": meta.costs.matmul_flops,
+            "bytes": nbytes, "card_bytes": card.costs.bytes, "peak_bytes": predicted["peak_bytes"],
+            "card_max_memory_allocated": peak, "peak_ratio": ratio, "temp_bytes": predicted["temp_bytes"],
+            "roofline_ms": roof_ms, "bound_by": bound_by, "step_ms": ms, "trace_s": trace_s,
+            "kernels": meta.costs.kernels,
+        }
+        print(f"dryrun {label}: arguments {predicted['argument_bytes']:,} B == card {card_args:,} B; FLOPs "
+              f"{flops:.6e} == card {card.costs.flops:.6e} (matmul {meta.costs.matmul_flops:.6e}); bytes "
+              f"{nbytes:.6e} (card {card.costs.bytes:.6e}); peak {predicted['peak_bytes'] / 1e9:.3f} GB against "
+              f"max_memory_allocated {peak / 1e9:.3f} GB (ratio {ratio:.4f}, band {PEAK_BAND}); roofline "
+              f"{roof_ms:.3f} ms ({bound_by}) against {ms:.2f} ms measured; traced on meta in {trace_s:.1f} s",
+              flush=True)
+        del run, args, card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    four = make_mesh((1, 4), ("data", "model"))
+    plan = {}
+    before = dryrun._launches()
+    for arch in FOUR_CARDS:
+        rec = dryrun.run_cell(arch, "decode_32k", "1x4", policy=dryrun.POLICIES["serve-tp"], mesh=four, write=False,
+                              tag="@serve-tp")
+        check(rec["status"] == "ok", f"four-card plan {arch}: {rec.get('error')}")
+        cell = dryrun.build_cell(arch, "decode_32k", four, dryrun.POLICIES["serve-tp"])
+        param_bytes = sum(p.numel() * p.element_size() for p in cell.params.parameters())
+        mem = rec["memory"]
+        cache_bytes = mem["argument_bytes"] - param_bytes
+        plan[arch] = {"param_bytes_per_card": param_bytes, "decode_32k_peak_bytes": mem["peak_bytes"],
+                      "cache_bytes_per_card": cache_bytes, "collective_bytes": rec["collectives"]["total_bytes"],
+                      "layout": rec["layout"]["attention"]}
+        print(f"dryrun four-card plan {arch} serve-tp (data 1, model 4): parameters {param_bytes / 1e9:.3f} GB a card; "
+              f"decode_32k (128 x 32768) peak {mem['peak_bytes'] / 1e9:.3f} GB a card (cache {cache_bytes / 1e9:.3f} GB), "
+              f"exchanges {rec['collectives']['total_bytes'] / 1e9:.4f} GB a tick; attention {rec['layout']['attention']}",
+              flush=True)
+    check(dryrun._launches() == before, "the four-card plan launched no kernel")
+    print(json.dumps({"dryrun_predict": rows, "dryrun_four_cards": plan}), flush=True)
+    return {"predict": rows, "four_cards": plan}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3414,6 +3635,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     clock = [time.perf_counter()]
+    sweep = start_dryrun_sweep()  # phase 23 (a), on the host beside the card's phases
 
     def phase_done(n: int, what: str) -> None:
         now = time.perf_counter()
@@ -3751,6 +3973,14 @@ def main() -> int:
     print(f"before phase 22: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
     train_by_path, train_record = training_phase()
     phase_done(22, "training")
+
+    # 23. the dry-run: the sweep's cells, its prediction against the card,
+    # the four-card plan, no launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase()
+    finish_dryrun_sweep(*sweep)
+    phase_done(23, "the dry-run and its cost model")
 
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
                         **service_launches, **campaign_launches, **topology_launches, **continuum_launches}

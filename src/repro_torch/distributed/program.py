@@ -1,0 +1,780 @@
+"""One device's share of a sharded step: the layout each tensor takes while
+the step computes, and the exchanges between devices that the layout
+implies, one function each.
+
+The rule tables (``distributed/sharding.py``) say which slice of each
+tensor a device *stores*.  A device cannot compute on every such slice:
+FSDP splits a weight's input dimension, and a rule may split a dimension
+inside a unit of the computation (a head, a Mamba2 block's concatenated
+projection).  :class:`Program` chooses, for every module of a model, the
+layout its computation uses, and the model's code calls this module's
+functions at the points where the layouts meet:
+
+* :func:`weight`: a parameter gathered from its stored slice to its compute
+  layout (an all-gather over FSDP and every axis the computation does not
+  split), its gradient reduce-scattered back (or, over axes on which every
+  device computed the same gradient, sliced);
+* :func:`enter` / :func:`exit`: a module computed tensor-parallel (attention
+  by whole query heads, an MLP by ffn columns, MoE experts by expert or by
+  ffn columns): the input's gradient all-reduced over the tensor-parallel
+  axes, the output's partial sums all-reduced (Megatron's ``f`` and ``g``);
+  under sequence parallelism an all-gather of the sequence on the way in and
+  a reduce-scatter on the way out.  A module computed whole on every device
+  (a Mamba2 block; attention whose heads do not divide) only changes the
+  sequence's layout;
+* :func:`kv_heads` / :func:`kv_select`: kv heads split inside a head are
+  gathered whole before attention, and each device's query heads read the
+  kv heads of their group;
+* :func:`decode_query` / :func:`decode_combine`: a decode step against a
+  KV cache whose sequence is split over devices: the query's heads
+  gathered, attention over the local keys, the partial softmax states
+  combined (an all-reduce of ``[B, H, D + 2]`` f32);
+* :func:`cache_load` / :func:`cache_store` / :func:`prompt_slice`: a cache
+  kept in a finer layout than its computation;
+* :func:`lookup`, :func:`logsumexp`, :func:`pick`: the vocabulary split
+  over devices (the embedding's partial rows all-reduced; the loss's max,
+  sum and target logit all-reduced over ``[B, S]``);
+* :func:`moe_dispatch` / :func:`moe_return`: the ``[E, C, d]`` dispatch
+  buffer laid out for the experts and back: split by expert where the
+  experts are, its capacity over the axes an installed
+  ``hints.moe_buffer_pspec`` names (else over the tokens' own axes);
+* :func:`data_parallel_grads`: each gradient all-reduced over the batch
+  axes on which its parameter is replicated;
+* :func:`constrain` (through ``hints.constrain``): the residual stream laid
+  out by an installed spec.
+
+With no program installed every function returns its input itself, so the
+model's code runs as before, bit for bit.
+
+A :class:`Program` is the dry-run's plan of one device's step: shapes,
+not values.  Its exchanges are :class:`CountingComm`'s, which return
+tensors of the result's shape (on meta) and tell a counter the bytes
+(``kernels/work.py::collective``).  Every body computes as device 0 would:
+a slice is taken from offset 0 (a weight's gradient, the experts and the
+capacity of the MoE buffer, a prompt's or a cache's positions, the
+embedding's rows), and the flash-decoding combine only counts its
+all-reduce of the softmax state.  Running the plan on cards needs
+rank-aware bodies: each slice at the device's own offset, and the decode
+kernel returning its softmax state for the combine.  They come with a
+backend over ``torch.distributed`` (ROADMAP Queue A, item 8h).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from collections.abc import Iterator, Mapping
+
+import torch
+from torch import nn
+
+from repro_torch.distributed import hints
+from repro_torch.distributed.sharding import (
+    ShardingPolicy,
+    Spec,
+    axes_of,
+    cache_leaves,
+    make_param_shardings,
+)
+from repro_torch.kernels import work
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.config import ModelConfig
+
+_PROGRAM: Program | None = None
+
+
+@contextlib.contextmanager
+def installed(program: Program | None) -> Iterator[Program | None]:
+    """Run the model's code as ``program``'s share of the step."""
+    global _PROGRAM
+    prev = _PROGRAM
+    _PROGRAM = program
+    try:
+        yield program
+    finally:
+        _PROGRAM = prev
+
+
+def current() -> Program | None:
+    return _PROGRAM
+
+
+# -----------------------------------------------------------------------------
+# Exchanges
+# -----------------------------------------------------------------------------
+
+
+class CountingComm:
+    """The dry-run's exchanges: each returns a tensor of its result's shape
+    (its values undefined; the dry-run runs on meta) and tells the counters
+    its kind and result bytes."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def size(self, axes: tuple[str, ...]) -> int:
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def _out(self, kind: str, x: torch.Tensor, shape) -> torch.Tensor:
+        out = x.new_empty(shape)
+        work.collective(kind, out.numel() * out.element_size())
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] *= self.size(axes)
+        return self._out("all-gather", x, shape)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] //= self.size(axes)
+        return self._out("reduce-scatter", x, shape)
+
+    def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+        return self._out("all-reduce", x, x.shape)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   axes: tuple[str, ...]) -> torch.Tensor:
+        n = self.size(axes)
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim] *= n
+        return self._out("all-to-all", x, shape)
+
+    def gather_to(self, x: torch.Tensor, shape) -> torch.Tensor:
+        """``x`` gathered to ``shape``, over whichever axes split it more."""
+        return self._out("all-gather", x, shape)
+
+
+class _Exchange(torch.autograd.Function):
+    """``fwd(x)`` forward and ``bwd(grad)`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.bwd(grad), None, None
+
+
+def _exchange(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    return _Exchange.apply(x, fwd, bwd)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x.view_as(x)
+
+
+# -----------------------------------------------------------------------------
+# The plan of one model's step
+# -----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModulePlan:
+    """How one module computes: ``kind`` ``"tp"`` (split over ``axes``) or
+    ``"whole"`` (every device the whole module), with the attention's heads
+    (``heads`` query heads, ``kv_heads`` held after the projection,
+    ``kv_read`` read by the kernel; ``kv_mode`` ``split``, ``gather`` or
+    ``full``) and the MoE's ``moe_mode`` (``experts`` or ``ffn``) and
+    ``capacity_axes`` (the axes its buffer's capacity is split over while
+    the experts compute; None: the tokens' own)."""
+
+    kind: str
+    axes: tuple[str, ...] = ()
+    heads: int = 0
+    kv_heads: int = 0
+    kv_read: int = 0
+    kv_mode: str = ""
+    kv_axes: tuple[str, ...] = ()
+    moe_mode: str = ""
+    capacity_axes: tuple[str, ...] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightPlan:
+    """How a parameter goes from its stored slice to its compute layout:
+    the axes gathered per dimension, and which of them its gradient is
+    reduced over (the rest are sliced: every device there computed the same
+    gradient)."""
+
+    gathers: tuple[tuple[int, tuple[str, ...]], ...]  # (dim, axes), in order
+    reduce_axes: frozenset
+
+
+def _kept(entry, batch_axes: tuple[str, ...]) -> tuple[str, ...]:
+    """The axes of a stored dimension that the computation keeps split:
+    those the batch does not already split."""
+    return tuple(a for a in axes_of(entry) if a not in batch_axes)
+
+
+class Program:
+    """One device's share of a step of ``params`` (a model built at global
+    shapes, whose parameters :meth:`localize` replaces by their stored
+    slices) on ``mesh`` under ``policy``.  ``batch_axes``: the axes that
+    split the batch; ``seq_len``: the sequence the forward runs (for
+    sequence parallelism).  :meth:`add_cache` gives a serving step's cache
+    and its specs."""
+
+    def __init__(self, mesh: Mesh, policy: ShardingPolicy, cfg: ModelConfig, params: nn.Module, *,
+                 batch_axes: tuple[str, ...], seq_len: int):
+        self.mesh, self.policy, self.cfg = mesh, policy, cfg
+        self.comm = CountingComm(mesh)
+        self.batch_axes = tuple(a for a in batch_axes if mesh.shape[a] > 1)
+        self.specs: dict[str, Spec] = make_param_shardings(mesh, cfg, params, policy)
+        tp = tuple(a for a in policy.tp_axes if a in mesh.axis_names and mesh.shape[a] > 1)
+        self._sp_axes: tuple[str, ...] = ()  # the families whose forwards call hints.constrain
+        if (policy.sequence_parallel and tp and seq_len % self.size(tp) == 0
+                and cfg.family in ("dense", "moe", "vlm", "ssm", "hybrid")):
+            self._sp_axes = tp
+        self.seq_len = seq_len
+        self.moe_spec = hints.get_moe_buffer_pspec()
+        self.modules: dict[int, ModulePlan] = {}
+        self.weights: dict[int, WeightPlan] = {}
+        self.cache_axes: dict[int, dict[int, tuple[str, ...]]] = {}  # storage -> {dim: axes}
+        self.vocab_axes: tuple[str, ...] = ()
+        self._plan(params)
+
+    @property
+    def sp_axes(self) -> tuple[str, ...]:
+        """The axes splitting the residual stream's sequence: the policy's
+        tensor-parallel axes under sequence parallelism while the
+        activation hint is installed (``hints.activation_pspec``)."""
+        return self._sp_axes if hints.get_activation_pspec() is not None else ()
+
+    # -- sizes ---------------------------------------------------------------------
+    def size(self, axes) -> int:
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def live(self, axes) -> tuple[str, ...]:
+        """The axes of more than one device."""
+        return tuple(a for a in axes if self.mesh.shape[a] > 1)
+
+    # -- planning ------------------------------------------------------------------
+    def _spec(self, module_name: str, leaf: str) -> Spec:
+        return self.specs[f"{module_name}.{leaf}" if module_name else leaf]
+
+    def _attention_plan(self, name: str, cfg: ModelConfig) -> ModulePlan:
+        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        q_axes = self.live(_kept(self._spec(name, "q.w")[1], self.batch_axes))
+        o_axes = self.live(_kept(self._spec(name, "o.w")[0], self.batch_axes))
+        n = self.size(q_axes)
+        if not q_axes or q_axes != o_axes or H % n:
+            return ModulePlan("whole", heads=H, kv_heads=Hkv, kv_read=Hkv, kv_mode="full")
+        k_axes = self.live(_kept(self._spec(name, "k.w")[1], self.batch_axes))
+        H_loc, group = H // n, H // Hkv
+        if k_axes == q_axes and Hkv % n == 0:
+            return ModulePlan("tp", q_axes, H_loc, Hkv // n, Hkv // n, "split")
+        read = max(1, H_loc // group)
+        if H_loc % read or (H_loc > group and H_loc % group):
+            raise ValueError(f"{H_loc} query heads a device do not read whole kv groups of {group}")
+        return ModulePlan("tp", q_axes, H_loc, Hkv, read, "gather" if k_axes else "full", k_axes)
+
+    def _mlp_plan(self, name: str) -> ModulePlan:
+        up = self.live(_kept(self._spec(name, "up.w")[1], self.batch_axes))
+        down = self.live(_kept(self._spec(name, "down.w")[0], self.batch_axes))
+        return ModulePlan("tp", up) if up and up == down else ModulePlan("whole")
+
+    def _moe_plan(self, name: str) -> ModulePlan:
+        """Experts split where the rule tables store them split, or where an
+        installed buffer spec ``(experts, capacity, None)`` says (a split
+        that does not divide the experts degrades to none, as ``_fit``
+        does); else the ffn columns where those are split."""
+        spec, cap = self.moe_spec, None
+        if spec is None:
+            e_axes = self.live(_kept(self._spec(name, "gate")[0], self.batch_axes))
+        else:
+            e_axes, cap = (self.live(a for a in axes_of(e) if a in self.mesh.shape) for e in spec[:2])
+            if self.cfg.num_experts % self.size(e_axes):
+                e_axes = ()
+            if set(e_axes) & set(cap):
+                raise ValueError(f"the MoE buffer spec {spec} maps an axis twice")
+        if e_axes:
+            return ModulePlan("tp", e_axes, moe_mode="experts", capacity_axes=cap)
+        f_axes = self.live(_kept(self._spec(name, "gate")[2], self.batch_axes))
+        if f_axes and f_axes == self.live(_kept(self._spec(name, "down")[1], self.batch_axes)):
+            return ModulePlan("tp", f_axes, moe_mode="ffn", capacity_axes=cap)
+        return ModulePlan("whole", capacity_axes=cap)
+
+    def _kept_dims(self, pname: str, shape, plan: ModulePlan | None) -> dict[int, tuple[str, ...]]:
+        """The dimensions of a parameter the computation keeps split."""
+        spec = self.specs[pname]
+        leaf = pname.rsplit(".", 2)[-2:]
+        kept = {}
+        if plan is None or plan.kind != "tp":
+            return kept
+        axes = plan.axes
+        tail = ".".join(leaf)
+        if plan.heads:  # attention
+            if tail in ("q.w", "q.b"):
+                kept[len(shape) - 1] = axes
+            elif tail in ("k.w", "k.b", "v.w", "v.b") and plan.kv_mode in ("split", "gather"):
+                kept[len(shape) - 1] = plan.kv_axes if plan.kv_mode == "gather" else axes
+            elif tail == "o.w":
+                kept[0] = axes
+        elif plan.moe_mode == "experts":
+            if leaf[-1] in ("gate", "up", "down"):
+                kept[0] = axes
+        elif plan.moe_mode == "ffn":
+            if leaf[-1] in ("gate", "up"):
+                kept[2] = axes
+            elif leaf[-1] == "down":
+                kept[1] = axes
+        else:  # mlp
+            if tail in ("gate.w", "up.w", "up.b"):
+                kept[len(shape) - 1] = axes
+            elif tail == "down.w":
+                kept[0] = axes
+        for dim, a in kept.items():  # the stored split must be the kept one
+            if self.live(axes_of(spec[dim])) and set(self.live(axes_of(spec[dim]))) >= set(a):
+                continue
+            raise ValueError(f"{pname}: stored {spec} cannot compute split over {a} on dim {dim}")
+        return kept
+
+    def _plan(self, params: nn.Module) -> None:
+        from repro_torch.models import layers as L  # the models import this module
+        from repro_torch.models.mamba import Mamba2
+        from repro_torch.models.moe import MoE
+
+        cfg = self.cfg
+        self.embed_axes: tuple[str, ...] = ()
+        owner: dict[str, ModulePlan] = {}
+        attn = None
+        for name, m in params.named_modules():
+            plan = None
+            if isinstance(m, L.Attention):
+                plan = self._attention_plan(name, cfg)
+                if attn is not None and plan != attn:
+                    raise ValueError(f"{name}: attention layouts differ across layers")
+                attn = plan
+            elif isinstance(m, L.MLP):
+                plan = self._mlp_plan(name)
+            elif isinstance(m, MoE):
+                plan = self._moe_plan(name)
+            elif isinstance(m, Mamba2):
+                plan = ModulePlan("whole")
+            elif isinstance(m, L.Embed):
+                v = self.live(_kept(self._spec(name, "tok")[0], self.batch_axes))
+                if m.unembed is not None:
+                    u = self.live(_kept(self._spec(name, "unembed")[1], self.batch_axes))
+                else:
+                    u = v
+                self.embed_axes, self.vocab_axes = v, u
+                plan = ModulePlan("tp" if v else "whole", v)
+            if plan is not None:
+                self.modules[id(m)] = plan
+                owner[name] = plan
+        self.attention = attn
+        for pname, p in params.named_parameters():
+            mod = pname.rsplit(".", 1)[0]
+            plan = owner.get(mod) or owner.get(mod.rsplit(".", 1)[0] if "." in mod else "")
+            spec = self.specs[pname]
+            if pname.endswith("embed.tok"):
+                kept = {0: self.embed_axes} if self.embed_axes else {}
+            elif pname.endswith("embed.unembed"):
+                kept = {1: self.vocab_axes} if self.vocab_axes else {}
+            else:
+                kept = self._kept_dims(pname, p.shape, plan)
+            gathers = []
+            for dim, entry in enumerate(spec):
+                axes = self.live(axes_of(entry))
+                extra = tuple(a for a in axes if a not in kept.get(dim, ()))
+                if extra:
+                    gathers.append((dim, extra))
+            self.weights[pname] = WeightPlan(
+                tuple(gathers), frozenset(a for _, axes in gathers for a in axes
+                                          if a in self.batch_axes or a in self._sp_axes))
+
+    def local_config(self) -> ModelConfig:
+        """The config the model's code computes with: the attention's local
+        query and kv heads (the head width given explicitly)."""
+        cfg = self.cfg
+        if self.attention is None:
+            return cfg
+        return dataclasses.replace(cfg, num_heads=self.attention.heads, num_kv_heads=self.attention.kv_heads,
+                                   head_dim=cfg.resolved_head_dim)
+
+    def localize(self, params: nn.Module) -> nn.Module:
+        """Replace every parameter of ``params`` (built on meta at global
+        shapes) by its stored slice, on meta; keys the weight plans by the
+        new parameters."""
+        from repro_torch.distributed.sharding import local_shape
+
+        by_name = {}
+        for pname, p in list(params.named_parameters()):
+            mod_name, leaf = pname.rsplit(".", 1) if "." in pname else ("", pname)
+            mod = params.get_submodule(mod_name)
+            new = nn.Parameter(torch.empty(local_shape(tuple(p.shape), self.specs[pname], self.mesh),
+                                           dtype=p.dtype, device="meta"), requires_grad=p.requires_grad)
+            setattr(mod, leaf, new)
+            by_name[pname] = new
+        self.weights = {id(by_name[k]): v for k, v in self.weights.items()}
+        self.names = {id(p): k for k, p in by_name.items()}
+        return params
+
+    def add_cache(self, cache: Mapping, specs: Mapping[str, Spec]) -> None:
+        """The cache leaves' stored splits (their storages as keys)."""
+        for path, leaf in cache_leaves(cache):
+            if isinstance(leaf, torch.Tensor):
+                dims = {d: self.live(axes_of(e)) for d, e in enumerate(specs[path]) if self.live(axes_of(e))}
+                self.cache_axes[leaf.untyped_storage()._cdata] = dims
+
+    # -- the exchanges -----------------------------------------------------------
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        plan = self.weights.get(id(w))
+        if plan is None or not plan.gathers:
+            return w
+        comm = self.comm
+
+        def fwd(x):
+            for dim, axes in plan.gathers:
+                x = comm.all_gather(x, dim, axes)
+            return x
+
+        def bwd(g):
+            for dim, axes in reversed(plan.gathers):
+                red = tuple(a for a in axes if a in plan.reduce_axes)
+                rest = tuple(a for a in axes if a not in plan.reduce_axes)
+                if red:
+                    g = comm.reduce_scatter(g, dim, red)
+                if rest:
+                    g = g.narrow(dim, 0, g.shape[dim] // self.size(rest))
+            return g
+
+        return _exchange(w, fwd, bwd)
+
+    def _seq_sharded(self, x: torch.Tensor) -> bool:
+        """Whether ``x [B, S, ...]`` is a device's share of the sequence."""
+        return bool(self.sp_axes) and x.dim() == 3 and x.shape[1] * self.size(self.sp_axes) == self.seq_len
+
+    def _seq_whole(self, x: torch.Tensor) -> bool:
+        return bool(self.sp_axes) and x.dim() == 3 and x.shape[1] == self.seq_len
+
+    def enter(self, x: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
+        comm, sp = self.comm, self.sp_axes
+        if plan.moe_mode == "experts" and sp:  # each device routes its own tokens
+            return x
+        if self._seq_sharded(x):
+            if plan.kind == "tp":
+                return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: comm.reduce_scatter(g, 1, sp))
+            n = self.size(sp)
+            return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: g.narrow(1, 0, g.shape[1] // n))
+        if plan.kind == "tp":
+            return _exchange(x, _identity, lambda g: comm.all_reduce(g, plan.axes))
+        return x
+
+    def exit(self, y: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
+        comm, sp = self.comm, self.sp_axes
+        if plan.moe_mode == "experts":  # whole outputs, in the tokens' own layout
+            return y
+        if self._seq_whole(y):
+            if plan.kind == "tp":
+                return _exchange(y, lambda t: comm.reduce_scatter(t, 1, sp), lambda g: comm.all_gather(g, 1, sp))
+            n = self.size(sp)
+            return _exchange(y, lambda t: t.narrow(1, 0, t.shape[1] // n), lambda g: comm.all_gather(g, 1, sp))
+        if plan.kind == "tp":
+            return _exchange(y, lambda t: comm.all_reduce(t, plan.axes), _identity)
+        return y
+
+    def kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        plan, comm = self.attention, self.comm
+        if plan.kv_mode != "gather":
+            return t
+        axes = plan.kv_axes
+        return _exchange(t, lambda x: comm.all_gather(x, x.dim() - 1, axes),
+                         lambda g: comm.reduce_scatter(g, g.dim() - 1, axes))
+
+    def kv_select(self, k: torch.Tensor, v: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The kv heads ``[B, Hkv, S, D]`` that ``heads`` query heads (this
+        device's, in order) read: their groups' heads."""
+        group = self.cfg.num_heads // self.cfg.num_kv_heads
+        read = max(1, heads // group)
+        if read == k.shape[1]:
+            return k, v
+        return k.narrow(1, 0, read).contiguous(), v.narrow(1, 0, read).contiguous()
+
+    def cache_seq_axes(self, cache: torch.Tensor) -> tuple[str, ...]:
+        """The axes splitting the sequence of a layer's KV cache ``[B, Hkv,
+        S, D]`` (dimension 3 of its stacked leaf)."""
+        return self.cache_axes.get(cache.untyped_storage()._cdata, {}).get(3, ())
+
+    def _head_seq_axes(self, seq_axes: tuple[str, ...]) -> tuple[str, ...]:
+        """The axes that split both the query heads and the cache's sequence."""
+        plan = self.attention
+        return tuple(a for a in plan.axes if a in seq_axes) if plan.kind == "tp" else ()
+
+    def decode_query(self, q: torch.Tensor, seq_axes: tuple[str, ...]) -> torch.Tensor:
+        """Where one axis splits both the query heads and the cache's
+        sequence, each device needs every head against its keys: gather."""
+        axes = self._head_seq_axes(seq_axes)
+        return self.comm.all_gather(q, 1, axes) if axes else q
+
+    def decode_combine(self, o: torch.Tensor, seq_axes: tuple[str, ...]) -> torch.Tensor:
+        """Combine the attention over each device's share of the keys: an
+        all-reduce of the partial softmax states ``[B, H, D + 2]`` f32 over
+        the sequence's axes; then each device's own query heads."""
+        if not seq_axes:
+            return o
+        B, H, D = o.shape
+        self.comm.all_reduce(o.new_empty(B, H, D + 2, dtype=torch.float32), seq_axes)
+        if self._head_seq_axes(seq_axes):
+            o = o.narrow(1, 0, self.attention.heads).contiguous()
+        return o
+
+    def cache_load(self, t: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+        dims = self.cache_axes.get(base.untyped_storage()._cdata, {})
+        for dim, axes in dims.items():
+            if dim >= 2:  # beyond [layers, batch]: split finer than the computation
+                t = self.comm.all_gather(t, dim - 1, axes)
+        return t
+
+    def cache_store(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        if src.shape != dst.shape:
+            for d, (a, b) in enumerate(zip(src.shape, dst.shape)):
+                if a != b:
+                    src = src.narrow(d, 0, b)
+        dst.copy_(src)
+
+    def prompt_slice(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        seq = self.cache_axes.get(dst.untyped_storage()._cdata, {}).get(3, ())
+        if not seq:
+            return src
+        n = self.size(seq)
+        return src.narrow(2, 0, src.shape[2] // n) if src.shape[2] % n == 0 else src
+
+    def lookup(self, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        w = self.weight(tok)
+        axes = self.embed_axes
+        if not axes:
+            return w[tokens]
+        rows = w.shape[0]
+        local = tokens.long()  # less this device's first row, rank * rows (0 here)
+        inside = (local >= 0) & (local < rows)
+        x = torch.where(inside[..., None], w[torch.clamp(local, 0, rows - 1)], 0.0).to(w.dtype)
+        plan = ModulePlan("tp", axes)
+        return self.exit(x, plan)
+
+    def logsumexp(self, pred: torch.Tensor) -> torch.Tensor:
+        axes = self.vocab_axes
+        if not axes:
+            return torch.logsumexp(pred, dim=-1)
+        comm = self.comm
+        m = comm.all_reduce(pred.detach().amax(dim=-1), axes)
+        s = torch.exp(pred - m[..., None]).sum(dim=-1)
+        s = _exchange(s, lambda t: comm.all_reduce(t, axes), _identity)
+        return m + torch.log(s)
+
+    def pick(self, pred: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        axes = self.vocab_axes
+        if not axes:
+            return pred.gather(-1, targets[..., None])[..., 0]
+        cols = pred.shape[-1]
+        inside = (targets >= 0) & (targets < cols)
+        got = pred.gather(-1, torch.clamp(targets, 0, cols - 1)[..., None])[..., 0]
+        got = torch.where(inside, got, 0.0)
+        comm = self.comm
+        return _exchange(got, lambda t: comm.all_reduce(t, axes), _identity)
+
+    def _buffer_steps(self, plan: ModulePlan) -> tuple[tuple[str, ...], ...]:
+        """How the ``[E, C, d]`` buffer, built from a device's own tokens,
+        reaches the experts' layout: the axes over which a device takes its
+        experts (its tokens are those of every device there), swaps experts
+        for capacity (an all-to-all), gathers the capacity, and takes its
+        share of the capacity."""
+        tokens = self.batch_axes + (self.sp_axes if plan.moe_mode == "experts" else ())
+        experts = plan.axes if plan.moe_mode == "experts" else ()
+        cap = plan.capacity_axes
+        if cap is None:
+            cap = tuple(a for a in tokens if a not in experts)
+        return (tuple(a for a in experts if a not in tokens),
+                tuple(a for a in experts if a in tokens),
+                tuple(a for a in tokens if a not in experts and a not in cap),
+                tuple(a for a in cap if a not in tokens))
+
+    def moe_dispatch(self, buf: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
+        take_e, swap, gather_c, take_c = self._buffer_steps(plan)
+        comm = self.comm
+        if take_e:
+            E, e = buf.shape[0], buf.shape[0] // self.size(take_e)
+            buf = _exchange(buf, lambda t: t.narrow(0, 0, e).contiguous(),
+                            lambda g: torch.cat([g, g.new_zeros((E - e, *g.shape[1:]))]))
+        if swap:
+            buf = _exchange(buf, lambda t: comm.all_to_all(t, 0, 1, swap), lambda g: comm.all_to_all(g, 1, 0, swap))
+        if gather_c:
+            n = self.size(gather_c)
+            buf = _exchange(buf, lambda t: comm.all_gather(t, 1, gather_c), lambda g: g.narrow(1, 0, g.shape[1] // n))
+        if take_c:
+            C, n = buf.shape[1], self.size(take_c)
+            if C % n:
+                raise ValueError(f"the MoE buffer's capacity {C} does not split over {take_c}")
+            buf = _exchange(buf, lambda t: t.narrow(1, 0, C // n).contiguous(),
+                            lambda g: torch.cat([g, g.new_zeros((g.shape[0], C - C // n, g.shape[2]))], dim=1))
+        return buf
+
+    def moe_return(self, out: torch.Tensor, plan: ModulePlan, experts: int) -> torch.Tensor:
+        """The experts' outputs ``[E_local * C_local, d]`` back in the
+        layout of the device's own tokens' buffer, :meth:`moe_dispatch`
+        undone step by step."""
+        take_e, swap, gather_c, take_c = self._buffer_steps(plan)
+        if not (take_e or swap or gather_c or take_c):
+            return out
+        comm, d = self.comm, out.shape[-1]
+        if plan.moe_mode == "experts":
+            experts //= self.size(plan.axes)
+        out = out.reshape(experts, -1, d)
+        if take_c:
+            n = self.size(take_c)
+            out = _exchange(out, lambda t: comm.all_gather(t, 1, take_c), lambda g: g.narrow(1, 0, g.shape[1] // n))
+        if gather_c:
+            n = self.size(gather_c)
+            out = _exchange(out, lambda t: t.narrow(1, 0, t.shape[1] // n), lambda g: comm.all_gather(g, 1, gather_c))
+        if swap:
+            out = _exchange(out, lambda t: comm.all_to_all(t, 1, 0, swap), lambda g: comm.all_to_all(g, 0, 1, swap))
+        if take_e:
+            e = out.shape[0]
+            out = _exchange(out, lambda t: comm.all_gather(t, 0, take_e), lambda g: g.narrow(0, 0, e))
+        return out.reshape(-1, d)
+
+    def to_layout(self, t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+        """``t`` (a device's share of an output) as the share of ``shape``
+        its spec asks for: gathered where the spec splits a dimension less,
+        cut where it splits it more."""
+        if tuple(t.shape) == tuple(shape):
+            return t
+        if all(a <= b for a, b in zip(t.shape, shape)):
+            return self.comm.gather_to(t, shape)
+        for d, (a, b) in enumerate(zip(t.shape, shape)):
+            t = t.narrow(d, 0, min(a, b))
+        return t
+
+    def data_parallel_grads(self, grads: Mapping[str, torch.Tensor], params: nn.Module) -> dict:
+        named = dict(params.named_parameters())
+        out = {}
+        for k, g in grads.items():
+            plan = self.weights.get(id(named[k]))
+            stored = {a for e in self.specs[k] for a in axes_of(e)}
+            reduced = plan.reduce_axes if plan else frozenset()
+            axes = tuple(a for a in self.batch_axes + self.sp_axes
+                         if a not in stored and a not in reduced)
+            out[k] = self.comm.all_reduce(g, axes) if axes else g
+        return out
+
+
+# -----------------------------------------------------------------------------
+# The hooks the model's code calls: each returns its input when no program
+# is installed
+# -----------------------------------------------------------------------------
+
+
+def weight(w: torch.Tensor | None) -> torch.Tensor | None:
+    prog = _PROGRAM
+    return w if prog is None or w is None else prog.weight(w)
+
+
+def enter(x: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    prog = _PROGRAM
+    if prog is None:
+        return x
+    plan = prog.modules.get(id(module))
+    return x if plan is None else prog.enter(x, plan)
+
+
+def exit(y: torch.Tensor, module: nn.Module) -> torch.Tensor:  # noqa: A001 (the module's own name)
+    prog = _PROGRAM
+    if prog is None:
+        return y
+    plan = prog.modules.get(id(module))
+    return y if plan is None else prog.exit(y, plan)
+
+
+def kv_heads(t: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return t if prog is None else prog.kv_heads(t)
+
+
+def kv_select(k: torch.Tensor, v: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    prog = _PROGRAM
+    return (k, v) if prog is None else prog.kv_select(k, v, heads)
+
+
+def decode_query(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return q if prog is None else prog.decode_query(q, prog.cache_seq_axes(cache))
+
+
+def decode_combine(o: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return o if prog is None else prog.decode_combine(o, prog.cache_seq_axes(cache))
+
+
+def cache_load(t: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """``t`` (a layer's slice of the cache leaf ``base``) in the
+    computation's layout."""
+    prog = _PROGRAM
+    return t if prog is None else prog.cache_load(t, base)
+
+
+def cache_store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, ``src`` cut to ``dst``'s slice."""
+    prog = _PROGRAM
+    if prog is None:
+        dst.copy_(src)
+    else:
+        prog.cache_store(dst, src)
+
+
+def prompt_slice(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """A prompt's keys or values ``src`` cut to the positions a
+    sequence-split cache ``dst`` holds."""
+    prog = _PROGRAM
+    return src if prog is None else prog.prompt_slice(dst, src)
+
+
+def lookup(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return tok[tokens] if prog is None else prog.lookup(tok, tokens)
+
+
+def logsumexp(pred: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return torch.logsumexp(pred, dim=-1) if prog is None else prog.logsumexp(pred)
+
+
+def pick(pred: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    prog = _PROGRAM
+    return pred.gather(-1, targets[..., None])[..., 0] if prog is None else prog.pick(pred, targets)
+
+
+def moe_dispatch(buf: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    prog = _PROGRAM
+    if prog is None:
+        return buf
+    return prog.moe_dispatch(buf, prog.modules[id(module)])
+
+
+def moe_return(out: torch.Tensor, module: nn.Module, experts: int) -> torch.Tensor:
+    prog = _PROGRAM
+    if prog is None:
+        return out
+    return prog.moe_return(out, prog.modules[id(module)], experts)
+
+
+def data_parallel_grads(grads: dict, params: nn.Module) -> dict:
+    prog = _PROGRAM
+    return grads if prog is None else prog.data_parallel_grads(grads, params)
+
+
+def constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """The residual stream laid out by ``spec``: under sequence parallelism
+    a device keeps its share of the sequence (a slice of the stream that
+    every device of the tensor-parallel axes holds whole)."""
+    prog = _PROGRAM
+    if prog is None or not prog.sp_axes or x.dim() != 3 or x.shape[1] != prog.seq_len:
+        return x
+    n = prog.size(prog.sp_axes)
+    return _exchange(x, lambda t: t.narrow(1, 0, t.shape[1] // n),
+                     lambda g: prog.comm.all_gather(g, 1, prog.sp_axes))
+

@@ -16,7 +16,10 @@ softcapped where asked, and the softmax state is f32:
   plain version, on CUDA tensors it launches the kernel or raises.
   ``decode_attention_cuda.launches`` counts its calls that launch: one per
   call, though each launches two device kernels (the split-KV pass and its
-  combine).
+  combine).  On meta tensors it is a shape function (the checks, the
+  card's shape limits, the output; no launch).  Every call is one
+  :func:`~repro_torch.kernels.work.kernel_call` of
+  :func:`~repro_torch.kernels.work.decode_attention_work`.
 
 :func:`decode_split_plan` is how the wrapper spreads the keys over blocks;
 it reads only shapes and the SM count, never the lengths on the device.
@@ -30,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.flash_attention import (
     _NEG,
     MAX_HEAD_DIM,
@@ -163,8 +166,20 @@ def decode_attention_cuda(
             f"lengths: need contiguous int32 [{B}] on {q.device}, got {lengths.dtype} "
             f"{tuple(lengths.shape)} on {lengths.device}"
         )
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
+    with work.kernel_call(lambda: work.decode_attention_work(q, k_cache, lengths)):
+        if q.device.type == "cpu":
+            return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
+        if q.device.type == "meta":
+            check_decode_launch(B, Hkv, D)
+            return torch.empty_like(q)
+        return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
+
+
+def _on_card(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
+             softcap: float | None, scale: float | None) -> torch.Tensor:
+    """Plan and launch one decode call on the card of ``q``."""
+    B, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
     with torch.cuda.device(q.device):  # the library queries the current card
         splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
     check_alignment(q, k_cache, v_cache)

@@ -16,7 +16,11 @@ unless the caller gives one), all in f32:
   ``wgmma`` fed by TMA, f32 on the CUDA cores).  It is the one place that
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
-  ``flash_attention_cuda.launches`` counts its kernel launches.  When a
+  ``flash_attention_cuda.launches`` counts its kernel launches.  On meta
+  tensors it is a shape function: the same checks, the card's shape limits
+  included, an output of the right shape and dtype, and no launch.  Every
+  call, on any device, is one :func:`~repro_torch.kernels.work.kernel_call`
+  of :func:`~repro_torch.kernels.work.flash_attention_work`.  When a
   gradient is wanted it goes through :class:`FlashAttentionFn`: the same
   forward, and a backward that is PyTorch's autodiff of the plain version
   recomputed (the TPU kernel has no backward either: the reference
@@ -35,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 _NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -120,12 +124,12 @@ def _library() -> ctypes.CDLL:
 def check_attention_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_dims: int,
                          window: int | None, softcap: float | None) -> None:
     """Raise unless q, k, v are contiguous tensors of one dtype (f32 or bf16)
-    on one CPU or CUDA device, k and v alike, q ``[B, H, (Sq,) D]`` against
+    on one CPU, CUDA or meta device, k and v alike, q ``[B, H, (Sq,) D]`` against
     k ``[B, Hkv, S, D]`` with ``H % Hkv == 0``, and the window and softcap
     positive where given."""
     device = q.device
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"attention takes CUDA or CPU tensors, got {device}")
+    if device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"attention takes CUDA, CPU or meta tensors, got {device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != device or t.dtype != q.dtype:
             raise ValueError(f"{name}: need {q.dtype} on {device}, got {t.dtype} on {t.device}")
@@ -186,18 +190,28 @@ def flash_attention_cuda(
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                    window: int | None, softcap: float | None, scale: float | None) -> torch.Tensor:
-    """The plain version on the CPU, the kernel on the card; arguments checked."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                                   scale=scale)
+    """The plain version on the CPU, the kernel on the card, the output's
+    shape on meta; arguments checked; one kernel call for a counter."""
+    with work.kernel_call(lambda: work.flash_attention_work(q, k, causal=causal, window=window)):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                       scale=scale)
+        return _on_card(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+             window: int | None, softcap: float | None, scale: float | None) -> torch.Tensor:
+    """Check the card's limits and launch, or, on meta, return the output."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if not kernel_takes_head_dim(D):
         raise ValueError(f"the flash kernel takes head widths that are multiples of 8 from 8 "
                          f"to {MAX_HEAD_DIM}, not {D}")
-    lib = _library()
     if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or heads {H} exceed the kernel grid's {_MAX_GRID_YZ}")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    lib = _library()
     check_alignment(q, k, v)
     o = torch.empty_like(q)
     if o.numel() == 0:

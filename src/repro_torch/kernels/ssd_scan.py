@@ -21,6 +21,10 @@ C and all arithmetic in f32:
   chooses an implementation, by the tensors' device alone: on CPU tensors it
   runs the plain version, on CUDA tensors it launches the kernel or raises.
   ``ssd_scan_cuda.launches`` counts its calls that launch, one per call.
+  On meta tensors it is a shape function (the checks, :func:`ssd_plan`'s
+  limits, the outputs; no launch).  Every call is one
+  :func:`~repro_torch.kernels.work.kernel_call` of
+  :func:`~repro_torch.kernels.work.ssd_scan_work`.
   When a gradient is wanted it goes through :class:`SSDScanFn`, whose
   backward is PyTorch's autodiff of :func:`ssd_scan_ref` recomputed;
 * :func:`ssd_scan_sequential` — the step-by-step recurrence, the reference's
@@ -35,7 +39,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.flash_attention import check_alignment
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -45,6 +49,7 @@ KERNEL_P_ALIGN = 16  # head widths P must be multiples of it
 WGMMA_STATES = (64, 128)  # the wgmma kernels' state widths
 WGMMA_P_TILE = 32  # the wgmma kernels' head widths are multiples of it
 _MAX_GRID_YZ = 65535
+BLOCK_BYTES = 1 << 26  # the plain version's largest temporary when no gradient is recorded
 
 
 def ssd_scan_ref(
@@ -82,26 +87,45 @@ def ssd_scan_ref(
         t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
         return t.reshape(Bsz, nC, Q, *t.shape[2:]).transpose(0, 1)
 
-    xq = chunks(x)
+    xq = chunks(x)  # [nC, B, Q, H, P]
     dq = chunks(dt)
     Bq = chunks(B_mat.repeat_interleave(rep, dim=2))
     Cq = chunks(C_mat.repeat_interleave(rep, dim=2))
     acs = torch.cumsum(dq * A.float(), dim=2)  # [nC, B, Q, H], inclusive
-    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[None, :, :, None]
-    ys = []
-    for c in range(nC):
-        a = acs[c]
-        seg = a[:, :, None, :] - a[:, None, :, :]  # [B, Qi, Qj, H]
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[None, None, :, :, None]
+
+    def run(a, Cc, Bc, xc, dc, state):  # consecutive chunks [c, B, Q, ...] from ``state``
+        seg = a[:, :, :, None, :] - a[:, :, None, :, :]  # [c, B, Qi, Qj, H]
         decay = torch.where(tril, torch.exp(torch.where(tril, seg, 0.0)), 0.0)
-        m = torch.einsum("bihn,bjhn->bijh", Cq[c], Bq[c]) * decay
-        y_intra = torch.einsum("bijh,bjhp->bihp", m, xq[c] * dq[c][..., None])
-        y_inter = torch.einsum("bihn,bhpn->bihp", Cq[c], state) * torch.exp(a)[..., None]
-        a_tot = a[:, -1, :]  # [B, H]
-        w = torch.exp(a_tot[:, None, :] - a) * dq[c]  # [B, Q, H]
-        ds = torch.einsum("bjhp,bjhn->bhpn", xq[c], Bq[c] * w[..., None])
-        state = state * torch.exp(a_tot)[..., None, None] + ds
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bsz, nC * Q, H, P)[:, :L]
+        m = torch.einsum("cbihn,cbjhn->cbijh", Cc, Bc) * decay
+        y_intra = torch.einsum("cbijh,cbjhp->cbihp", m, xc * dc[..., None])
+        a_tot = a[:, :, -1, :]  # [c, B, H]
+        w = torch.exp(a_tot[:, :, None, :] - a) * dc  # [c, B, Q, H]
+        ds = torch.einsum("cbjhp,cbjhn->cbhpn", xc, Bc * w[..., None])  # each chunk's own state
+        step = torch.exp(a_tot)[..., None, None]
+        entering = []  # the state entering each chunk, in order
+        for i in range(ds.shape[0]):
+            entering.append(state)
+            state = state * step[i] + ds[i]
+        y_inter = torch.einsum("cbihn,cbhpn->cbihp", Cc, torch.stack(entering)) * torch.exp(a)[..., None]
+        return y_intra + y_inter, state
+
+    # Chunks a block at a time, each block's [c, B, Q, Q, H] f32 temporaries
+    # within BLOCK_BYTES; where autograd records, it keeps every chunk's
+    # anyway, so all chunks in one block
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B_mat, C_mat)):
+        block = nC
+    else:
+        block = max(1, BLOCK_BYTES // (Bsz * Q * Q * H * 4))
+    if block >= nC:  # whole, with no slices for autograd to undo
+        y, state = run(acs, Cq, Bq, xq, dq, state)
+    else:
+        ys = []
+        for c in range(0, nC, block):
+            yc, state = run(*(t[c:c + block] for t in (acs, Cq, Bq, xq, dq)), state)
+            ys.append(yc)
+        y = torch.cat(ys)
+    y = y.transpose(0, 1).reshape(Bsz, nC * Q, H, P)[:, :L]
     return y.to(x.dtype), state
 
 
@@ -140,13 +164,13 @@ def _library() -> ctypes.CDLL:
 
 def check_ssd_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch.Tensor,
                    C_mat: torch.Tensor) -> None:
-    """Raise unless all five are contiguous tensors on one CPU or CUDA
+    """Raise unless all five are contiguous tensors on one CPU, CUDA or meta
     device; x, B and C of one dtype, f32 or bf16; dt and A f32; x ``[B, L,
     H, P]``, dt ``[B, L, H]``, A ``[H]``, B and C alike ``[B, L, G, N]``
     with ``H % G == 0``."""
     device = x.device
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the SSD scan takes CUDA or CPU tensors, got {device}")
+    if device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the SSD scan takes CUDA, CPU or meta tensors, got {device}")
     for name, t, dtype in (("x", x, x.dtype), ("dt", dt, torch.float32), ("A", A, torch.float32),
                            ("B", B_mat, x.dtype), ("C", C_mat, x.dtype)):
         if t.device != device or t.dtype != dtype:
@@ -214,10 +238,14 @@ def ssd_scan_cuda(
 
 
 def _ssd_forward(x, dt, A, B_mat, C_mat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version on the CPU, the kernels on the card; arguments checked."""
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
-    return _on_card(x, dt, A, B_mat, C_mat, chunk)
+    """The plain version on the CPU, the kernels on the card, the outputs'
+    shapes on meta; arguments checked; one kernel call for a counter."""
+    with work.kernel_call(lambda: work.ssd_scan_work(x, B_mat)):
+        if x.device.type == "cpu":
+            return ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
+        if x.device.type == "meta":
+            return _shapes(x, B_mat, chunk)
+        return _on_card(x, dt, A, B_mat, C_mat, chunk)
 
 
 class SSDScanFn(torch.autograd.Function):
@@ -242,6 +270,16 @@ class SSDScanFn(torch.autograd.Function):
             y, state = ssd_scan_ref(*inputs, chunk=ctx.chunk)
         grads = iter(torch.autograd.grad((y, state), wanted, (grad_y, grad_state)))
         return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def _shapes(x: torch.Tensor, B_mat: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """On meta: the card's checks (:func:`ssd_plan`, the grid) and the
+    outputs, no launch."""
+    Bsz, L, H, P = x.shape
+    ssd_plan(x.dtype, L, B_mat.shape[3], P, chunk)
+    if Bsz > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"batch {Bsz} or heads {H} exceed the kernel grid's {_MAX_GRID_YZ}")
+    return torch.empty_like(x), torch.empty(Bsz, H, P, B_mat.shape[3], dtype=torch.float32, device=x.device)
 
 
 def _on_card(x, dt, A, B_mat, C_mat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:

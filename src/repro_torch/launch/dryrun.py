@@ -1,0 +1,332 @@
+"""The dry-run: one device's share of every (architecture x shape suite x
+mesh) cell, traced on meta tensors, and what it computes, stores and
+exchanges.
+
+The counterpart of the reference's ``repro/launch/dryrun.py``, which forces
+512 host devices and compiles each cell's jitted step for them.  Here a cell
+is built at the *local* shapes the rule tables give one device
+(``distributed/sharding.py``): the model's parameters as their stored
+slices, AdamW's state, the batch and the cache, and the step the port runs
+(``make_train_step(remat=True, microbatches=)``, ``prefill`` or
+``decode_step``) under the sharded program of that layout
+(``distributed/program.py``), which puts each exchange between devices at
+the point where it falls.  It runs on ``torch.device("meta")``: nothing is
+allocated and no kernel launches; :class:`~repro_torch.launch.op_costs.
+OpCounter` counts the ops, the kernels by their formulas, the exchanges and
+the live bytes.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --force
+
+Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh><tag>.json``
+(existing cells are kept unless ``--force``).  A record has the reference's
+keys where their meaning carries over: ``memory.{argument,output,temp,
+alias,peak}_bytes``, ``cost.{flops_per_device,bytes_accessed_per_device}``,
+``collectives`` (``bytes``, ``counts``, ``total_bytes``, by kind),
+``model_flops_total`` (6 or 2 x active parameters x tokens), ``tokens``,
+``params_total``, ``params_active`` and ``status`` (``error`` and
+``traceback`` on an exception).  The port's own keys: ``trace_s`` (the
+seconds the meta trace took, for the reference's ``lower_s`` and
+``compile_s``), ``op_costs`` (for ``hlo_costs``: the counter's record),
+``layout`` (how the attention, MLP and MoE compute: split over which axes,
+the kv heads' mode), ``top_scopes`` (bytes and FLOPs by module) and
+``kernel_launches`` (the four launch counters' change, always 0).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import time
+import traceback
+from collections.abc import Callable, Mapping
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs.shapes import SHAPES, ShapeSuite, applicable_shapes
+from repro_torch.distributed import hints
+from repro_torch.distributed import program as D
+from repro_torch.distributed.sharding import (
+    ShardingPolicy,
+    Spec,
+    axes_of,
+    batch_shardings,
+    local_shape,
+    logits_sharding,
+    make_cache_shardings,
+)
+from repro_torch.launch import op_costs
+from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.models.registry import ALL_ARCHS, get_model
+from repro_torch.optim import adamw
+from repro_torch.train.train_step import make_train_step
+
+RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+
+POLICIES: dict[str, ShardingPolicy] = {
+    # baseline: FSDP parameters over data, TP over model, batch over (pod,) data
+    "baseline": ShardingPolicy(dp_axes=("data",), tp_axes=("model",)),
+    # pure data parallel: parameters FSDP over both axes, no TP (small models)
+    "no-tp": ShardingPolicy(dp_axes=("data", "model"), tp_axes=()),
+    # serving: TP-only parameters (no per-layer FSDP weight all-gather)
+    "serve-tp": ShardingPolicy(dp_axes=("data",), tp_axes=("model",), param_fsdp_axes=()),
+    # serving, weights split over both axes (256-way TP)
+    "serve-tp2": ShardingPolicy(dp_axes=("data",), tp_axes=("data", "model"), param_fsdp_axes=()),
+    # sequence-parallel residual stream (training)
+    "seqpar": ShardingPolicy(dp_axes=("data",), tp_axes=("model",), sequence_parallel=True),
+    # FSDP across pods too
+    "fsdp-pod": ShardingPolicy(dp_axes=("data",), tp_axes=("model",), fsdp_over_pod=True),
+    # sequence parallel + TP-only parameters
+    "seqpar-tp": ShardingPolicy(dp_axes=("data",), tp_axes=("model",), sequence_parallel=True,
+                                param_fsdp_axes=()),
+    # sequence parallel + the MoE dispatch buffer's expert-parallel layout
+    "seqpar-ep": ShardingPolicy(dp_axes=("data",), tp_axes=("model",), sequence_parallel=True),
+}
+
+# the @seqpar-ep cells' MoE buffer: experts over model, capacity over data,
+# which keeps the token scatter with the batch and sequence shards
+MOE_BUFFER_SPEC = ("model", "data", None)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _local_tree(tree, specs: Mapping[str, Spec], mesh: Mesh, prefix: str = ""):
+    """A cache (nested dicts and tuples of meta tensors) at one device's
+    shapes; the position kept."""
+    if isinstance(tree, Mapping):
+        return {k: _local_tree(v, specs, mesh, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_local_tree(v, specs, mesh, f"{prefix}{i}/") for i, v in enumerate(tree))
+    if isinstance(tree, torch.Tensor):
+        return _meta(local_shape(tuple(tree.shape), specs[prefix[:-1]], mesh), tree.dtype)
+    return tree
+
+
+@dataclasses.dataclass
+class Cell:
+    """One device's step of a cell: ``run()`` runs it (the program and the
+    hints installed), ``arguments`` are its inputs, ``params`` the model
+    (stored slices), ``program`` its layout."""
+
+    run: Callable[[], object]
+    arguments: tuple
+    params: torch.nn.Module
+    program: D.Program
+    kind: str
+
+
+def activation_spec(mesh: Mesh, policy: ShardingPolicy) -> tuple | None:
+    """The residual stream's spec under sequence parallelism, ``(dp, tp,
+    None)`` as the reference's ``run_cell`` builds it, else None."""
+    if not policy.sequence_parallel:
+        return None
+    dp = tuple(a for a in ("pod",) + policy.dp_axes if a in mesh.axis_names)
+    tp = policy.tp_axes
+    return (dp if len(dp) > 1 else dp[0], tp if len(tp) > 1 else (tp[0] if tp else None), None)
+
+
+def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingPolicy, *,
+               microbatches: int = 1, cfg=None) -> Cell:
+    """One device's step of ``arch`` at ``shape`` (a suite's name, or a
+    suite of its own) on ``mesh`` under ``policy``, at the local shapes, on
+    meta (``cfg``: another config of the architecture, e.g. one cut in
+    depth)."""
+    api = get_model(arch)
+    cfg = cfg or api.config
+    suite = SHAPES[shape] if isinstance(shape, str) else shape
+    params = api.param_specs(cfg)
+    batch = api.batch_specs(cfg, suite)
+    bspecs = batch_shardings(mesh, cfg, batch, policy)
+    local_batch = {k: _meta(local_shape(tuple(x.shape), bspecs[k], mesh), x.dtype) for k, x in batch.items()}
+    first = "token" if suite.kind == "decode" else "tokens"
+    batch_axes = axes_of(bspecs[first][0])
+    seq = 1 if suite.kind == "decode" else suite.seq_len + (cfg.num_patches if cfg.family == "vlm" else 0)
+    program = D.Program(mesh, policy, cfg, params, batch_axes=batch_axes, seq_len=seq)
+    program.localize(params)
+    lcfg = program.local_config()
+
+    def installed():
+        stack = contextlib.ExitStack()
+        stack.enter_context(D.installed(program))
+        stack.enter_context(hints.activation_pspec(activation_spec(mesh, policy)))
+        return stack
+
+    if suite.kind == "train":
+        opt_cfg = adamw.AdamWConfig()
+        opt_state = adamw.init(opt_cfg, params)
+        step = make_train_step(api, lcfg, opt_cfg, remat=True, microbatches=microbatches)
+
+        def run():
+            with installed():
+                return step(params, opt_state, local_batch)
+
+        return Cell(run, (params, opt_state, local_batch), params, program, "train")
+
+    cache = api.cache_specs(cfg, suite)
+    cspecs = make_cache_shardings(mesh, cfg, cache, policy)
+    local_cache = _local_tree(cache, cspecs, mesh)
+    program.add_cache(local_cache, cspecs)
+    B = suite.global_batch
+    logits_shape = local_shape((B, cfg.vocab), logits_sharding(mesh, cfg, B, policy), mesh)
+
+    if suite.kind == "prefill":
+        extras = {k: v for k, v in local_batch.items() if k != "tokens"}
+
+        def run():
+            with installed(), torch.no_grad():
+                logits, out = api.prefill(params, local_batch["tokens"], local_cache, lcfg, **extras)
+                return program.to_layout(logits, logits_shape), out
+
+        return Cell(run, (params, local_batch, local_cache), params, program, "prefill")
+
+    local_cache["pos"] = suite.seq_len - 1  # a full cache: every row sees all its keys
+
+    def run():
+        with installed(), torch.no_grad():
+            logits, out = api.decode_step(params, local_batch["token"], local_cache, lcfg)
+            return program.to_layout(logits, logits_shape), out
+
+    return Cell(run, (params, local_batch["token"], local_cache), params, program, "decode")
+
+
+def _launches() -> dict[str, int]:
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.makespan import population_makespan_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    return {f.__name__: f.launches for f in (flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda,
+                                             population_makespan_cuda)}
+
+
+def layout(program: D.Program) -> dict:
+    """How the cell's modules compute (``distributed/program.py``)."""
+    out = {"attention": None if program.attention is None else dataclasses.asdict(program.attention),
+           "vocab_axes": list(program.vocab_axes), "sequence_parallel": list(program._sp_axes)}
+    mods = {}
+    for plan in program.modules.values():
+        if not plan.heads:
+            mods.setdefault(plan.moe_mode or plan.kind, set()).add(tuple(plan.axes))
+    out["modules"] = {k: sorted(list(a) for a in v) for k, v in mods.items()}
+    return out
+
+
+def count_cell(cell: Cell, *, scopes: bool = True) -> tuple[object, op_costs.OpCounter]:
+    """Run one cell's step under a fresh counter."""
+    counter = op_costs.OpCounter(arguments=cell.arguments,
+                                 scopes=op_costs.module_scopes(cell.params) if scopes else None)
+    with counter:
+        out = cell.run()
+    return out, counter
+
+
+def run_cell(arch: str, shape: str, mesh_kind: str, *, force: bool = False,
+             policy: ShardingPolicy | None = None, tag: str = "", microbatches: int = 1,
+             mesh: Mesh | None = None, write: bool = True) -> dict:
+    """One cell's record (module docstring), written to :data:`RESULTS`
+    unless ``write`` is False; a cell already written is read back unless
+    ``force``.  ``mesh``: another mesh than the production one of
+    ``mesh_kind``."""
+    name = f"{arch}__{shape}__{mesh_kind}{tag}"
+    out_path = RESULTS / f"{name}.json"
+    if write and out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+    t0 = time.time()
+    mesh = mesh or make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    policy = policy or POLICIES["baseline"]
+    record: dict = {"arch": arch, "shape": shape, "mesh": mesh_kind, "tag": tag,
+                    "mesh_shape": mesh.shape, "status": "unknown"}
+    launches = _launches()
+    try:
+        moe_spec = MOE_BUFFER_SPEC if tag.startswith("@seqpar-ep") else None
+        with hints.moe_buffer_pspec(moe_spec):
+            cell = build_cell(arch, shape, mesh, policy, microbatches=microbatches)
+            out, counter = count_cell(cell)
+        trace_s = time.time() - t0
+        costs = counter.costs.to_json()
+        outputs = out[2] if cell.kind == "train" else out[0]
+        cfg = get_model(arch).config
+        suite = SHAPES[shape]
+        if suite.kind == "decode":
+            tokens = suite.global_batch
+        else:
+            tokens = suite.global_batch * suite.seq_len
+        model_flops = (6 if suite.kind == "train" else 2) * cfg.active_param_count() * tokens
+        record.update(
+            status="ok",
+            trace_s=round(trace_s, 2),
+            memory=counter.memory(outputs),
+            cost={"flops_per_device": costs["flops"], "bytes_accessed_per_device": costs["bytes"]},
+            op_costs=costs,
+            collectives={"bytes": costs["collective_bytes"], "counts": costs["collective_counts"],
+                         "total_bytes": costs["collective_total_bytes"]},
+            model_flops_total=model_flops,
+            tokens=tokens,
+            params_total=cfg.param_count(),
+            params_active=cfg.active_param_count(),
+            layout=layout(cell.program),
+            top_scopes=[list(r) for r in op_costs.by_scope(counter, top=8)],
+        )
+    except Exception as e:  # a failed cell is a fault to fix, recorded with its cause
+        record.update(status="error", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+    after = _launches()
+    record["kernel_launches"] = {k: after[k] - launches[k] for k in after}
+    if write:
+        RESULTS.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(record, indent=2))
+    if record["status"] == "ok":
+        print(f"[ok   ] {name}  trace={record['trace_s']}s flops/dev={record['cost']['flops_per_device']:.3e} "
+              f"peak={record['memory']['peak_bytes'] / 1e9:.2f}GB "
+              f"collective={record['collectives']['total_bytes'] / 1e9:.3f}GB", flush=True)
+    else:
+        print(f"[error] {name}  {record.get('error', '')[:200]}", flush=True)
+    return record
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ALL_ARCHS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=("single", "multi", "both"), default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--policy", choices=list(POLICIES), default="baseline",
+                    help="sharding-policy preset")
+    ap.add_argument("--microbatches", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if args.all:
+        cells = [(arch, shape) for arch in ALL_ARCHS for shape in applicable_shapes(arch)]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape, or --all")
+        cells = [(args.arch, args.shape)]
+    tag = "" if args.policy == "baseline" else f"@{args.policy}"
+    if args.microbatches > 1:
+        tag += f"@mb{args.microbatches}"
+    t0 = time.time()
+    failures = 0
+    launches = _launches()
+    for mesh_kind in meshes:
+        for arch, shape in cells:
+            rec = run_cell(arch, shape, mesh_kind, force=args.force, policy=POLICIES[args.policy], tag=tag,
+                           microbatches=args.microbatches)
+            failures += rec["status"] != "ok"
+    after = _launches()
+    moved = {k: after[k] - launches[k] for k in after}
+    print(f"done: {len(cells) * len(meshes)} cells, {failures} failures in {time.time() - t0:.1f} s; "
+          f"kernel launches {json.dumps(moved)}", flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

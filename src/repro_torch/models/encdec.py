@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import program as D
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -96,7 +97,7 @@ def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     """frames [B, F, d] (the stubbed front end's output) -> encoder states
     [B, F, d]: non-causal self-attention, no RoPE."""
     F = frames.shape[1]
-    x = frames + params.pos_enc[:F][None]
+    x = frames + D.weight(params.pos_enc)[:F][None]
     for p in params.enc_blocks:
         h, _ = L.attention_forward(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg,
                                    causal=False, use_rope=False)
@@ -110,8 +111,8 @@ def _cross_kv(p: L.Attention, enc: torch.Tensor, cfg: ModelConfig) -> tuple[torc
     Hkv, F, D]`` each."""
     B, F, _ = enc.shape
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = L.linear(p.k, enc).reshape(B, F, hkv, hd)
-    v = L.linear(p.v, enc).reshape(B, F, hkv, hd)
+    k = D.kv_heads(L.linear(p.k, enc)).reshape(B, F, hkv, hd)
+    v = D.kv_heads(L.linear(p.v, enc)).reshape(B, F, hkv, hd)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
@@ -138,7 +139,7 @@ def _decoder(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor, enc: torch.
     the backward (the reference checkpoints the decoder's blocks, not the
     encoder's)."""
     S = tokens.shape[1]
-    x = L.embed(params.embed, tokens, cfg) + params.pos_dec[:S][None]
+    x = L.embed(params.embed, tokens, cfg) + D.weight(params.pos_dec)[:S][None]
     kvs = []
     for p in params.dec_blocks:
         x, kv = L.remat(_dec_block, p, x, enc, cfg, enabled=remat)
@@ -206,7 +207,7 @@ def decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor,
         raise ValueError(f"decode position {pos} is outside the {cfg.dec_positions} learned "
                          "decoder positions")
     B = token.shape[0]
-    x = L.embed(params.embed, token[:, None], cfg) + params.pos_dec[pos][None, None]
+    x = L.embed(params.embed, token[:, None], cfg) + D.weight(params.pos_dec)[pos][None, None]
     posb = torch.full((B,), pos, device=x.device)
     frames = torch.full((B,), cache["cross_k"].shape[3], dtype=torch.int32, device=x.device)
     H, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -214,9 +215,11 @@ def decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor,
         h, _, _ = L.attention_decode(p.self_attn, L.rmsnorm(p.ln_self, x, cfg.norm_eps), cfg,
                                      cache["self_k"][i], cache["self_v"][i], posb, use_rope=False)
         x = x + h
-        q = L.linear(p.cross_attn.q, L.rmsnorm(p.ln_cross, x, cfg.norm_eps)).reshape(B, H, hd)
-        o = decode_attention_cuda(q, cache["cross_k"][i], cache["cross_v"][i], frames)
-        x = x + L.linear(p.cross_attn.o, o.reshape(B, 1, H * hd))
+        xin = D.enter(L.rmsnorm(p.ln_cross, x, cfg.norm_eps), p.cross_attn)
+        q = L.linear(p.cross_attn.q, xin).reshape(B, H, hd)
+        ck, cv = D.kv_select(cache["cross_k"][i], cache["cross_v"][i], H)
+        o = decode_attention_cuda(q, ck, cv, frames)
+        x = x + D.exit(L.linear(p.cross_attn.o, o.reshape(B, 1, H * hd)), p.cross_attn)
         x = x + L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)[:, 0]

@@ -18,7 +18,9 @@ API, as the reference's: ``init_params`` / ``forward`` / ``init_cache`` /
 P, N] f32, "conv": [L, B, conv - 1, C]}, "shared_kv": {"k", "v": [n_inv, B,
 Hkv, max_len, D]}, "pos": int}``, written in place; batch is on axis 1 of
 every entry, so the engine grafts a prefill into a slot as for the other
-families.
+families.  The caches and the residual stream pass through
+``distributed/program.py`` and ``hints.constrain`` (the input itself unless
+a sharded program is installed).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from collections.abc import Iterator
 import torch
 from torch import nn
 
+from repro_torch.distributed import hints
+from repro_torch.distributed import program as D
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import ssm
@@ -104,6 +108,7 @@ def forward(params: HybridLM, cfg: ModelConfig, batch: dict, *,
     after it, if any) is recomputed in the backward."""
 
     def block_fn(x: torch.Tensor, p: ssm.Block, inv: int | None) -> torch.Tensor:
+        x = hints.constrain(x)  # the residual stream's layout (sequence parallel)
         x = x + M.mamba_forward(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
         if inv is not None:
             x, _ = _shared_forward(params.shared, x, cfg)
@@ -149,10 +154,11 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(params.embed, tokens, cfg)
     layers, shared_kv = cache["layers"], cache["shared_kv"]
     for i, (p, inv) in enumerate(zip(params.blocks, _invocations(cfg))):
+        x = hints.constrain(x)
         y, state = ssm.mamba_forward_with_state(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
         x = x + y
-        layers["ssm"][i].copy_(state["ssm"])
-        layers["conv"][i].copy_(state["conv"])
+        D.cache_store(layers["ssm"][i], state["ssm"])
+        D.cache_store(layers["conv"][i], state["conv"])
         if inv is not None:
             x, (kc, vc) = _shared_forward(params.shared, x, cfg)
             L.write_prompt_kv(shared_kv["k"][inv], kc)
@@ -174,11 +180,11 @@ def decode_step(params: HybridLM, cfg: ModelConfig, token: torch.Tensor,
     layers, shared_kv = cache["layers"], cache["shared_kv"]
     sp = params.shared
     for i, (p, inv) in enumerate(zip(params.blocks, _invocations(cfg))):
-        c = {k: v[i] for k, v in layers.items()}
+        c = {k: D.cache_load(v[i], v) for k, v in layers.items()}
         y, new = M.mamba_decode(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg, c)
         x = x + y
         for k, v in new.items():
-            c[k].copy_(v)
+            D.cache_store(layers[k][i], v)
         if inv is not None:
             h, _, _ = L.attention_decode(sp.attn, L.rmsnorm(sp.ln_attn, x, cfg.norm_eps), cfg,
                                          shared_kv["k"][inv], shared_kv["v"][inv], posb)

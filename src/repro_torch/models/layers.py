@@ -13,6 +13,11 @@ product in the weights' dtype, then an upcast, then the final softcap, and
 
 Attention calls the kernel wrappers directly: a wrapper is the only code
 that chooses an implementation, by the device of its tensors.
+
+The functions pass their weights and their module's input and output
+through ``distributed/program.py`` (``D.weight``, ``D.enter``, ``D.exit``
+and the attention's kv-head points): with a sharded program installed they
+run one device's share of the step; with none each returns its input.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import program as D
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.config import ModelConfig
@@ -143,9 +149,9 @@ class Embed(nn.Module):
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    y = x @ D.weight(p.w)
     if p.b is not None:
-        y = y + p.b
+        y = y + D.weight(p.b)
     return y
 
 
@@ -191,8 +197,8 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = linear(p.q, x).reshape(B, S, h, hd)
-    k = linear(p.k, x).reshape(B, S, hkv, hd)
-    v = linear(p.v, x).reshape(B, S, hkv, hd)
+    k = D.kv_heads(linear(p.k, x)).reshape(B, S, hkv, hd)
+    v = D.kv_heads(linear(p.v, x)).reshape(B, S, hkv, hd)
     return q, k, v
 
 
@@ -213,6 +219,7 @@ def attention_forward(
     RoPE; the reference projects this block's k and v and drops them, the
     port does not project them).  Returns
     (out, (k, v)) with k, v in the cache layout ``[B, Hkv, S, D]``."""
+    x = D.enter(x, p)
     B, S, _ = x.shape
     if kv_override is not None:
         q = linear(p.q, x).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
@@ -227,9 +234,10 @@ def attention_forward(
         kc = k.transpose(1, 2).contiguous()  # [B, Hkv, S, D]
         vc = v.transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()  # [B, H, S, D]
-    o = flash_attention_cuda(qh, kc, vc, causal=causal, window=window, softcap=cfg.attn_softcap)
+    ka, va = D.kv_select(kc, vc, cfg.num_heads)
+    o = flash_attention_cuda(qh, ka, va, causal=causal, window=window, softcap=cfg.attn_softcap)
     o = o.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
-    return linear(p.o, o), (kc, vc)
+    return D.exit(linear(p.o, o), p), (kc, vc)
 
 
 def write_prompt_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -237,6 +245,7 @@ def write_prompt_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
     ``dst [B, Hkv, cap, D]`` in place: positions ``0 .. S-1`` when they fit,
     else the last ``cap`` of them laid out as the ring buffer a decode step
     continues (position ``p`` at slot ``p % cap``)."""
+    src = D.prompt_slice(dst, src)
     S, cap = src.shape[2], dst.shape[2]
     if S >= cap:
         dst.copy_(torch.roll(src[:, :, S - cap:], S % cap, dims=2))
@@ -263,6 +272,7 @@ def attention_decode(
     cache per layer and step), unless ``update_cache`` is False.  A
     window-sized cache is a ring buffer: the token goes to slot ``pos % S``
     and at most ``S`` keys are visible."""
+    x = D.enter(x, p)
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)  # S == 1
     posb = torch.as_tensor(pos, device=x.device).broadcast_to((B,))
@@ -277,10 +287,11 @@ def attention_decode(
         k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
     lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
-    o = decode_attention_cuda(q[:, 0].contiguous(), k_cache, v_cache, lengths,
-                              softcap=cfg.attn_softcap)
+    q1 = D.decode_query(q[:, 0].contiguous(), k_cache)
+    ka, va = D.kv_select(k_cache, v_cache, q1.shape[1])
+    o = D.decode_combine(decode_attention_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap), k_cache)
     o = o.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return linear(p.o, o), k_cache, v_cache
+    return D.exit(linear(p.o, o), p), k_cache, v_cache
 
 
 # -----------------------------------------------------------------------------
@@ -289,13 +300,14 @@ def attention_decode(
 
 
 def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = D.enter(x, p)
     if p.gate is not None:
-        return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
-    return linear(p.down, F.gelu(linear(p.up, x), approximate="tanh"))
+        return D.exit(linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x)), p)
+    return D.exit(linear(p.down, F.gelu(linear(p.up, x), approximate="tanh")), p)
 
 
 def embed(p: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p.tok[tokens]
+    x = D.lookup(p.tok, tokens)
     if cfg.scale_embedding:
         # the scale is first rounded to the activation dtype, as
         # jnp.asarray(d ** 0.5, x.dtype) does
@@ -304,7 +316,8 @@ def embed(p: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed(p: Embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    w = p.tok.T if p.unembed is None else p.unembed
+    x = D.enter(x, p)
+    w = D.weight(p.tok).T if p.unembed is None else D.weight(p.unembed)
     logits = (x @ w).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)

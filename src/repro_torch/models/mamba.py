@@ -11,7 +11,9 @@ f32 whatever the model's dtype, as in the reference.
 Decode keeps two recurrent states per layer, the SSM state ``[B, H, P, N]``
 (f32) and the conv window ``[B, conv - 1, C]`` of the last inputs; its
 recurrence is plain PyTorch, as the reference computes it outside any
-kernel.
+kernel.  The weights and the block's input and output pass through
+``distributed/program.py`` (each returns its input unless a sharded program
+is installed).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import program as D
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -71,28 +74,30 @@ def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
 def _gated_out(p: Mamba2, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """D skip, RMSNorm of ``y * silu(z)``, out_proj; ``y``, ``x`` [..., H, P]."""
-    y = y + x * p.D[:, None].to(x.dtype)
+    y = y + x * D.weight(p.D)[:, None].to(x.dtype)
     y = y.reshape(*y.shape[:-2], cfg.d_inner)
-    return L.linear(p.out_proj, L.rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps))
+    return D.exit(L.linear(p.out_proj, L.rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)), p)
 
 
 def mamba_mixer(p: Mamba2, u: torch.Tensor, cfg: ModelConfig):
     """u [B, S, d] -> (out [B, S, d], final SSM state [B, H, P, N] f32, the
     conv inputs ``xbc_raw`` [B, S, C]), the SSD scan through its kernel's
     wrapper."""
+    u = D.enter(u, p)
     Bsz, S, _ = u.shape
     di, n, g, h, c = dims(cfg)
     z, xbc_raw, dt_raw = _split(cfg, L.linear(p.in_proj, u))
     # causal depthwise conv: the reference's shifted sum of products, in its
     # order (not F.conv1d, which rounds otherwise in bf16)
     xp = F.pad(xbc_raw, (0, 0, cfg.ssm_conv - 1, 0))
-    conv = sum(xp[:, i: i + S] * p.conv_w[i] for i in range(cfg.ssm_conv))
-    x, Bm, Cm = _split_xbc(cfg, F.silu(conv + p.conv_b))
+    conv_w = D.weight(p.conv_w)
+    conv = sum(xp[:, i: i + S] * conv_w[i] for i in range(cfg.ssm_conv))
+    x, Bm, Cm = _split_xbc(cfg, F.silu(conv + D.weight(p.conv_b)))
     x = x.reshape(Bsz, S, h, cfg.ssm_headdim).contiguous()
     Bm = Bm.reshape(Bsz, S, g, n).contiguous()
     Cm = Cm.reshape(Bsz, S, g, n).contiguous()
-    dt = F.softplus(dt_raw.float() + p.dt_bias)  # [B, S, H] f32
-    A = -torch.exp(p.A_log)
+    dt = F.softplus(dt_raw.float() + D.weight(p.dt_bias))  # [B, S, H] f32
+    A = -torch.exp(D.weight(p.A_log))
     y, state = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     return _gated_out(p, y, x, z, cfg), state, xbc_raw
 
@@ -116,17 +121,18 @@ def mamba_decode(p: Mamba2, u: torch.Tensor, cfg: ModelConfig,
     """u [B, 1, d], one token per sequence -> (y [B, 1, d], the new
     ``{"ssm", "conv"}`` states).  The states are new tensors, as the
     reference's."""
+    u = D.enter(u, p)
     Bsz = u.shape[0]
     di, n, g, h, c = dims(cfg)
     z, xbc, dt_raw = _split(cfg, L.linear(p.in_proj, u[:, 0]))
     window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)  # [B, conv, C]
-    xbc = F.silu(torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", window, D.weight(p.conv_w)) + D.weight(p.conv_b))
     x, Bm, Cm = _split_xbc(cfg, xbc)
     x = x.reshape(Bsz, h, cfg.ssm_headdim)
     Bm = Bm.reshape(Bsz, g, n).repeat_interleave(h // g, dim=1).float()  # [B, H, N]
     Cm = Cm.reshape(Bsz, g, n).repeat_interleave(h // g, dim=1).float()
-    dt = F.softplus(dt_raw.float() + p.dt_bias)  # [B, H]
-    dA = torch.exp(dt * -torch.exp(p.A_log))
+    dt = F.softplus(dt_raw.float() + D.weight(p.dt_bias))  # [B, H]
+    dA = torch.exp(dt * -torch.exp(D.weight(p.A_log)))
     state = cache["ssm"] * dA[..., None, None] + (
         dt[..., None, None] * x.float()[..., None] * Bm[..., None, :]
     )

@@ -34,6 +34,11 @@ combine also keeps a request's tokens the same alone and in a batch.
 
 The expert FFN is plain PyTorch: the reference computes it outside any
 Pallas kernel (XLA's batched matmul).
+
+The weights, the block's input and output and the dispatch buffer pass
+through ``distributed/program.py`` (the buffer also through
+``hints.constrain_moe_buffer``, the reference's point): each returns its
+input unless a sharded program is installed.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import hints
+from repro_torch.distributed import program as D
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -78,7 +85,7 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, tor
     """Tokens ``xt [T, d]`` -> (router probabilities ``[T, E]`` f32, the
     renormalised top-k gates ``[T, k]`` f32, their expert ids ``[T, k]``),
     the ids by descending probability, the lower id first on a tie."""
-    logits = xt.float() @ p.router.w
+    logits = xt.float() @ D.weight(p.router.w)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = top_k(probs, cfg.top_k)
     return probs, gates / gates.sum(dim=-1, keepdim=True), experts
@@ -126,8 +133,8 @@ def scatter(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor, num_expert
 def experts_ffn(p: MoE, buf: torch.Tensor) -> torch.Tensor:
     """The SwiGLU experts over the capacity buffer, batched products in the
     buffer's dtype: ``[E, C, d]`` -> ``[E * C, d]``."""
-    h = F.silu(torch.bmm(buf, p.gate)) * torch.bmm(buf, p.up)
-    return torch.bmm(h, p.down).reshape(-1, buf.shape[2])
+    h = F.silu(torch.bmm(buf, D.weight(p.gate))) * torch.bmm(buf, D.weight(p.up))
+    return torch.bmm(h, D.weight(p.down)).reshape(-1, buf.shape[2])
 
 
 def combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor,
@@ -148,19 +155,23 @@ def combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor, gates
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, d]`` -> (``y [B, S, d]`` in x's dtype, the aux loss, an
     f32 scalar)."""
+    x = D.enter(x, p)
     B, S, d = x.shape
     T, E = B * S, cfg.num_experts
     xt = x.reshape(T, d)
     probs, gates, experts = route(p, xt, cfg)
 
     # Switch eq. 4-6: mean router probability times the top-1 share, per expert
-    top1 = F.one_hot(experts[:, 0], E).float().mean(dim=0)
+    # a one-hot by comparison, as on every device (F.one_hot takes another
+    # path on meta tensors, which the dry-run's count would see)
+    top1 = (experts[:, :1] == torch.arange(E, device=x.device)).float().mean(dim=0)
     aux = cfg.aux_loss_coef * E * (probs.mean(dim=0) * top1).sum()
 
     C = moe_capacity(cfg, T)
     slot, keep = dispatch(experts, E, C)
-    out_buf = experts_ffn(p, scatter(xt, slot, keep, E, C))
-    return combine(out_buf, slot, keep, gates, experts).reshape(B, S, d), aux
+    buf = D.moe_dispatch(hints.constrain_moe_buffer(scatter(xt, slot, keep, E, C)), p)
+    out_buf = D.moe_return(experts_ffn(p, buf), p, E)
+    return D.exit(combine(out_buf, slot, keep, gates, experts).reshape(B, S, d), p), aux
 
 
 def moe_ffn_dense_ref(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Architecture registry: ``--arch <id>`` resolution for the serving CLI.
+"""Architecture registry: ``--arch <id>`` resolution for every entry point.
 
 Each architecture binds a full :class:`ModelConfig`, a reduced one for tests
 on the CPU, and its family module: every architecture of the reference, in
-the dense, MoE, ssm, hybrid, encdec and vlm families.  The reference's
-dry-run specs (``batch_specs``, ``param_specs``, ``cache_specs``) belong to
-``launch/dryrun``, not ported yet.
+the dense, MoE, ssm, hybrid, encdec and vlm families.  The dry-run specs
+(``batch_specs``, ``param_specs``, ``cache_specs``, ``shapes``) stand in
+for a step's inputs at a shape suite as the reference's ``ShapeDtypeStruct``
+leaves do: tensors and modules on ``torch.device("meta")``, which allocate
+nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.configs.shapes import ShapeSuite, applicable_shapes
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES: dict[str, str] = {
@@ -39,6 +42,11 @@ _FAMILY_MODULES = {
     "hybrid": "repro_torch.models.hybrid",
     "encdec": "repro_torch.models.encdec",
     "vlm": "repro_torch.models.vlm",
+}
+
+_MODEL_CLASSES = {  # each family module's parameter container
+    "dense": "Transformer", "moe": "Transformer", "vlm": "VLM", "ssm": "Mamba2LM",
+    "hybrid": "HybridLM", "encdec": "EncDec",
 }
 
 
@@ -69,6 +77,40 @@ class ModelApi:
     def decode_step(self, params, token: torch.Tensor, cache: dict,
                     cfg: ModelConfig | None = None):
         return self.module.decode_step(params, cfg or self.config, token, cache)
+
+    # ---- dry-run specs: meta tensors, nothing allocated --------------------------
+    def batch_specs(self, cfg: ModelConfig, suite: ShapeSuite) -> dict[str, torch.Tensor]:
+        """Meta stand-ins for the *data* inputs of the step kind: int32
+        ``tokens [B, S]`` (train, prefill; with ``frames`` or ``patches`` in
+        the model's dtype for encdec and vlm) or ``token [B]`` (decode)."""
+        B, S = suite.global_batch, suite.seq_len
+        dt = getattr(torch, cfg.dtype)
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if suite.kind in ("train", "prefill"):
+            specs = {"tokens": meta((B, S), torch.int32)}
+            if cfg.family == "encdec":
+                specs["frames"] = meta((B, cfg.enc_frames, cfg.d_model), dt)
+            if cfg.family == "vlm":
+                specs["patches"] = meta((B, cfg.num_patches, cfg.d_model), dt)
+            return specs
+        if suite.kind == "decode":
+            return {"token": meta((B,), torch.int32)}
+        raise ValueError(suite.kind)
+
+    def param_specs(self, cfg: ModelConfig | None = None) -> torch.nn.Module:
+        """The model's parameters built on meta."""
+        cfg = cfg or self.config
+        return getattr(self.module, _MODEL_CLASSES[cfg.family])(cfg, torch.device("meta"))
+
+    def cache_specs(self, cfg: ModelConfig, suite: ShapeSuite) -> dict:
+        """The serving cache for the suite's batch and length, on meta."""
+        return self.module.init_cache(cfg, suite.global_batch, suite.seq_len, device="meta")
+
+    def shapes(self) -> list[str]:
+        return applicable_shapes(self.name)
 
 
 def get_model(arch: str) -> ModelApi:

@@ -9,7 +9,10 @@ O(1) recurrent state per layer.
 
 API, as the reference's: ``init_params`` / ``forward`` / ``init_cache`` /
 ``prefill`` / ``decode_step``.  The cache is ``{"layers": {"ssm": [L, B, H,
-P, N] f32, "conv": [L, B, conv - 1, C]}, "pos": int}``, written in place.
+P, N] f32, "conv": [L, B, conv - 1, C]}, "pos": int}``, written in place
+(through ``distributed/program.py``'s cache points, and each block's
+residual stream through ``hints.constrain``: the input itself unless a
+sharded program is installed).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import hints
+from repro_torch.distributed import program as D
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.config import ModelConfig
@@ -62,6 +67,7 @@ def forward(params: Mamba2LM, cfg: ModelConfig, batch: dict, *,
     With ``remat`` each block is recomputed in the backward."""
 
     def block_fn(x: torch.Tensor, p: Block) -> torch.Tensor:
+        x = hints.constrain(x)  # the residual stream's layout (sequence parallel)
         return x + M.mamba_forward(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
 
     x = L.embed(params.embed, batch["tokens"], cfg)
@@ -103,10 +109,11 @@ def prefill(params: Mamba2LM, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(params.embed, tokens, cfg)
     layers = cache["layers"]
     for i, p in enumerate(params.blocks):
+        x = hints.constrain(x)
         y, state = mamba_forward_with_state(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg)
         x = x + y
-        layers["ssm"][i].copy_(state["ssm"])
-        layers["conv"][i].copy_(state["conv"])
+        D.cache_store(layers["ssm"][i], state["ssm"])
+        D.cache_store(layers["conv"][i], state["conv"])
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x[:, -1:], cfg)[:, 0]
     return logits, {"layers": layers, "pos": S}
@@ -120,11 +127,11 @@ def decode_step(params: Mamba2LM, cfg: ModelConfig, token: torch.Tensor,
     x = L.embed(params.embed, token[:, None], cfg)
     layers = cache["layers"]
     for i, p in enumerate(params.blocks):
-        c = {k: v[i] for k, v in layers.items()}
+        c = {k: D.cache_load(v[i], v) for k, v in layers.items()}
         y, new = M.mamba_decode(p.mamba, L.rmsnorm(p.ln, x, cfg.norm_eps), cfg, c)
         x = x + y
         for k, v in new.items():
-            c[k].copy_(v)
+            D.cache_store(layers[k][i], v)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x, cfg)[:, 0]
     return logits, {"layers": layers, "pos": cache["pos"] + 1}

@@ -8,8 +8,9 @@ stacks each window slot's layers along a leading axis and runs them with
 (``params.blocks[slot][group]``) and the scan is a Python loop over layer
 groups.  gemma2's alternating local/global attention keeps its layer
 groups: slot 0 is local (window-sized ring-buffer caches), slot 1 global.
-The reference's ``hints.constrain`` sharding hint does nothing on one card
-and is left out.  A block of the MoE family holds ``moe``
+Each block passes the residual stream through ``hints.constrain`` at the
+reference's points (the input itself unless a sharded program lays it
+out).  A block of the MoE family holds ``moe``
 (:class:`~repro_torch.models.moe.MoE`) where a dense block holds ``mlp``,
 and ``forward`` returns the sum of its layers' load-balance losses.
 
@@ -25,6 +26,7 @@ from collections.abc import Iterator
 import torch
 from torch import nn
 
+from repro_torch.distributed import hints
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoE, moe_ffn
@@ -117,6 +119,7 @@ def _attn_residual(p: Block, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig)
 
 def _block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, window: int | None):
     """Full-sequence block; returns (x, (k, v), aux loss or None)."""
+    x = hints.constrain(x)  # the residual stream's layout (sequence parallel)
     h, kv = L.attention_forward(p.attn, L.rmsnorm(p.ln_attn, x, cfg.norm_eps), cfg, window=window)
     x = _attn_residual(p, x, h, cfg)
     x, aux = _mlp_residual(p, x, cfg)

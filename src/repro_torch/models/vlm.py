@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import program as D
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -42,7 +43,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.devi
 def _prefix_embeds(params: VLM, cfg: ModelConfig, patches: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """[patch embeddings + positions | token embeddings] -> [B, P + S, d]."""
     tok = L.embed(params.embed, tokens, cfg)
-    pre = (patches + params.patch_pos[None]).to(tok.dtype)
+    pre = (patches + D.weight(params.patch_pos)[None]).to(tok.dtype)
     return torch.cat([pre, tok], dim=1)
 
 

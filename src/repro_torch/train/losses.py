@@ -1,13 +1,16 @@
 """Training losses: next-token cross-entropy with z-loss, target masking,
 the vlm's prefix and the MoE load-balance term.
 
-Ported from the reference's ``repro/train/losses.py``.
+Ported from the reference's ``repro/train/losses.py``.  The logsumexp and
+the target logit go through ``distributed/program.py``, for logits whose
+vocabulary a sharded program splits over devices.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import program as D
 from repro_torch.models.config import ModelConfig
 
 
@@ -30,8 +33,8 @@ def next_token_loss(
     targets = tokens[:, 1:].long()
     m = (torch.ones(targets.shape, dtype=torch.float32, device=pred.device) if mask is None
          else mask[:, 1:].float())
-    logz = torch.logsumexp(pred, dim=-1)
-    tgt_logit = pred.gather(-1, targets[..., None])[..., 0]
+    logz = D.logsumexp(pred)  # over the vocabulary, split or not
+    tgt_logit = D.pick(pred, targets)
     nll = (logz - tgt_logit) * m
     denom = torch.clamp(m.sum(), min=1.0)
     loss = nll.sum() / denom

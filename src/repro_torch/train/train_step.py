@@ -20,6 +20,7 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.distributed import program as D
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
@@ -94,13 +95,17 @@ def make_train_step(
     (a hook for the distributed path's gradient compression, on the
     ``{name: gradient}`` mapping) if given, then
     :func:`~repro_torch.optim.adamw.update`, which writes the parameters and
-    moments in place."""
+    moments in place.  Under a sharded program the gradients are all-reduced
+    over the batch axes their parameters are replicated on
+    (``distributed/program.py::data_parallel_grads``), after the
+    compressor."""
     grad_fn = make_grad_fn(api, cfg, remat=remat, microbatches=microbatches)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)
         if grad_compressor is not None:
             grads = grad_compressor(grads)
+        grads = D.data_parallel_grads(grads, params)
         params, opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state, params)
         return params, opt_state, {**metrics, **opt_metrics}
 

@@ -109,6 +109,25 @@ def test_chunk_boundaries_carry_the_state():
         _close(s, s64.numpy(), TOL["float32"])
 
 
+@pytest.mark.parametrize("chunks_a_block", [1, 3])
+def test_plain_version_by_blocks_equals_it_whole(monkeypatch, chunks_a_block):
+    """With no gradient recorded the plain version takes its chunks a block
+    at a time within ``BLOCK_BYTES`` (here 1 and 3 chunks of 5, the last
+    block short): the same scan as all chunks at once, and the reference's
+    sequential recurrence."""
+    from repro_torch.kernels import ssd_scan as S
+
+    jax_in, torch_in = _inputs(8, 2, 72, 4, 16, 2, 16)
+    whole = ssd_scan_ref(*torch_in, chunk=16)
+    monkeypatch.setattr(S, "BLOCK_BYTES", chunks_a_block * 2 * 16 * 16 * 4 * 4)
+    y, state = ssd_scan_ref(*torch_in, chunk=16)
+    torch.testing.assert_close(y, whole[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(state, whole[1], atol=1e-6, rtol=0)
+    jy, jstate = ref.ssd_scan_ref(*jax_in)
+    _close(y, jy, TOL["float32"])
+    _close(state, jstate, TOL["float32"])
+
+
 def test_padded_steps_add_nothing_to_the_state():
     """Steps with dt = 0 and x = B = C = 0, what the tail chunk is padded
     with, leave the state exactly as it was and give y = 0."""
