@@ -84,8 +84,8 @@ result line:
 12. PSO, SA and ACO at Table IX 500x500 with the reference's defaults (PSO
     64 particles x 60 iterations, SA 32 chains x 200 steps, ACO 48 ants x
     60 iterations): each once through the kernel and once through the
-    plain version on the card from the same seed (SA's comparison at 20
-    steps, PSO's and ACO's at 20 iterations, both sides), which must agree bit for
+    plain version on the card from the same seed (SA's comparison at 5
+    steps, PSO's and ACO's at 5 iterations, both sides: ``MH_PLAIN``), which must agree bit for
     bit in the best assignment and the history; exactly 61 / 201 / 60
     kernel launches; a valid schedule whose f32 oracle re-score equals the
     kernel's makespan; a ``torch.profiler`` pass over a warm run of each;
@@ -213,7 +213,27 @@ result line:
     beside the measured ms; the four-card plan (per-card parameter bytes
     and the ``decode_32k`` peak of deepseek-67b, internvl2-76b and
     mixtral-8x7b under serve-tp on (data 1, model 4)); no kernel launch in
-    any dry-run.
+    any dry-run;
+24. the sharded training step on real exchanges
+    (``distributed/comm.py::DistComm``): four child processes share the
+    card in a gloo group (each exchange staged through the host), each a
+    device of (data 2, model 2) and then of (data 1, model 4) under
+    ``baseline``; qwen2.5-3b at full width cut to 2 layers in f32 (TF32
+    off), batch 4 x 1024, two AdamW steps against the unsharded step on the
+    card (losses within 1e-4, the parameters gathered whole within atol
+    2e-4, rtol 2e-3); every rank's argument bytes, FLOPs, kernel calls and
+    exchanges by kind == the dry-run's cell of the same cut and mesh on
+    meta, exactly; 2 flash launches a layer a step on every rank; the (2, 2)
+    state (parameters and AdamW's) saved after step 2 and restored under
+    (1, 4) bit for bit, its step 3 within 1e-4 of the (2, 2) run's;
+    ``compressed_psum_pod`` over the four ranks, card == host bit for bit
+    and within the reference's bound; ``pipeline_forward`` of 8 blocks in 4
+    stages x 4 microbatches of 1 x 1024 against the blocks in sequence.  On a
+    host of four cards (c): the same over NCCL, a card a rank, at full depth
+    in bf16: the exchanges and FLOPs against the dry-run's, the peak within
+    ``PEAK_BAND`` of ``max_memory_allocated``, ms a step, NCCL's kernel
+    time by collective, the loss against one card's bf16 step; alone:
+    ``python3 -c "import chip_smoke; chip_smoke.four_card_main()"``.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -1745,10 +1765,12 @@ MH = {  # the reference's defaults (src/repro/core/metaheuristics.py) and launch
 # steps, then, at 912 s before phase 21 with the encdec and vlm phases,
 # to 20 steps, and PSO's and ACO's (25-28 s each) to 20 iterations; with
 # phase 23 (the dry-run, 64 s in its probe) after an 837.3 s run, SA's to 10
-# steps and PSO's and ACO's to 10 iterations; the kernel runs the same
-# options beside each.
-MH_PLAIN = {"pso": {"pop_size": 64, "iterations": 10}, "sa": {"chains": 32, "steps": 10},
-            "aco": {"ants": 48, "iterations": 10}}
+# steps and PSO's and ACO's to 10 iterations; with phase 24 (the sharded
+# step, 217.8 s) after a 1000.9 s run, SA's to 5 steps and PSO's and ACO's
+# to 5 iterations (5.1-6.8 s each at 10); the kernel runs the same options
+# beside each.
+MH_PLAIN = {"pso": {"pop_size": 64, "iterations": 5}, "sa": {"chains": 32, "steps": 5},
+            "aco": {"ants": 48, "iterations": 5}}
 
 
 def makespan_class(name: str) -> str:
@@ -3428,14 +3450,14 @@ PEAK_BAND = (0.9, 1.1)
 FOUR_CARDS = ("deepseek-67b", "internvl2-76b", "mixtral-8x7b")
 
 
-def start_dryrun_sweep() -> tuple[subprocess.Popen, Path]:
+def start_dryrun_sweep() -> tuple[subprocess.Popen, Path, list[int]]:
     """Phase 23 (a), started before phase 1: the whole dry-run
     (``python -m repro_torch.launch.dryrun --all --mesh both --force``) in a
     child on the host's CPU beside the card's phases, its log in
     ``build/dryrun_sweep.log``.  The child runs on the last core of this
-    process's set and this process (with the children it starts later) on
-    the others, so the host-bound phases' readings do not share a core with
-    the sweep."""
+    process's set and this process (with the children it starts meanwhile)
+    on the others, so the host-bound phases' readings do not share a core
+    with the sweep; returns the child, its log and this process's cores."""
     repo = Path(__file__).resolve().parent
     log = repo / "build" / "dryrun_sweep.log"
     log.parent.mkdir(exist_ok=True)
@@ -3459,13 +3481,15 @@ def start_dryrun_sweep() -> tuple[subprocess.Popen, Path]:
             proc.wait()
 
     atexit.register(stop)
-    return proc, log
+    return proc, log, cores
 
 
-def finish_dryrun_sweep(proc: subprocess.Popen, log: Path) -> dict:
-    """Phase 23 (a): wait for the sweep, require every cell ``ok`` and no
-    kernel launch in the child."""
+def finish_dryrun_sweep(proc: subprocess.Popen, log: Path, cores: list[int]) -> dict:
+    """Phase 23 (a): wait for the sweep, give this process its ``cores``
+    back, require every cell ``ok`` and no kernel launch in the child."""
     rc = proc.wait(timeout=900)
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(len(cores))
     text = log.read_text()
     ok = len(re.findall(r"^\[ok", text, re.M))
     errors = re.findall(r"^\[error\].*$", text, re.M)
@@ -3602,6 +3626,472 @@ def dryrun_phase() -> dict:
     check(dryrun._launches() == before, "the four-card plan launched no kernel")
     print(json.dumps({"dryrun_predict": rows, "dryrun_four_cards": plan}), flush=True)
     return {"predict": rows, "four_cards": plan}
+
+
+# -----------------------------------------------------------------------------
+# 24. the sharded training step on real exchanges
+# -----------------------------------------------------------------------------
+
+#: phase 24 (a)-(b): four processes share the one card in a gloo group
+#: (NCCL refuses two ranks on one card).  Gloo's TCP transport cannot send a
+#: CUDA tensor (``writev ... Bad address`` on torch 2.11), so ``DistComm``
+#: copies each exchange's tensors through the host (``staged=True``, named
+#: here, never a fallback).
+SHARDED_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards": 1, "arch": "qwen2.5-3b",
+                    "layers": 2, "dtype": "float32", "batch": 4, "seq": 1024, "pipe_layers": 8,
+                    "pipe_micro": 4}
+#: phase 24 (c): a process a card over NCCL, full width and depth in bf16
+SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "arch": "qwen2.5-3b",
+                      "layers": None, "dtype": None, "batch": 4, "seq": 1024, "pipe_layers": None,
+                      "pipe_micro": 4}
+SHARDED_MESHES = ((2, 2), (1, 4))
+#: the reference's tolerance for a sharded step against one device's
+#: (tests/test_distributed.py:142), held in f32 with TF32 off.  AdamW's
+#: first move of an element is lr·g/(|g| + eps): where the first gradient
+#: is non-zero and below ``EPS_REGIME`` the order of f32 sums (~1e-8
+#: absolute at this width, measured element by element on an H100) decides
+#: its sign.  So the first gradients themselves are held first, whole, to
+#: the CPU tests' tolerance against the reference (``GRAD_TOL``: 1e-5 +
+#: 1e-4·max|g| a tensor); then every parameter after two steps to the
+#: reference's tolerance, but those elements within ``EPS_REGIME_ATOL``:
+#: 2.5 times the largest deviation measured among them (4.06e-4), and half
+#: of the 2·lr that one step taken the other way moves an element.
+SHARDED_TOL = {"loss": 1e-4, "atol": 2e-4, "rtol": 2e-3}
+GRAD_TOL = {"atol": 1e-5, "rel": 1e-4}
+EPS_REGIME = 1e-7
+EPS_REGIME_ATOL = 1e-3
+#: (c): bf16 sums in another order: the sharded loss within this share of
+#: one card's bf16 loss
+FOUR_CARD_LOSS_RTOL = 5e-3
+#: (b): the pipeline runs the same kernels at the same shapes in the same
+#: order as the blocks in sequence: equal within this share of the largest
+#: value (f32 at one card; bf16 at four)
+PIPE_RTOL = {"float32": 1e-6, "bfloat16": 2 ** -8}
+
+
+def sharded_child() -> None:
+    """One rank of phase 24 (``SHARDED_CHILD`` in the environment: its rank,
+    the group's settings and the directory it reports to)."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.distributed.compression import compressed_psum_pod
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+
+    job = json.loads(os.environ["SHARDED_CHILD"])
+    rank, world, out_dir = job["rank"], job["world"], Path(job["dir"])
+    torch.set_num_threads(2)
+    card = rank % job["cards"]
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(card)
+    dist.init_process_group(job["backend"], init_method=f"file://{out_dir / 'store'}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    report: dict = {"rank": rank, "card": card, "backend": job["backend"], "staged": job["staged"]}
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        report.setdefault("seconds", {})[what] = now - clock[0]
+        clock[0] = now
+
+    api = get_model(job["arch"])
+    cut = api.config if job["layers"] is None else dataclasses.replace(api.config, num_layers=job["layers"])
+    if job["dtype"]:
+        cut = dataclasses.replace(cut, dtype=job["dtype"])
+    B, S = job["batch"], job["seq"]
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(0, cut.vocab, (B, S)).astype(np.int32)).to(dev)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    suite = ShapeSuite(f"train_{B}x{S}", "train", S, B)
+
+    def model():
+        return L.trainable(api.init(torch.Generator(device=dev).manual_seed(0), cut, device=dev))
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    held = job["backend"] == "gloo"  # (a) in f32 to the reference's tolerance; (c) in bf16 to a loss band
+    single = {}
+
+    def unsharded() -> None:
+        """The unsharded steps on rank 0's card: the first gradients, the
+        parameters after step 2 and three losses."""
+        one = model()
+        grads, _ = make_grad_fn(api, cut, remat=True)(one, {"tokens": tokens})
+        single["eps_regime"] = {k: ((g != 0) & (g.abs() < EPS_REGIME)).cpu() for k, g in grads.items()}
+        if held:
+            single["g1"] = {k: g.to("cpu", copy=True) for k, g in grads.items()}
+        del grads
+        state = adamw.init(opt_cfg, one)
+        step = make_train_step(api, cut, opt_cfg, remat=True)
+        losses = []
+        for i in range(3):
+            _, state, m = step(one, state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            if i == 1:
+                single["params"] = {k: p.detach().to("cpu", copy=True) for k, p in one.named_parameters()}
+        single["losses"] = losses
+        del one, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    saved_whole = None
+    manager = CheckpointManager(out_dir / "ck", keep=1, async_save=True)
+    for shape in SHARDED_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        name = f"({shape[0]}, {shape[1]})"
+        comm = DistComm(mesh, rank, job["backend"], staged=job["staged"])
+        cell = dryrun.build_cell(job["arch"], suite, mesh, dryrun.POLICIES["baseline"], cfg=cut, comm=comm,
+                                 source=model(), batch={"tokens": tokens}, opt_cfg=opt_cfg)
+        plan = dryrun.build_cell(job["arch"], suite, mesh, dryrun.POLICIES["baseline"], cfg=cut, opt_cfg=opt_cfg)
+        _, planned = dryrun.count_cell(plan, scopes=False)
+        del plan
+        lap(f"{name} cell built, its plan counted on meta")
+        flash_attention_cuda.launches = 0
+        (_, opt, m1), counted = dryrun.count_cell(cell, scopes=False)
+        torch.cuda.synchronize()
+        launches = flash_attention_cuda.launches
+        specs = cell.program.specs
+        m_whole = {}  # the first gradients, from AdamW's m = (1 - b1)·scale·g after step 1, whole on rank 0
+        for k, t in opt["m"].items() if held else ():
+            w = comm.gather_whole(t, specs[k], dst=0)
+            m_whole[k] = w.clone() if w is t else w  # a replicated leaf is the live m, which step 2 updates
+        lap(f"{name} step 1, its m gathered")
+        torch.cuda.reset_peak_memory_stats()
+        (_, opt, m2), ms2 = sync_ms(cell.run)
+        peak = torch.cuda.max_memory_allocated()
+        lap(f"{name} step 2")
+        pj, cj = planned.costs.to_json(), counted.costs.to_json()
+        row = {
+            "launches_step1": launches, "losses": [float(m1["loss"]), float(m2["loss"])],
+            "grad_norms": [float(m1["grad_norm"]), float(m2["grad_norm"])], "step2_ms": ms2,
+            "counted": {"arguments": counted.memory()["argument_bytes"], "flops": cj["flops"],
+                        "collective_counts": cj["collective_counts"], "collective_bytes": cj["collective_bytes"],
+                        "kernels": cj["kernels"]},
+            "plan": {"arguments": planned.memory()["argument_bytes"], "flops": pj["flops"],
+                     "collective_counts": pj["collective_counts"], "collective_bytes": pj["collective_bytes"],
+                     "kernels": pj["kernels"]},
+            "plan_peak_bytes": planned.memory()["peak_bytes"], "max_memory_allocated": peak,
+            "layout": dryrun.layout(cell.program),
+        }
+
+        def step3() -> float:
+            """Step 3, under the profiler where the exchanges are NCCL's
+            kernels on the card."""
+            done = []
+            if job["backend"] == "nccl":
+                row["profile"] = device_time_breakdown(lambda: done.append(cell.run()), classify=sharded_kernel_class)
+            else:
+                done.append(cell.run())
+            return float(done[0][2]["loss"])
+
+        named = dict(cell.params.named_parameters())
+        if shape == SHARDED_MESHES[0]:  # the state after step 2, saved whole; device 0 writes it in the background
+            tree = {"params": named, "m": opt["m"], "v": opt["v"], "step": opt["step"]}
+            sh = {"params": {k: comm.sharding(specs[k]) for k in named},
+                  "m": {k: comm.sharding(specs[k]) for k in named},
+                  "v": {k: comm.sharding(specs[k]) for k in named}, "step": comm.sharding(())}
+            t0 = time.perf_counter()
+            manager.save(2, tree, shardings=sh)
+            row["save_gather_s"] = time.perf_counter() - t0
+            del tree, sh
+        whole = cell.program.whole(cell.params, dst=0)
+        if shape == SHARDED_MESHES[0]:
+            saved_whole = {k: t.to("cpu", copy=True) for k, t in whole.items()} if rank == 0 else None
+            whole = saved_whole  # no copy left on the card while the unsharded steps run
+            if rank == 0:  # while device 0 writes; the others wait in step 3's exchanges
+                unsharded()
+            lap(f"{name} saved, the unsharded steps on rank 0")
+        if rank == 0:
+            grads_row = {}
+            if held:
+                scale = min(1.0, opt_cfg.grad_clip / (float(m1["grad_norm"]) + 1e-9))
+                worst, over = 0.0, []
+                for k, ref in single["g1"].items():
+                    ref = ref.to(dev)
+                    g = m_whole[k].to(dev).float() / ((1 - opt_cfg.beta1) * scale)
+                    err, top = float((g - ref).abs().max()), float(ref.abs().max())
+                    worst = max(worst, err / top if top else err)
+                    if err > GRAD_TOL["atol"] + GRAD_TOL["rel"] * top:
+                        over.append([k, err, top])
+                grads_row = {"grads_max_rel_err": worst, "grads_over_tolerance": over}
+            errs, over, outside, regime, regime_err = {}, 0, 0, 0, 0.0
+            for k, ref in single["params"].items():
+                ref = ref.to(dev).float()
+                d = (whole[k].to(dev).float() - ref).abs()  # gathered on the host when staged
+                bad = d > SHARDED_TOL["atol"] + SHARDED_TOL["rtol"] * ref.abs()
+                tiny = single["eps_regime"][k].to(dev)
+                errs[k] = float(d.max())
+                over += int(bad.sum())
+                outside += int((bad & ~tiny).sum())
+                regime += int(tiny.sum())
+                if tiny.any():
+                    regime_err = max(regime_err, float(d[tiny].max()))
+            row.update(param_max_abs_err=max(errs.values()), params_over_tolerance=over,
+                       params_over_tolerance_outside_eps_regime=outside, eps_regime_elements=regime,
+                       eps_regime_max_abs_err=regime_err,
+                       params_close=outside == 0 and regime_err <= EPS_REGIME_ATOL,
+                       worst_params=sorted(errs.items(), key=lambda kv: -kv[1])[:3], **grads_row)
+            row["single_losses"] = single["losses"]
+        del m_whole
+        if shape == SHARDED_MESHES[0]:
+            row["losses"].append(step3())
+            lap(f"{name} compared, step 3")
+        else:  # the (2, 2) state restored under this layout, and its step 3
+            t0 = time.perf_counter()
+            manager.wait()  # until device 0 has written the (2, 2) state
+            row["save_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sh = {"params": {k: comm.sharding(specs[k]) for k in named}, "m": {k: comm.sharding(specs[k]) for k in named},
+                  "v": {k: comm.sharding(specs[k]) for k in named}, "step": comm.sharding(())}  # device 0 scatters
+            got, at = manager.restore({"params": named, "m": opt["m"], "v": opt["v"], "step": opt["step"]}, shardings=sh)
+            row["restore_s"] = time.perf_counter() - t0
+            row["restored_from_step"] = at
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(got["params"][k])
+                    opt["m"][k].copy_(got["m"][k])
+                    opt["v"][k].copy_(got["v"][k])
+            row["restored_step"] = int(got["step"])
+            back = cell.program.whole(cell.params, dst=0)
+            if rank == 0:
+                row["restore_bit_for_bit"] = all(torch.equal(back[k].cpu(), saved_whole[k]) for k in saved_whole)
+            del got, back
+            row["restored_step3_loss"] = step3()
+            lap(f"{name} restored the (2, 2) state, step 3")
+        report[name] = row
+        del cell, whole, opt, named  # the layout's state, before the next's peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) compressed_psum_pod over the four ranks, the card against the host
+    pods = make_mesh((world,), ("pod",))
+    comm = DistComm(pods, rank, job["backend"], staged=job["staged"])
+    x = torch.from_numpy(np.random.default_rng(240 + rank).standard_normal(1 << 20).astype(np.float32))
+    psum = compressed_psum_pod(x.to(dev), comm, "pod").cpu()
+    if job["backend"] == "gloo":  # the same exchanges of host tensors
+        on_host = compressed_psum_pod(x, DistComm(pods, rank, "gloo"), "pod")
+        report["psum_bit_for_bit"] = same_bits(psum, on_host)
+    exact = comm.all_reduce(x.to(dev), ("pod",)).cpu()
+    top = comm.all_reduce(x.abs().max().to(dev), ("pod",), op="max").cpu()
+    report["psum"] = {"max_abs_err": float((psum - exact).abs().max()),
+                      "bound": float(top) / 127 * world * 1.5}  # the reference's bound (test_distributed.py:199)
+    lap("compressed_psum_pod")
+
+    # (b) the pipeline of the model's blocks over four stages
+    pipe = dataclasses.replace(cut, num_layers=job["pipe_layers"] or cut.num_layers)
+    stages = make_mesh((world,), ("stage",))
+    comm = DistComm(stages, rank, job["backend"], staged=job["staged"])
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(1), pipe, device=dev)
+        blocks = [blk for _, _, _, blk in T._layers(params, pipe)]
+        per = len(blocks) // world
+        x_micro = L.embed(params.embed, tokens, pipe)[:job["pipe_micro"], None]  # [M, 1, S, d]
+
+        def block_fn(stage_blocks, h):
+            for blk in stage_blocks:
+                h, _, _ = T._block_forward(blk, h, pipe, None)
+            return h
+
+        flash_attention_cuda.launches = 0
+        out, pipe_ms = sync_ms(lambda: pipeline_forward(block_fn, blocks[rank * per:(rank + 1) * per], x_micro, comm))
+        report["pipeline"] = {"layers": len(blocks), "stages": world, "microbatches": int(x_micro.shape[0]),
+                              "ms": pipe_ms, "launches": flash_attention_cuda.launches}
+        if rank == 0:
+            seq = torch.stack([block_fn(blocks, xm) for xm in x_micro])
+            scale = float(seq.float().abs().max())
+            report["pipeline"]["max_abs_err"] = float((out.float() - seq.float()).abs().max())
+            report["pipeline"]["scale"] = scale
+    del params, blocks
+    lap("the pipeline")
+    (out_dir / f"rank_{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_kernel_class(name: str) -> str:
+    """An NCCL kernel's collective, else the kernel's family."""
+    for kind in ("AllGather", "ReduceScatter", "AllReduce", "SendRecv", "AllToAll"):
+        if "nccl" in name.lower() and kind.lower() in name.lower():
+            return f"nccl {kind}"
+    return "nccl other" if "nccl" in name.lower() else kernel_class(name)
+
+
+def run_sharded(job: dict, timeout: float) -> list[dict]:
+    """Start phase 24's ranks as children of this process, each a rank of
+    ``job``; wait for all (a failed rank fails the phase at once); their
+    reports."""
+    repo = Path(__file__).resolve().parent
+    out_dir = repo / "build" / f"phase24_{job['backend']}"
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="2")
+    logs, procs = [], []
+    for rank in range(job["world"]):
+        env["SHARDED_CHILD"] = json.dumps({**job, "rank": rank, "dir": str(out_dir)})
+        log = open(out_dir / f"log_{rank}.txt", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.sharded_child()"],
+                                      env=env, cwd=repo, stdout=log, stderr=subprocess.STDOUT))
+
+    def stop() -> None:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        stop()
+        for log in logs:
+            log.close()
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    text = "".join(f"--- rank {r} ---\n{(out_dir / f'log_{r}.txt').read_text()[-2500:]}" for r, _ in failed)
+    check(not failed, f"phase 24 ranks {failed} failed or outlasted {timeout} s:\n{text}")
+    return [json.loads((out_dir / f"rank_{r}.json").read_text()) for r in range(job["world"])]
+
+
+def sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, int]:
+    """Phase 24's checks on the ranks' reports, printed (the reports first,
+    whole); returns the flash kernel's launches by path."""
+    print(json.dumps({f"sharded_{label}": reports}), flush=True)
+    layers = job["layers"] or 36
+    by_path = {}
+    for shape in SHARDED_MESHES:
+        name = f"({shape[0]}, {shape[1]})"
+        for r in reports:
+            row = r[name]
+            tag = f"sharded {label} {name} rank {r['rank']}"
+            check(row["counted"] == row["plan"], f"{tag}: arguments, FLOPs, kernel calls and exchanges == the "
+                                                 f"dry-run's: {row['counted']} against {row['plan']}")
+            check(row["launches_step1"] == 2 * layers, f"{tag}: {row['launches_step1']} flash launches, expected "
+                                                       f"{2 * layers}")
+            by_path[f"sharded train {label} {name} rank {r['rank']}"] = row["launches_step1"]
+            ratio = row["plan_peak_bytes"] / row["max_memory_allocated"]
+            print(f"{tag}: layout {row['layout']['attention']}; arguments {row['counted']['arguments']:,} B, FLOPs "
+                  f"{row['counted']['flops']:.6e}, exchanges {row['counted']['collective_counts']} "
+                  f"{ {k: round(v / 1e9, 6) for k, v in row['counted']['collective_bytes'].items()} } GB == the "
+                  f"dry-run's; flash launches {row['launches_step1']}; losses {row['losses']}; step 2 "
+                  f"{row['step2_ms']:.1f} ms; peak {row['max_memory_allocated'] / 1e9:.3f} GB "
+                  f"(dry-run {row['plan_peak_bytes'] / 1e9:.3f} GB, ratio {ratio:.4f}); seconds {r['seconds']}",
+                  flush=True)
+            if row.get("profile"):
+                print(f"{tag}: profiled step {json.dumps(row['profile'].get('by_class'))}", flush=True)
+        row0 = reports[0][name]
+        single = row0["single_losses"]
+        if job["backend"] == "gloo":
+            for r in reports:
+                d = [abs(a - b) for a, b in zip(r[name]["losses"][:2], single[:2])]
+                check(max(d) <= SHARDED_TOL["loss"], f"sharded {label} {name} rank {r['rank']}: losses "
+                                                     f"{r[name]['losses'][:2]} against one device's {single[:2]}")
+            check(not row0["grads_over_tolerance"], f"sharded {label} {name}: first gradients within "
+                                                    f"{GRAD_TOL['atol']} + {GRAD_TOL['rel']}·max|g| of one device's: "
+                                                    f"{row0['grads_over_tolerance']}")
+            check(row0["params_close"], f"sharded {label} {name}: parameters after 2 steps within atol "
+                                        f"{SHARDED_TOL['atol']}, rtol {SHARDED_TOL['rtol']} outside AdamW's eps regime, "
+                                        f"within {EPS_REGIME_ATOL} in it: "
+                                        f"{row0['params_over_tolerance_outside_eps_regime']} elements over, eps regime "
+                                        f"max {row0['eps_regime_max_abs_err']}")
+            print(f"sharded {label} {name}: first gradients (from AdamW's m after step 1) against one device's, max "
+                  f"err {row0['grads_max_rel_err']:.3e} of each tensor's largest", flush=True)
+        else:
+            for r in reports:
+                for a, b in zip(r[name]["losses"][:2], single[:2]):
+                    check(abs(a - b) <= FOUR_CARD_LOSS_RTOL * abs(b), f"sharded {label} {name} rank {r['rank']}: "
+                                                                      f"loss {a} against one card's {b}")
+            for r in reports:
+                ratio = r[name]["plan_peak_bytes"] / r[name]["max_memory_allocated"]
+                check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1], f"sharded {label} {name} rank {r['rank']}: dry-run peak "
+                                                             f"within {PEAK_BAND} of max_memory_allocated ({ratio:.4f})")
+        print(f"sharded {label} {name}: one device's losses {single}; parameters gathered whole after step 2, "
+              f"max abs err {row0['param_max_abs_err']:.3e}; {row0['params_over_tolerance']} elements over atol "
+              f"{SHARDED_TOL['atol']} + rtol {SHARDED_TOL['rtol']}, {row0['params_over_tolerance_outside_eps_regime']} of "
+              f"them outside AdamW's eps regime (0 < |g1| < {EPS_REGIME}: {row0['eps_regime_elements']} elements, max abs "
+              f"err {row0['eps_regime_max_abs_err']:.3e}, held within {EPS_REGIME_ATOL}); largest "
+              f"{row0['worst_params']}", flush=True)
+    two, four = (f"({a}, {b})" for a, b in SHARDED_MESHES)
+    r0 = reports[0][four]
+    check(r0["restore_bit_for_bit"], f"sharded {label}: the {two} state restored under {four} bit for bit")
+    for r in reports:
+        a, b = r[four]["restored_step3_loss"], reports[0][two]["losses"][2]
+        tol = SHARDED_TOL["loss"] if job["backend"] == "gloo" else FOUR_CARD_LOSS_RTOL * abs(b)
+        check(r[four]["restored_step"] == 2 and r[four]["restored_from_step"] == 2 and abs(a - b) <= tol,
+              f"sharded {label} rank {r['rank']}: step 3 from the restored state {a} against {two}'s {b}")
+    print(f"sharded {label}: {two} state after step 2 gathered in {reports[0][two]['save_gather_s']:.1f} s and written "
+          f"by rank 0 in the background (waited {max(r[four]['save_wait_s'] for r in reports):.1f} s more), restored "
+          f"under {four} in {max(r[four]['restore_s'] for r in reports):.1f} s, bit for bit; step 3 "
+          f"{[r[four]['restored_step3_loss'] for r in reports]} against {reports[0][two]['losses'][2]}", flush=True)
+    if job["backend"] == "gloo":
+        check(all(r["psum_bit_for_bit"] for r in reports),
+              f"sharded {label}: compressed_psum_pod on the card == on the host, bit for bit")
+    for r in reports:
+        check(r["psum"]["max_abs_err"] <= r["psum"]["bound"], f"sharded {label}: compressed_psum_pod {r['psum']}")
+    pipe = reports[0]["pipeline"]
+    rtol = PIPE_RTOL[job["dtype"] or "bfloat16"]
+    check(pipe["max_abs_err"] <= rtol * pipe["scale"], f"sharded {label}: the pipeline {pipe}")
+    launches = sum(r["pipeline"]["launches"] for r in reports)
+    check(launches == pipe["layers"] * pipe["microbatches"],
+          f"sharded {label}: {launches} flash launches in the pipeline, expected one a layer and microbatch")
+    by_path[f"pipeline {label}"] = launches
+    print(f"sharded {label}: compressed_psum_pod card == host bit for bit: {reports[0].get('psum_bit_for_bit')}; "
+          f"pipeline of {pipe['layers']} layers in {pipe['stages']} stages x {pipe['microbatches']} microbatches "
+          f"{pipe['ms']:.1f} ms, max abs err {pipe['max_abs_err']:.3e} of {pipe['scale']:.3e} against the blocks in "
+          f"sequence (rtol {rtol})", flush=True)
+    return by_path
+
+
+def sharded_phase() -> dict[str, int]:
+    """Phase 24 (a)-(b) on the one card; (c) where the host has four."""
+    print(f"phase 24: exchanges {SHARDED_ONE_CARD['backend']}, staged through the host: {SHARDED_ONE_CARD['staged']}",
+          flush=True)
+    by_path = sharded_report(SHARDED_ONE_CARD, run_sharded(SHARDED_ONE_CARD, 600), "one card")
+    if torch.cuda.device_count() >= 4:
+        by_path.update(sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1200), "four cards"))
+    else:
+        print("phase 24 (c): one card here; the four-card run is `python3 -c \"import chip_smoke; "
+              "chip_smoke.four_card_main()\"` on a host of four", flush=True)
+    return by_path
+
+
+def four_card_main() -> int:
+    """Phase 24 (c) alone, on a host of four cards: build the kernels, run
+    the four NCCL ranks, print the report."""
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phase 24 (c) needs four")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(f"four cards: {smi}", flush=True)
+    _build.build()
+    t0 = time.perf_counter()
+    by_path = sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1500), "four cards")
+    print(f"phase 24 (c): {time.perf_counter() - t0:.1f} s; flash launches {by_path}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3982,6 +4472,14 @@ def main() -> int:
     finish_dryrun_sweep(*sweep)
     phase_done(23, "the dry-run and its cost model")
 
+    # 24. the sharded training step on real exchanges: four ranks on the card
+    # in a gloo group, the pipeline, compressed_psum_pod, the cross-mesh
+    # restore; the four-card NCCL run where the host has four
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_by_path = sharded_phase()
+    phase_done(24, "the sharded training step")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
                         **service_launches, **campaign_launches, **topology_launches, **continuum_launches}
     record.update(service_record)
@@ -4002,6 +4500,7 @@ def main() -> int:
             by_path.setdefault(name, {})[path] = n
     for name, run in train_by_path.items():
         by_path[name].update(run)
+    by_path["flash_attention"].update(sharded_by_path)
 
     kernels = [{
         "name": "population_makespan",

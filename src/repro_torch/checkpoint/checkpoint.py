@@ -18,6 +18,13 @@ Trees are nested dicts (keys in sorted order), lists and tuples whose
 leaves are tensors, numpy arrays or Python numbers, flattened in the order
 ``jax.tree.leaves`` gives.  Leaves are stored whole; a restored leaf goes to
 the device of the template's leaf.
+
+A sharded run passes ``shardings`` (a matching tree of
+``distributed/comm.py::NamedSharding``, or one for every leaf): a save
+gathers each leaf whole from every device's slice and device 0 writes it;
+a restore reads the file once on device 0 and scatters to each device its
+slice under the layout it names, which may be another mesh's than the
+save's (the reference's elastic rescale).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import numpy as np
 import torch
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+#: leaves encoded (a save) or decoded (a sharded restore) at once
+_WORKERS = 8
 
 
 # -----------------------------------------------------------------------------
@@ -229,9 +238,41 @@ def _unflatten(template, leaves):
     return next(leaves)
 
 
-def save_pytree(tree: Any, directory: str | Path) -> None:
+def _sharding_leaves(shardings, n: int) -> list:
+    """One sharding a leaf: ``shardings`` flattened as the tree is, or the
+    one sharding given for all."""
+    from repro_torch.distributed.comm import NamedSharding
+
+    if isinstance(shardings, NamedSharding):
+        return [shardings] * n
+    flat = [sh for _, sh in _flatten(shardings)]
+    if len(flat) != n:
+        raise ValueError(f"{len(flat)} shardings for {n} leaves")
+    return flat
+
+
+def _gathered(tree: Any, shardings) -> tuple[Any, bool, Any]:
+    """(``tree`` with every leaf gathered whole on device 0, whether this
+    device writes it, the comm); every device of the mesh takes part."""
+    flat = _flatten(tree)
+    shs = _sharding_leaves(shardings, len(flat))
+    if not shs:
+        raise ValueError("a sharded save of a tree with no leaves")
+    whole = [sh.comm.gather_whole(leaf, sh.spec, dst=0) for (_, leaf), sh in zip(flat, shs)]
+    return _unflatten(tree, iter(whole)), all(sh.rank == 0 for sh in shs), shs[0].comm
+
+
+def save_pytree(tree: Any, directory: str | Path, shardings=None) -> None:
     """Atomic: writes into ``<dir>.tmp`` then renames.  One file per leaf
-    (encoded and written in parallel), a manifest with the structure."""
+    (encoded and written in parallel), a manifest with the structure.
+    With ``shardings`` every device calls it: the leaves are gathered whole,
+    device 0 writes them, and every device returns once they are written."""
+    if shardings is not None:
+        whole, writer, comm = _gathered(tree, shardings)
+        if writer:
+            save_pytree(whole, directory)
+        comm.barrier()
+        return
     directory = Path(directory)
     tmp = directory.with_suffix(".tmp")
     if tmp.exists():
@@ -242,7 +283,7 @@ def save_pytree(tree: Any, directory: str | Path) -> None:
     def write(i: int, leaf) -> None:
         (tmp / f"leaf_{i:05d}.zst").write_bytes(_encode_leaf(leaf))
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=_WORKERS) as ex:
         for f in [ex.submit(write, i, leaf) for i, (_, leaf) in enumerate(flat)]:
             f.result()
     manifest = {
@@ -257,21 +298,39 @@ def save_pytree(tree: Any, directory: str | Path) -> None:
     os.rename(tmp, directory)
 
 
-def restore_pytree(template: Any, directory: str | Path) -> Any:
+def restore_pytree(template: Any, directory: str | Path, shardings=None) -> Any:
     """Restore into ``template``'s structure: each leaf with the dtype and
     shape it was saved with, on the device of the template's leaf (the CPU
-    for a leaf that is no tensor).  Raises ``ValueError`` when the leaf
-    counts differ."""
+    for a leaf that is no tensor); with ``shardings`` every device calls it,
+    device 0 reads the file and each device receives its slice of each leaf
+    under the layout its sharding names.  Raises ``ValueError`` when the
+    leaf counts differ."""
     directory = Path(directory)
     flat = _flatten(template)
     manifest = json.loads((directory / "manifest.json").read_text())
     if manifest["num_leaves"] != len(flat):
         raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves, template has {len(flat)}")
+    if shardings is not None:
+        return _unflatten(template, _scattered(directory, flat, _sharding_leaves(shardings, len(flat))))
     restored = []
     for i, (_, like) in enumerate(flat):
         t = _decode_leaf((directory / f"leaf_{i:05d}.zst").read_bytes())
         restored.append(t.to(like.device) if isinstance(like, torch.Tensor) else t)
     return _unflatten(template, iter(restored))
+
+
+def _scattered(directory: Path, flat: list, shs: list):
+    """Each leaf's slice for this device, in order: device 0 decodes every
+    leaf (in parallel) and scatters the slices; the others receive theirs
+    in the shape and dtype of their template's leaf."""
+    if shs[0].rank != 0:
+        for (_, like), sh in zip(flat, shs):
+            yield sh.comm.scatter_whole(None, sh.spec, like)
+        return
+    with concurrent.futures.ThreadPoolExecutor(max_workers=_WORKERS) as ex:
+        leaves = ex.map(lambda i: _decode_leaf((directory / f"leaf_{i:05d}.zst").read_bytes()), range(len(flat)))
+        for ((_, like), sh), whole in zip(zip(flat, shs), leaves):
+            yield sh.comm.scatter_whole(whole, sh.spec, like)
 
 
 def _snapshot(tree):
@@ -301,6 +360,7 @@ class CheckpointManager:
         self.root.mkdir(parents=True, exist_ok=True)
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._comm = None  # a sharded save's backend: every device waits for the writer
 
     def _dir(self, step: int) -> Path:
         return self.root / f"step_{step:08d}"
@@ -320,12 +380,25 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._comm is not None:  # after a sharded save, until device 0 has written it
+            comm, self._comm = self._comm, None
+            comm.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings=None) -> None:
+        """Save ``tree`` as step ``step`` (in the background when
+        ``async_save``).  With ``shardings`` every device calls it: the
+        leaves are gathered whole (in the foreground) and device 0 writes
+        them; every device's next :meth:`wait` (each save and restore
+        waits first) returns once they are written."""
         self.wait()
+        if shardings is not None:
+            whole, writer, self._comm = _gathered(tree, shardings)
+            if not writer:
+                return
+            tree = whole
         host_tree = _snapshot(tree)
 
         def do_save():
@@ -342,14 +415,15 @@ class CheckpointManager:
             do_save()
             self.wait()
 
-    def restore(self, template: Any, step: int | None = None):
+    def restore(self, template: Any, step: int | None = None, shardings=None):
         """(the tree at ``step``, or the latest, and its step), or (None,
-        None) when there is no checkpoint."""
+        None) when there is no checkpoint; ``shardings`` as
+        :func:`restore_pytree`'s."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
-        return restore_pytree(template, self._dir(step)), step
+        return restore_pytree(template, self._dir(step), shardings), step
 
     def _gc(self):
         steps = self.all_steps()

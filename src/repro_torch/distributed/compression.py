@@ -23,9 +23,9 @@ compress the layers of one reference leaf (:func:`stacked_leaves`) as one
 flat tensor in layer order, so that the blocks, their scales and their
 codes are the reference's.
 
-The reference's ``compressed_psum_pod`` (quantize, a ``psum`` over the pod
-axis, dequantize) needs a collective over cards and belongs to the sharded
-step.
+:func:`compressed_psum_pod` is the reference's collective over the pod axis
+(quantize, take the largest scale, requantize, sum the codes in f32,
+dequantize), over a backend's exchanges (``distributed/comm.py::DistComm``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,9 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     for a block of zeros), its codes the rounded quotients (half to even)."""
     flat, pad = _pad_to_block(x.float())
     blocks = flat.reshape(-1, BLOCK)
-    scale = blocks.abs().amax(dim=1) / 127.0
+    # a device tensor as divisor: the card divides a tensor by a host scalar
+    # as a product with its reciprocal, one ulp off the CPU's quotient
+    scale = blocks.abs().amax(dim=1) / torch.tensor(127.0, device=blocks.device)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     codes = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127).to(torch.int8)
     return codes, scale, pad
@@ -129,3 +131,21 @@ class ErrorFeedbackState:
             grads = {k: g + self.residual[k].to(g.dtype) for k, g in grads.items()}
         out, self.residual = _roundtrip_leaves(grads)
         return out
+
+
+def compressed_psum_pod(x: torch.Tensor, comm, axis_name: str = "pod") -> torch.Tensor:
+    """``x`` summed over the devices of ``axis_name`` through int8 codes:
+    each device quantizes its ``x``, the scales' maximum is taken over the
+    axis, each device requantizes its codes against it, the codes are summed
+    in f32 (integer values, so the sum is exact in any order) and
+    dequantized with the common scale.  ``comm``: the backend whose
+    ``all_reduce`` takes ``op="max"``.  The bytes on the data-centre network
+    are a code a value and a scale a block, against 4 a value in f32."""
+    codes, scale, pad = quantize(x)
+    gscale = comm.all_reduce(scale, (axis_name,), op="max")
+    rescaled = torch.round(codes.float() * (scale / gscale)[:, None])
+    summed = comm.all_reduce(rescaled, (axis_name,))
+    flat = (summed * gscale[:, None]).reshape(-1)
+    if pad:
+        flat = flat[:-pad]
+    return flat.reshape(x.shape).to(x.dtype)

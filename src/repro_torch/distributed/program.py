@@ -40,23 +40,29 @@ functions at the points where the layouts meet:
   ``hints.moe_buffer_pspec`` names (else over the tokens' own axes);
 * :func:`data_parallel_grads`: each gradient all-reduced over the batch
   axes on which its parameter is replicated;
+* :func:`batch_sum` / :func:`norm_parts`: the loss's target count and
+  reported terms summed over the batch axes, and each gradient's sum of
+  squares over the devices that hold distinct slices of its parameter
+  (the global mean and the global norm the reference takes);
 * :func:`constrain` (through ``hints.constrain``): the residual stream laid
   out by an installed spec.
 
 With no program installed every function returns its input itself, so the
 model's code runs as before, bit for bit.
 
-A :class:`Program` is the dry-run's plan of one device's step: shapes,
-not values.  Its exchanges are :class:`CountingComm`'s, which return
-tensors of the result's shape (on meta) and tell a counter the bytes
-(``kernels/work.py::collective``).  Every body computes as device 0 would:
-a slice is taken from offset 0 (a weight's gradient, the experts and the
-capacity of the MoE buffer, a prompt's or a cache's positions, the
-embedding's rows), and the flash-decoding combine only counts its
-all-reduce of the softmax state.  Running the plan on cards needs
-rank-aware bodies: each slice at the device's own offset, and the decode
-kernel returning its softmax state for the combine.  They come with a
-backend over ``torch.distributed`` (ROADMAP Queue A, item 8h).
+A :class:`Program` runs on one of two backends.  :class:`CountingComm` is
+the dry-run's plan of device 0's step, on meta: its exchanges return
+tensors of the result's shape and tell a counter the bytes
+(``kernels/work.py::collective``), and every device's coordinates are 0.
+``distributed/comm.py::DistComm`` is a real run, a process a device: its
+exchanges are ``torch.distributed`` collectives, counted alike.  Every body
+takes its slices at the device's own offset along the axes it cuts
+(``comm.coords``), with the same operations at every offset, so that every
+device counts what device 0's plan counts.  :meth:`Program.localize` with
+``source`` cuts a whole model's weights to the device's stored slices.  The
+flash-decoding combine (:func:`decode_combine`) only counts its all-reduce
+of the softmax state; a real backend refuses it until the decode kernel
+returns that state (ROADMAP Queue A, 8h-2).
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import hints
+from repro_torch.distributed.comm import shard_index
 from repro_torch.distributed.sharding import (
     ShardingPolicy,
     Spec,
@@ -108,10 +115,11 @@ def current() -> Program | None:
 class CountingComm:
     """The dry-run's exchanges: each returns a tensor of its result's shape
     (its values undefined; the dry-run runs on meta) and tells the counters
-    its kind and result bytes."""
+    its kind and result bytes.  It plans device 0: every coordinate is 0."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        self.coords = {a: 0 for a in mesh.axis_names}
 
     def size(self, axes: tuple[str, ...]) -> int:
         return math.prod(self.mesh.shape[a] for a in axes)
@@ -131,7 +139,7 @@ class CountingComm:
         shape[dim] //= self.size(axes)
         return self._out("reduce-scatter", x, shape)
 
-    def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...], op: str = "sum") -> torch.Tensor:
         return self._out("all-reduce", x, x.shape)
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
@@ -142,9 +150,13 @@ class CountingComm:
         shape[concat_dim] *= n
         return self._out("all-to-all", x, shape)
 
-    def gather_to(self, x: torch.Tensor, shape) -> torch.Tensor:
-        """``x`` gathered to ``shape``, over whichever axes split it more."""
+    def gather_to(self, x: torch.Tensor, shape, axes=None) -> torch.Tensor:
+        """``x`` gathered to ``shape`` (over ``axes``, ``{dim: axes}``)."""
         return self._out("all-gather", x, shape)
+
+    def reduce_scalars(self, values, axes: tuple[str, ...]) -> list[torch.Tensor]:
+        """The plan has no exchange of a few scalars: ``values`` as they are."""
+        return list(values)
 
 
 class _Exchange(torch.autograd.Function):
@@ -220,9 +232,11 @@ class Program:
     and its specs."""
 
     def __init__(self, mesh: Mesh, policy: ShardingPolicy, cfg: ModelConfig, params: nn.Module, *,
-                 batch_axes: tuple[str, ...], seq_len: int):
+                 batch_axes: tuple[str, ...], seq_len: int, comm=None):
         self.mesh, self.policy, self.cfg = mesh, policy, cfg
-        self.comm = CountingComm(mesh)
+        self.comm = CountingComm(mesh) if comm is None else comm
+        if self.comm.mesh != mesh:
+            raise ValueError(f"the backend's mesh {self.comm.mesh} is not the program's {mesh}")
         self.batch_axes = tuple(a for a in batch_axes if mesh.shape[a] > 1)
         self.specs: dict[str, Spec] = make_param_shardings(mesh, cfg, params, policy)
         tp = tuple(a for a in policy.tp_axes if a in mesh.axis_names and mesh.shape[a] > 1)
@@ -252,6 +266,27 @@ class Program:
     def live(self, axes) -> tuple[str, ...]:
         """The axes of more than one device."""
         return tuple(a for a in axes if self.mesh.shape[a] > 1)
+
+    def index(self, axes) -> int:
+        """This device's chunk of a dimension split over ``axes`` (in their
+        order: the first varies slowest)."""
+        return shard_index(self.mesh, axes, self.comm.coords)
+
+    def _own(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """This device's chunk of ``x``'s ``dim`` split over ``axes`` (a view)."""
+        n = x.shape[dim] // self.size(axes)
+        return x.narrow(dim, self.index(axes) * n, n)
+
+    def _placed(self, g: torch.Tensor, dim: int, axes, total: int) -> torch.Tensor:
+        """``g`` (this device's chunk of ``dim`` split over ``axes``) in a
+        tensor of ``total`` along ``dim``, zero elsewhere: the zeros before
+        and after it, either empty, so every offset runs the same ops."""
+        before = self.index(axes) * g.shape[dim]
+        shape = list(g.shape)
+        shape[dim] = before
+        head = torch.zeros(shape, dtype=g.dtype, device=g.device)
+        shape[dim] = total - before - g.shape[dim]
+        return torch.cat([head, g, g.new_zeros(shape)], dim=dim)
 
     # -- planning ------------------------------------------------------------------
     def _spec(self, module_name: str, leaf: str) -> Spec:
@@ -397,18 +432,31 @@ class Program:
         return dataclasses.replace(cfg, num_heads=self.attention.heads, num_kv_heads=self.attention.kv_heads,
                                    head_dim=cfg.resolved_head_dim)
 
-    def localize(self, params: nn.Module) -> nn.Module:
-        """Replace every parameter of ``params`` (built on meta at global
-        shapes) by its stored slice, on meta; keys the weight plans by the
-        new parameters."""
+    def localize(self, params: nn.Module, source: nn.Module | Mapping[str, torch.Tensor] | None = None) -> nn.Module:
+        """Replace every parameter of ``params`` (built at global shapes) by
+        its stored slice, and key the weight plans by the new parameters.
+        Without ``source`` the slices are empty, on meta (the dry-run); with
+        it (a model or ``{name: tensor}`` at global shapes, ``params`` itself
+        allowed) each is a copy of the device's own slice of the source's
+        tensor, on its device: a sharded run starts from the same weights as
+        a whole one."""
         from repro_torch.distributed.sharding import local_shape
 
+        whole = None if source is None else (dict(source.named_parameters()) if isinstance(source, nn.Module)
+                                             else dict(source))
         by_name = {}
         for pname, p in list(params.named_parameters()):
             mod_name, leaf = pname.rsplit(".", 1) if "." in pname else ("", pname)
             mod = params.get_submodule(mod_name)
-            new = nn.Parameter(torch.empty(local_shape(tuple(p.shape), self.specs[pname], self.mesh),
-                                           dtype=p.dtype, device="meta"), requires_grad=p.requires_grad)
+            spec = self.specs[pname]
+            if whole is None:
+                data = torch.empty(local_shape(tuple(p.shape), spec, self.mesh), dtype=p.dtype, device="meta")
+            else:
+                data = whole[pname].detach()
+                for dim, entry in enumerate(spec):
+                    data = self._own(data, dim, axes_of(entry))
+                data = data.clone()
+            new = nn.Parameter(data, requires_grad=p.requires_grad)
             setattr(mod, leaf, new)
             by_name[pname] = new
         self.weights = {id(by_name[k]): v for k, v in self.weights.items()}
@@ -438,10 +486,12 @@ class Program:
             for dim, axes in reversed(plan.gathers):
                 red = tuple(a for a in axes if a in plan.reduce_axes)
                 rest = tuple(a for a in axes if a not in plan.reduce_axes)
+                if red and rest and axes != red + rest:
+                    raise ValueError(f"the gradient of a dimension gathered over {axes} reduces {red} after {rest}")
                 if red:
                     g = comm.reduce_scatter(g, dim, red)
                 if rest:
-                    g = g.narrow(dim, 0, g.shape[dim] // self.size(rest))
+                    g = self._own(g, dim, rest)
             return g
 
         return _exchange(w, fwd, bwd)
@@ -455,13 +505,17 @@ class Program:
 
     def enter(self, x: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
         comm, sp = self.comm, self.sp_axes
+        if (plan.moe_mode and plan.kind == "tp" and torch.is_grad_enabled()
+                and not isinstance(comm, CountingComm)):
+            raise NotImplementedError("training a MoE layer split over devices: the plan's backward sums every "
+                                      "device's copy of the router's gradient over the expert axes (ROADMAP "
+                                      "Queue C)")
         if plan.moe_mode == "experts" and sp:  # each device routes its own tokens
             return x
         if self._seq_sharded(x):
             if plan.kind == "tp":
                 return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: comm.reduce_scatter(g, 1, sp))
-            n = self.size(sp)
-            return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: g.narrow(1, 0, g.shape[1] // n))
+            return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: self._own(g, 1, sp))
         if plan.kind == "tp":
             return _exchange(x, _identity, lambda g: comm.all_reduce(g, plan.axes))
         return x
@@ -473,8 +527,7 @@ class Program:
         if self._seq_whole(y):
             if plan.kind == "tp":
                 return _exchange(y, lambda t: comm.reduce_scatter(t, 1, sp), lambda g: comm.all_gather(g, 1, sp))
-            n = self.size(sp)
-            return _exchange(y, lambda t: t.narrow(1, 0, t.shape[1] // n), lambda g: comm.all_gather(g, 1, sp))
+            return _exchange(y, lambda t: self._own(t, 1, sp), lambda g: comm.all_gather(g, 1, sp))
         if plan.kind == "tp":
             return _exchange(y, lambda t: comm.all_reduce(t, plan.axes), _identity)
         return y
@@ -494,7 +547,9 @@ class Program:
         read = max(1, heads // group)
         if read == k.shape[1]:
             return k, v
-        return k.narrow(1, 0, read).contiguous(), v.narrow(1, 0, read).contiguous()
+        plan = self.attention
+        first = self.index(plan.axes) * heads // group if plan.kind == "tp" else 0  # the first query head's group
+        return k.narrow(1, first, read).contiguous(), v.narrow(1, first, read).contiguous()
 
     def cache_seq_axes(self, cache: torch.Tensor) -> tuple[str, ...]:
         """The axes splitting the sequence of a layer's KV cache ``[B, Hkv,
@@ -518,6 +573,9 @@ class Program:
         the sequence's axes; then each device's own query heads."""
         if not seq_axes:
             return o
+        if not isinstance(self.comm, CountingComm):
+            raise NotImplementedError("the flash-decoding combine needs the decode kernel's softmax state "
+                                      "(ROADMAP Queue A, 8h-2)")
         B, H, D = o.shape
         self.comm.all_reduce(o.new_empty(B, H, D + 2, dtype=torch.float32), seq_axes)
         if self._head_seq_axes(seq_axes):
@@ -533,17 +591,17 @@ class Program:
 
     def cache_store(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         if src.shape != dst.shape:
+            dims = self.cache_axes.get(dst.untyped_storage()._cdata, {})
             for d, (a, b) in enumerate(zip(src.shape, dst.shape)):
-                if a != b:
-                    src = src.narrow(d, 0, b)
+                if a != b:  # a layer's [B, Hkv, S, D] of the leaf [L, B, Hkv, S, D]
+                    src = self._own(src, d, dims.get(d + 1, ()))
         dst.copy_(src)
 
     def prompt_slice(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         seq = self.cache_axes.get(dst.untyped_storage()._cdata, {}).get(3, ())
         if not seq:
             return src
-        n = self.size(seq)
-        return src.narrow(2, 0, src.shape[2] // n) if src.shape[2] % n == 0 else src
+        return self._own(src, 2, seq) if src.shape[2] % self.size(seq) == 0 else src
 
     def lookup(self, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         w = self.weight(tok)
@@ -551,9 +609,11 @@ class Program:
         if not axes:
             return w[tokens]
         rows = w.shape[0]
-        local = tokens.long()  # less this device's first row, rank * rows (0 here)
-        inside = (local >= 0) & (local < rows)
-        x = torch.where(inside[..., None], w[torch.clamp(local, 0, rows - 1)], 0.0).to(w.dtype)
+        first = self.index(axes) * rows  # this device's first row
+        local = tokens.long()
+        inside = (local >= first) & (local < first + rows)
+        # a token inside is ``first`` plus its row; outside, masked
+        x = torch.where(inside[..., None], w[torch.remainder(local, rows)], 0.0).to(w.dtype)
         plan = ModulePlan("tp", axes)
         return self.exit(x, plan)
 
@@ -562,7 +622,7 @@ class Program:
         if not axes:
             return torch.logsumexp(pred, dim=-1)
         comm = self.comm
-        m = comm.all_reduce(pred.detach().amax(dim=-1), axes)
+        m = comm.all_reduce(pred.detach().amax(dim=-1), axes, op="max")
         s = torch.exp(pred - m[..., None]).sum(dim=-1)
         s = _exchange(s, lambda t: comm.all_reduce(t, axes), _identity)
         return m + torch.log(s)
@@ -572,8 +632,9 @@ class Program:
         if not axes:
             return pred.gather(-1, targets[..., None])[..., 0]
         cols = pred.shape[-1]
-        inside = (targets >= 0) & (targets < cols)
-        got = pred.gather(-1, torch.clamp(targets, 0, cols - 1)[..., None])[..., 0]
+        first = self.index(axes) * cols  # this device's first column
+        inside = (targets >= first) & (targets < first + cols)
+        got = pred.gather(-1, torch.remainder(targets, cols)[..., None])[..., 0]
         got = torch.where(inside, got, 0.0)
         comm = self.comm
         return _exchange(got, lambda t: comm.all_reduce(t, axes), _identity)
@@ -598,20 +659,19 @@ class Program:
         take_e, swap, gather_c, take_c = self._buffer_steps(plan)
         comm = self.comm
         if take_e:
-            E, e = buf.shape[0], buf.shape[0] // self.size(take_e)
-            buf = _exchange(buf, lambda t: t.narrow(0, 0, e).contiguous(),
-                            lambda g: torch.cat([g, g.new_zeros((E - e, *g.shape[1:]))]))
+            E = buf.shape[0]
+            buf = _exchange(buf, lambda t: self._own(t, 0, take_e).contiguous(),
+                            lambda g: self._placed(g, 0, take_e, E))
         if swap:
             buf = _exchange(buf, lambda t: comm.all_to_all(t, 0, 1, swap), lambda g: comm.all_to_all(g, 1, 0, swap))
         if gather_c:
-            n = self.size(gather_c)
-            buf = _exchange(buf, lambda t: comm.all_gather(t, 1, gather_c), lambda g: g.narrow(1, 0, g.shape[1] // n))
+            buf = _exchange(buf, lambda t: comm.all_gather(t, 1, gather_c), lambda g: self._own(g, 1, gather_c))
         if take_c:
             C, n = buf.shape[1], self.size(take_c)
             if C % n:
                 raise ValueError(f"the MoE buffer's capacity {C} does not split over {take_c}")
-            buf = _exchange(buf, lambda t: t.narrow(1, 0, C // n).contiguous(),
-                            lambda g: torch.cat([g, g.new_zeros((g.shape[0], C - C // n, g.shape[2]))], dim=1))
+            buf = _exchange(buf, lambda t: self._own(t, 1, take_c).contiguous(),
+                            lambda g: self._placed(g, 1, take_c, C))
         return buf
 
     def moe_return(self, out: torch.Tensor, plan: ModulePlan, experts: int) -> torch.Tensor:
@@ -626,28 +686,31 @@ class Program:
             experts //= self.size(plan.axes)
         out = out.reshape(experts, -1, d)
         if take_c:
-            n = self.size(take_c)
-            out = _exchange(out, lambda t: comm.all_gather(t, 1, take_c), lambda g: g.narrow(1, 0, g.shape[1] // n))
+            out = _exchange(out, lambda t: comm.all_gather(t, 1, take_c), lambda g: self._own(g, 1, take_c))
         if gather_c:
-            n = self.size(gather_c)
-            out = _exchange(out, lambda t: t.narrow(1, 0, t.shape[1] // n), lambda g: comm.all_gather(g, 1, gather_c))
+            out = _exchange(out, lambda t: self._own(t, 1, gather_c), lambda g: comm.all_gather(g, 1, gather_c))
         if swap:
             out = _exchange(out, lambda t: comm.all_to_all(t, 1, 0, swap), lambda g: comm.all_to_all(g, 0, 1, swap))
         if take_e:
-            e = out.shape[0]
-            out = _exchange(out, lambda t: comm.all_gather(t, 0, take_e), lambda g: g.narrow(0, 0, e))
+            out = _exchange(out, lambda t: comm.all_gather(t, 0, take_e), lambda g: self._own(g, 0, take_e))
         return out.reshape(-1, d)
 
-    def to_layout(self, t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-        """``t`` (a device's share of an output) as the share of ``shape``
-        its spec asks for: gathered where the spec splits a dimension less,
-        cut where it splits it more."""
+    def to_layout(self, t: torch.Tensor, shape: tuple[int, ...], spec: Spec) -> torch.Tensor:
+        """``t`` (a device's logits ``[B, V]``: the batch split over the
+        batch axes, the vocabulary over the vocabulary's) as the share of
+        ``shape`` that ``spec`` asks for: gathered over the axes that split a
+        dimension of ``t`` and not the spec's, cut at this device's offset
+        over the spec's axes that do not split ``t``."""
         if tuple(t.shape) == tuple(shape):
             return t
+        held = (self.batch_axes, self.vocab_axes)
+        want = [self.live(axes_of(e)) for e in spec]
         if all(a <= b for a, b in zip(t.shape, shape)):
-            return self.comm.gather_to(t, shape)
+            return self.comm.gather_to(t, shape, {d: tuple(a for a in held[d] if a not in want[d])
+                                                  for d in range(t.dim())})
         for d, (a, b) in enumerate(zip(t.shape, shape)):
-            t = t.narrow(d, 0, min(a, b))
+            extra = tuple(x for x in want[d] if x not in held[d])
+            t = t.narrow(d, self.index(extra) * min(a, b), min(a, b))
         return t
 
     def data_parallel_grads(self, grads: Mapping[str, torch.Tensor], params: nn.Module) -> dict:
@@ -661,6 +724,32 @@ class Program:
                          if a not in stored and a not in reduced)
             out[k] = self.comm.all_reduce(g, axes) if axes else g
         return out
+
+    def batch_sum(self, values: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each scalar of ``values`` summed over the batch axes (uncounted:
+        ``comm.reduce_scalars``)."""
+        return self.comm.reduce_scalars(values, self.batch_axes) if self.batch_axes else list(values)
+
+    def norm_parts(self, parts: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Each parameter's gradient sum of squares over the devices that
+        hold distinct slices of it (the live axes of its stored spec; a
+        replicated parameter's is its own), an exchange a set of axes."""
+        groups: dict[tuple[str, ...], list[str]] = {}
+        for k in parts:
+            axes = tuple(a for e in self.specs[k] for a in self.live(axes_of(e)))
+            groups.setdefault(tuple(a for a in self.mesh.axis_names if a in axes), []).append(k)
+        out = dict(parts)
+        for axes, names in groups.items():
+            if axes:
+                out.update(zip(names, self.comm.reduce_scalars([parts[k] for k in names], axes)))
+        return out
+
+    def whole(self, params: nn.Module, dst: int | None = None) -> dict[str, torch.Tensor] | None:
+        """``{name: the whole parameter}`` of a localized model, gathered
+        from every device's slice: on every device, or with ``dst`` on that
+        device alone (None elsewhere)."""
+        out = {k: self.comm.gather_whole(p.detach(), self.specs[k], dst=dst) for k, p in params.named_parameters()}
+        return None if dst is not None and self.comm.rank != dst else out
 
 
 # -----------------------------------------------------------------------------
@@ -767,6 +856,22 @@ def data_parallel_grads(grads: dict, params: nn.Module) -> dict:
     return grads if prog is None else prog.data_parallel_grads(grads, params)
 
 
+def batch_sum(*values: torch.Tensor) -> list[torch.Tensor]:
+    """Scalars summed over the devices that split the batch (the loss's
+    target count and reported terms): the values themselves when no program
+    is installed."""
+    prog = _PROGRAM
+    return list(values) if prog is None else prog.batch_sum(list(values))
+
+
+def norm_parts(parts: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``{name: a gradient's sum of squares}`` over every device that holds
+    a distinct slice of the parameter: ``parts`` itself when no program is
+    installed."""
+    prog = _PROGRAM
+    return parts if prog is None else prog.norm_parts(parts)
+
+
 def constrain(x: torch.Tensor, spec) -> torch.Tensor:
     """The residual stream laid out by ``spec``: under sequence parallelism
     a device keeps its share of the sequence (a slice of the stream that
@@ -774,7 +879,6 @@ def constrain(x: torch.Tensor, spec) -> torch.Tensor:
     prog = _PROGRAM
     if prog is None or not prog.sp_axes or x.dim() != 3 or x.shape[1] != prog.seq_len:
         return x
-    n = prog.size(prog.sp_axes)
-    return _exchange(x, lambda t: t.narrow(1, 0, t.shape[1] // n),
+    return _exchange(x, lambda t: prog._own(t, 1, prog.sp_axes),
                      lambda g: prog.comm.all_gather(g, 1, prog.sp_axes))
 

@@ -133,23 +133,40 @@ def activation_spec(mesh: Mesh, policy: ShardingPolicy) -> tuple | None:
 
 
 def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingPolicy, *,
-               microbatches: int = 1, cfg=None) -> Cell:
+               microbatches: int = 1, cfg=None, comm=None, source: torch.nn.Module | None = None,
+               batch: Mapping[str, torch.Tensor] | None = None, opt_cfg: adamw.AdamWConfig | None = None,
+               remat: bool = True) -> Cell:
     """One device's step of ``arch`` at ``shape`` (a suite's name, or a
     suite of its own) on ``mesh`` under ``policy``, at the local shapes, on
     meta (``cfg``: another config of the architecture, e.g. one cut in
-    depth)."""
+    depth).
+
+    With ``comm`` (``distributed/comm.py::DistComm``) the same cell is
+    device ``comm.rank``'s share of a real training step: ``source``, a
+    whole model of ``cfg``, is cut in place to the device's stored slices,
+    ``batch`` (whole) to its rows, and AdamW's state (``opt_cfg``) is made
+    at the local shapes on the model's device."""
     api = get_model(arch)
     cfg = cfg or api.config
     suite = SHAPES[shape] if isinstance(shape, str) else shape
-    params = api.param_specs(cfg)
-    batch = api.batch_specs(cfg, suite)
+    real = comm is not None
+    if real and (suite.kind != "train" or source is None or batch is None):
+        raise ValueError("a real backend runs a training step: give the whole model and batch")
+    params = source if real else api.param_specs(cfg)
+    if not real:
+        batch = api.batch_specs(cfg, suite)
     bspecs = batch_shardings(mesh, cfg, batch, policy)
-    local_batch = {k: _meta(local_shape(tuple(x.shape), bspecs[k], mesh), x.dtype) for k, x in batch.items()}
+    if real:
+        from repro_torch.distributed.comm import take_local
+
+        local_batch = {k: take_local(x, bspecs[k], mesh, comm.rank) for k, x in batch.items()}
+    else:
+        local_batch = {k: _meta(local_shape(tuple(x.shape), bspecs[k], mesh), x.dtype) for k, x in batch.items()}
     first = "token" if suite.kind == "decode" else "tokens"
     batch_axes = axes_of(bspecs[first][0])
     seq = 1 if suite.kind == "decode" else suite.seq_len + (cfg.num_patches if cfg.family == "vlm" else 0)
-    program = D.Program(mesh, policy, cfg, params, batch_axes=batch_axes, seq_len=seq)
-    program.localize(params)
+    program = D.Program(mesh, policy, cfg, params, batch_axes=batch_axes, seq_len=seq, comm=comm)
+    program.localize(params, source=params if real else None)
     lcfg = program.local_config()
 
     def installed():
@@ -159,13 +176,17 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
         return stack
 
     if suite.kind == "train":
-        opt_cfg = adamw.AdamWConfig()
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
         opt_state = adamw.init(opt_cfg, params)
-        step = make_train_step(api, lcfg, opt_cfg, remat=True, microbatches=microbatches)
+        step = make_train_step(api, lcfg, opt_cfg, remat=remat, microbatches=microbatches)
+
+        carried = [opt_state]  # each run steps on from the last one's state
 
         def run():
             with installed():
-                return step(params, opt_state, local_batch)
+                out = step(params, carried[0], local_batch)
+            carried[0] = out[1]
+            return out
 
         return Cell(run, (params, opt_state, local_batch), params, program, "train")
 
@@ -174,7 +195,8 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
     local_cache = _local_tree(cache, cspecs, mesh)
     program.add_cache(local_cache, cspecs)
     B = suite.global_batch
-    logits_shape = local_shape((B, cfg.vocab), logits_sharding(mesh, cfg, B, policy), mesh)
+    logits_spec = logits_sharding(mesh, cfg, B, policy)
+    logits_shape = local_shape((B, cfg.vocab), logits_spec, mesh)
 
     if suite.kind == "prefill":
         extras = {k: v for k, v in local_batch.items() if k != "tokens"}
@@ -182,7 +204,7 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
         def run():
             with installed(), torch.no_grad():
                 logits, out = api.prefill(params, local_batch["tokens"], local_cache, lcfg, **extras)
-                return program.to_layout(logits, logits_shape), out
+                return program.to_layout(logits, logits_shape, logits_spec), out
 
         return Cell(run, (params, local_batch, local_cache), params, program, "prefill")
 
@@ -191,7 +213,7 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
     def run():
         with installed(), torch.no_grad():
             logits, out = api.decode_step(params, local_batch["token"], local_cache, lcfg)
-            return program.to_layout(logits, logits_shape), out
+            return program.to_layout(logits, logits_shape, logits_spec), out
 
     return Cell(run, (params, local_batch["token"], local_cache), params, program, "decode")
 

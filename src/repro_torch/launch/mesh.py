@@ -4,8 +4,11 @@ The reference builds ``jax.sharding.Mesh`` objects over real (or forced
 host) devices.  The port's :class:`Mesh` is a plain value, axis names and
 sizes, and touches no device and creates no process group: the dry-run
 plans one device's share of a step for 256 or 512 devices in one process.
-Binding a mesh to cards (``torch.distributed.DeviceMesh``) is the sharded
-step's business.
+A process of a sharded run is one device of the mesh: :func:`coords` gives
+its coordinates from its rank (row-major, as ``jax.make_mesh`` lays out its
+devices) and :func:`rank_of` the rank at given coordinates;
+``distributed/comm.py::DistComm`` builds the process groups of the mesh's
+axes over ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
     """Any mesh, for tests and for a few cards."""
     return Mesh(tuple(shape), tuple(axes))
+
+
+def coords(mesh: Mesh, rank: int) -> tuple[int, ...]:
+    """The coordinates of device ``rank``, one an axis: row-major over
+    ``mesh.sizes`` (the last axis varies fastest)."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} is not a device of a mesh of {mesh.size}")
+    out = []
+    for n in reversed(mesh.sizes):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def rank_of(mesh: Mesh, at) -> int:
+    """The rank of the device at coordinates ``at`` (the inverse of
+    :func:`coords`)."""
+    if len(at) != len(mesh.sizes) or any(not 0 <= c < n for c, n in zip(at, mesh.sizes)):
+        raise ValueError(f"coordinates {tuple(at)} are not on a mesh of {mesh.sizes}")
+    rank = 0
+    for c, n in zip(at, mesh.sizes):
+        rank = rank * n + c
+    return rank
 
 
 def required_devices(multi_pod: bool) -> int:

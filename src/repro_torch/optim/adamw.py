@@ -26,6 +26,8 @@ from collections.abc import Iterable, Mapping
 import torch
 from torch import nn
 
+from repro_torch.distributed import program as D
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -102,8 +104,13 @@ def init(cfg: AdamWConfig, params: nn.Module | Mapping[str, torch.Tensor]) -> di
 
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, the leaves in
-    the reference's order (:func:`leaf_order`)."""
-    return torch.sqrt(sum(torch.sum(torch.square(grads[k].float())) for k in leaf_order(grads)))
+    the reference's order (:func:`leaf_order`).  Under a sharded program a
+    leaf's sum is taken over the devices that hold distinct slices of it
+    (``distributed/program.py::norm_parts``), so every device clips by the
+    whole model's norm."""
+    order = leaf_order(grads)
+    parts = D.norm_parts({k: torch.sum(torch.square(grads[k].float())) for k in order})
+    return torch.sqrt(sum(parts[k] for k in order))
 
 
 @torch.no_grad()

@@ -3,7 +3,9 @@ the vlm's prefix and the MoE load-balance term.
 
 Ported from the reference's ``repro/train/losses.py``.  The logsumexp and
 the target logit go through ``distributed/program.py``, for logits whose
-vocabulary a sharded program splits over devices.
+vocabulary a sharded program splits over devices; under a batch split the
+mean is over every device's targets (``program.batch_sum``), so the
+gradients that the step sums over the batch axes are the global mean's.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ def next_token_loss(
     logz = D.logsumexp(pred)  # over the vocabulary, split or not
     tgt_logit = D.pick(pred, targets)
     nll = (logz - tgt_logit) * m
-    denom = torch.clamp(m.sum(), min=1.0)
+    (count,) = D.batch_sum(m.sum())  # every device's targets, under a batch split
+    denom = torch.clamp(count, min=1.0)
     loss = nll.sum() / denom
     metrics = {"nll": loss, "tokens": denom}
     if cfg.z_loss:
@@ -47,4 +50,9 @@ def next_token_loss(
         loss = loss + aux_loss
         metrics["moe_aux"] = aux_loss
     metrics["loss"] = loss
+    # ``loss`` is this device's share of the objective; the reported terms
+    # are the sums of every device's shares (the MoE aux term is each
+    # device's own: ROADMAP Queue C)
+    summed = [k for k in ("nll", "z_loss", "loss") if k in metrics]
+    metrics.update(zip(summed, D.batch_sum(*(metrics[k] for k in summed))))
     return loss, metrics

@@ -56,7 +56,7 @@ def make_grad_fn(api: ModelApi, cfg: ModelConfig, *, remat: bool = True,
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(named.items(), grads)}
-        return grads, loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return grads, metrics["loss"].detach(), {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(params, batch):
         if microbatches == 1:

@@ -1,0 +1,380 @@
+"""The sharded step on real exchanges (``distributed/comm.py::DistComm``
+over gloo process groups on the CPU), against the single-device step and
+the reference's ``tests/test_distributed.py``.
+
+Two groups run once for the module (``tests/torch_dist_common.py``), and
+each test reads its part:
+
+* eight ranks: the reduced qwen2.5-3b train step in f32 on (2, 4) under
+  ``baseline`` (whole query heads a device, kv heads gathered, the
+  vocabulary split), on (4, 2) and on (2, 4) under ``seqpar`` with the
+  activation hint; each rank-aware body alone; every slice gathered whole;
+  ``compressed_psum_pod`` on (pod 4, x 2); a save under (2, 4) restored
+  under (4, 2);
+* four ranks: the step on (1, 4), the batch not split, and the pipeline
+  on four stages.
+
+The reference's side (``devices_indices_map``, ``compressed_psum_pod`` and
+``pipeline_forward`` on 8 forced devices; and its sharded train step,
+``tests/test_distributed.py:142``, on the port's weights and tokens for
+each case, beside the groups) runs in children of
+``tests/torch_reference.py``.  The dry-run's pinned cells, counted before
+the sharded step came, must not move; and a step with no program gives the
+bits it gave then.
+"""
+
+import concurrent.futures
+import dataclasses
+import hashlib
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_common as G
+import torch_reference as R
+from repro_torch.configs.shapes import ShapeSuite
+from repro_torch.distributed import hints
+from repro_torch.distributed import program as D
+from repro_torch.distributed.comm import local_slices
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import coords, make_mesh, rank_of
+
+SLICE_CASES = [
+    {"mesh": [2, 4], "axes": ["data", "model"], "shape": [8, 16, 4], "spec": ["data", None, "model"]},
+    {"mesh": [2, 4], "axes": ["data", "model"], "shape": [16, 4], "spec": [["data", "model"], None]},
+    {"mesh": [2, 4], "axes": ["data", "model"], "shape": [16, 4], "spec": [["model", "data"], None]},
+    {"mesh": [2, 4], "axes": ["data", "model"], "shape": [4, 8, 6], "spec": [None, "model", "data"]},
+    {"mesh": [4, 2], "axes": ["data", "model"], "shape": [8, 8], "spec": ["model", "data"]},
+    {"mesh": [4, 2], "axes": ["pod", "x"], "shape": [4, 256], "spec": ["pod", None]},
+]
+EIGHT = [("2x4", (2, 4), "baseline", False), ("4x2", (4, 2), "baseline", True),
+         ("2x4-seqpar", (2, 4), "seqpar", True)]
+FOUR = [("1x4", (1, 4), "baseline", True)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return R.run("distributed", {"slice_cases": SLICE_CASES}, devices=8, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def groups(reference, tmp_path_factory):
+    """Each rank's outputs of the eight- and the four-rank group, and
+    (``steps``) the reference's sharded steps of the same cases on the same
+    weights and tokens, run beside them."""
+    inputs = {"slice_cases": np.array(json.dumps(SLICE_CASES)), **{k: reference[k] for k in
+              ("psum_x", "pipe_w", "pipe_x")}}
+    _, _, params, tokens = G.reduced_qwen()
+    weights = {f"qwen/{k}": p.detach().numpy() for k, p in params.named_parameters()}
+    out = {}
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        steps = ex.submit(R.run, "sharded_steps", {"train_cases": EIGHT + FOUR},
+                          {**weights, "qwen_tokens": tokens.numpy()}, timeout=300, devices=8)
+        for name, world, cases in (("eight", 8, EIGHT), ("four", 4, FOUR)):
+            tmp = tmp_path_factory.mktemp(name)
+            np.savez(tmp / "inputs.npz", **inputs)
+            out[name] = G.run_group(name, world, {"cases": cases}, tmp)
+        out["steps"] = steps.result()
+    return out
+
+
+# -----------------------------------------------------------------------------
+# layouts
+# -----------------------------------------------------------------------------
+
+
+def test_coords_are_row_major_and_rank_of_inverts_them():
+    mesh = make_mesh((2, 3, 4), ("pod", "data", "model"))
+    assert [coords(mesh, r) for r in range(3)] == [(0, 0, 0), (0, 0, 1), (0, 0, 2)]
+    assert coords(mesh, 4) == (0, 1, 0) and coords(mesh, 12) == (1, 0, 0)
+    assert all(rank_of(mesh, coords(mesh, r)) == r for r in range(mesh.size))
+    with pytest.raises(ValueError):
+        coords(mesh, 24)
+
+
+@pytest.mark.parametrize("case", range(len(SLICE_CASES)))
+def test_every_slice_is_the_references(case, reference, groups):
+    """Each rank's slice equals ``devices_indices_map`` of the device at its
+    coordinates, and the group gathers the slices back to the whole."""
+    c = SLICE_CASES[case]
+    mesh = make_mesh(tuple(c["mesh"]), tuple(c["axes"]))
+    spec = tuple(tuple(e) if isinstance(e, list) else e for e in c["spec"])
+    want = reference[f"slices_{case}"]
+    for rank in range(mesh.size):
+        got = [[s.start, s.stop] for s in local_slices(c["shape"], spec, mesh, rank)]
+        assert got == want[rank].tolist(), (rank, got, want[rank])
+    assert all(r[f"gather_{case}"] for r in groups["eight"])
+
+
+# -----------------------------------------------------------------------------
+# the sharded train step
+# -----------------------------------------------------------------------------
+
+
+def _case(groups, name):
+    group = "four" if name in [c[0] for c in FOUR] else "eight"
+    return [{k.split("/", 1)[1]: v for k, v in r.items() if k.startswith(name + "/")} for r in groups[group]]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in EIGHT + FOUR])
+def test_sharded_train_step_equals_the_single_device_step(name, groups):
+    """Two AdamW steps: every rank's loss within 1e-4 of the single-device
+    step's, and the parameters gathered whole within atol 2e-4, rtol 2e-3
+    (the reference's tolerance); the gradient norm every rank clips by is
+    the whole model's."""
+    for rank, r in enumerate(_case(groups, name)):
+        np.testing.assert_allclose(r["losses"], r["single_losses"], atol=G.TOL["loss"], rtol=0, err_msg=str(rank))
+        np.testing.assert_allclose(r["norms"], r["single_norms"], rtol=1e-4, err_msg=str(rank))
+        assert bool(r["params_close"]), (rank, float(r["param_max_err"]))
+
+
+@pytest.mark.parametrize("name", [c[0] for c in EIGHT + FOUR])
+def test_sharded_train_step_equals_the_references_sharded_step(name, groups):
+    """The same two steps of the reference (``jax.jit(step, in_shardings=
+    ...)`` on the same mesh, policy and hint, from the same weights and
+    tokens): every rank's losses within 1e-4 and its parameters gathered
+    whole within atol 2e-4, rtol 2e-3, the reference's tolerance."""
+    ref = groups["steps"]
+    want = {k.split("/p/", 1)[1]: v for k, v in ref.items() if k.startswith(f"train/{name}/p/")}
+    for rank, r in enumerate(_case(groups, name)):
+        np.testing.assert_allclose(r["losses"], ref[f"train/{name}/losses"], atol=G.TOL["loss"], rtol=0,
+                                   err_msg=str(rank))
+        got = {k.split("/", 1)[1]: v for k, v in r.items() if k.startswith("whole/")}
+        assert sorted(got) == sorted(want), rank
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, atol=G.TOL["atol"], rtol=G.TOL["rtol"], err_msg=f"{rank} {k}")
+
+
+@pytest.mark.parametrize("name", [c[0] for c in EIGHT + FOUR])
+def test_every_rank_counts_the_dry_runs_plan(name, groups):
+    """The first sharded step counted on each rank: its argument bytes,
+    FLOPs, kernel calls and exchanges by kind equal the dry-run's cell of
+    the same config and mesh on meta, exactly."""
+    for rank, r in enumerate(_case(groups, name)):
+        assert json.loads(str(r["counted"])) == json.loads(str(r["plan"])), rank
+
+
+def test_the_layouts_are_the_ones_named():
+    """(2, 4): one query head a device, kv gathered; (4, 2): 2 heads and
+    their kv head split; (1, 4): the batch whole; seqpar: the sequence over
+    model."""
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_model("qwen2.5-3b").reduced, dtype="float32")
+    suite = ShapeSuite("x", "train", 32, 8)
+    want = {(2, 4): ("gather", 1), (4, 2): ("split", 2), (1, 4): ("gather", 1)}
+    for shape, (mode, heads) in want.items():
+        cell = dryrun.build_cell("qwen2.5-3b", suite, make_mesh(shape, ("data", "model")),
+                                 dryrun.POLICIES["baseline"], cfg=cfg)
+        assert (cell.program.attention.kv_mode, cell.program.attention.heads) == (mode, heads)
+        assert cell.program.batch_axes == (() if shape[0] == 1 else ("data",))
+        assert cell.program.vocab_axes == ("model",)
+    cell = dryrun.build_cell("qwen2.5-3b", suite, make_mesh((2, 4), ("data", "model")), dryrun.POLICIES["seqpar"],
+                             cfg=cfg)
+    assert dryrun.layout(cell.program)["sequence_parallel"] == ["model"]
+
+
+# -----------------------------------------------------------------------------
+# each repaired body alone
+# -----------------------------------------------------------------------------
+
+
+def test_kv_select_reads_the_group_of_this_devices_query_heads(groups):
+    """Reduced qwen2.5-3b on (2, 4): one query head a device, a group of 2,
+    so devices 2 and 3 of each model row read kv head 1."""
+    rows = [r for r in groups["eight"]]
+    assert [int(r["bodies/kv_select_group"]) for r in rows] == [0, 0, 1, 1] * 2
+    assert all(bool(r["bodies/kv_select_ok"]) for r in rows)
+
+
+def test_lookup_and_pick_read_this_devices_vocabulary(groups):
+    rows = groups["eight"]
+    assert [int(r["bodies/vocab_first"]) for r in rows] == [0, 64, 128, 192] * 2
+    for r in rows:
+        assert float(r["bodies/lookup_err"]) == 0.0
+        assert float(r["bodies/pick_err"]) == 0.0
+
+
+def test_logsumexp_takes_the_max_over_the_vocabularys_devices(groups):
+    for r in groups["eight"]:
+        assert float(r["bodies/logsumexp_err"]) < 1e-5
+
+
+def test_the_loss_divides_by_every_devices_targets(groups):
+    """A mask that keeps another count of targets in each row: every
+    device's count is the whole batch's, and the loss the reference's mean."""
+    for r in groups["eight"]:
+        assert float(r["bodies/tokens"]) == float(r["bodies/tokens_ref"])
+        assert float(r["bodies/loss_err"]) < 1e-5
+
+
+def test_global_norm_counts_a_replicated_leaf_once(groups):
+    for r in groups["eight"]:
+        assert float(r["bodies/global_norm_err"]) <= 1e-6 * float(r["bodies/global_norm"])
+
+
+def test_training_a_moe_split_over_devices_is_refused(groups):
+    """The plan's backward of a MoE layer split over devices sums every
+    device's copy of the router's gradient (ROADMAP Queue C): a real
+    backend refuses the step rather than train on it."""
+    assert all(bool(r["moe/tp_refused"]) for r in groups["eight"])
+
+
+def test_the_moe_aux_loss_under_a_batch_split_is_each_devices_own(groups):
+    """(8, 1), a row a device: each device's aux loss is the load-balance
+    statistic of its own tokens, not the whole batch's as in the reference
+    (ROADMAP Queue C)."""
+    for r in groups["eight"]:
+        assert abs(float(r["moe/aux"]) - float(r["moe/aux_own_rows"])) <= 1e-6 * abs(float(r["moe/aux_own_rows"]))
+    assert any(abs(float(r["moe/aux"]) - float(r["moe/aux_whole_batch"])) > 1e-4 for r in groups["eight"])
+
+
+# -----------------------------------------------------------------------------
+# compression, the pipeline, the checkpoint
+# -----------------------------------------------------------------------------
+
+
+def test_compressed_psum_pod_equals_the_reference_bit_for_bit(reference, groups):
+    """(pod 4, x 2), the sum over pod: each device's row equals the
+    reference's output bit for bit, and meets the reference's bound
+    (``tests/test_distributed.py:199``)."""
+    x = reference["psum_x"]
+    mesh = make_mesh((4, 2), ("pod", "x"))
+    expect = x.sum(axis=0)
+    scale = np.abs(x).max() / 127
+    for rank, r in enumerate(groups["eight"]):
+        pod = coords(mesh, rank)[0]
+        got = r["psum"][0]
+        assert got.view(np.uint32).tolist() == reference["psum"][pod].view(np.uint32).tolist(), rank
+        assert np.abs(got - expect).max() <= scale * 4 * 1.5 + 1e-6
+
+
+def test_pipeline_equals_the_sequential_blocks_and_the_reference(reference, groups):
+    """GPipe over 4 stages (L 8, d 16, M 4, mb 2, S 8): every stage's
+    output within 1e-5 of the blocks run in sequence and of the
+    reference's pipeline output."""
+    for r in groups["four"]:
+        np.testing.assert_allclose(r["pipe"], r["seq"], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(r["pipe"], reference["pipe_ref"], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(groups["four"][0]["seq"], reference["pipe_seq_ref"], atol=1e-5, rtol=1e-5)
+
+
+def test_pipeline_stages_split_the_stacked_layers():
+    from repro_torch.distributed.pipeline import split_stages
+
+    w = torch.arange(8 * 3).reshape(8, 3)
+    stages = split_stages({"w": w}, 4)
+    assert stages["w"].shape == (4, 2, 3) and torch.equal(stages["w"][1], w[2:4])
+    with pytest.raises(ValueError):
+        split_stages(w, 3)
+
+
+def test_a_save_under_one_mesh_restores_under_another_bit_for_bit(reference, groups):
+    """Saved laid out ('data', 'model') on (2, 4), restored ('model', 'data')
+    on (4, 2): each rank's leaf is its ``devices_indices_map`` slice of the
+    saved tensor, bit for bit, and the slices gather to it; the same through
+    ``CheckpointManager`` with device 0 writing in the background."""
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+    want = reference["slices_4"]
+    for rank, r in enumerate(groups["eight"]):
+        (a, b), (c, d) = want[rank]
+        assert np.array_equal(r["restored"], w[a:b, c:d]), rank
+        assert bool(r["whole_again"])
+        assert int(r["manager_step"]) == 7 and np.array_equal(r["manager_restored"], w[a:b, c:d]), rank
+
+
+# -----------------------------------------------------------------------------
+# what the slice must not move
+# -----------------------------------------------------------------------------
+
+#: the dry-run's counts of these cells, recorded before the sharded step
+#: (argument bytes, FLOPs, bytes, peak and exchanges by kind)
+PINNED = {
+    ("qwen2.5-3b", (2, 2)): {
+        "flops": 24258479774915.0, "bytes": 417313976078.0, "argument_bytes": 8494118916,
+        "peak_bytes": 11317227004,
+        "collective_bytes": {"all-gather": 6171394048.0, "all-reduce": 1527142376.0,
+                             "reduce-scatter": 1698430976.0},
+        "collective_counts": {"all-gather": 506.0, "all-reduce": 366.0, "reduce-scatter": 254.0}},
+    ("qwen2.5-3b", (1, 4)): {
+        "flops": 24267830616729.0, "bytes": 495451098328.0, "argument_bytes": 8493896708,
+        "peak_bytes": 11748497460,
+        "collective_bytes": {"all-reduce": 3053502416.0, "all-gather": 301989888.0, "reduce-scatter": 37748736.0},
+        "collective_counts": {"all-reduce": 185.0, "all-gather": 144.0, "reduce-scatter": 72.0}},
+    ("qwen3-moe-30b-a3b", (2, 2, 4)): {
+        "flops": 68290311.0, "bytes": 28902784.0, "argument_bytes": 204932, "peak_bytes": 652700,
+        "collective_bytes": {"all-gather": 835584.0, "reduce-scatter": 122880.0, "all-to-all": 294912.0,
+                             "all-reduce": 44624.0},
+        "collective_counts": {"all-gather": 56.0, "reduce-scatter": 30.0, "all-to-all": 12.0, "all-reduce": 26.0}},
+}
+
+
+@pytest.mark.parametrize("arch,shape", list(PINNED))
+def test_the_dry_runs_pinned_cells_have_not_moved(arch, shape):
+    """qwen2.5-3b's training step at 4 x 1024 under ``baseline`` on (2, 2)
+    and (1, 4), full width and depth, and the reduced qwen3-moe's under
+    ``seqpar-ep`` on (2, 2, 4) (16 x 64): every count equal, exactly."""
+    from repro_torch.models.registry import get_model
+
+    if arch == "qwen2.5-3b":
+        cell = dryrun.build_cell(arch, ShapeSuite("train_4x1024", "train", 1024, 4),
+                                 make_mesh(shape, ("data", "model")), dryrun.POLICIES["baseline"])
+        _, c = dryrun.count_cell(cell, scopes=False)
+    else:
+        with hints.moe_buffer_pspec(dryrun.MOE_BUFFER_SPEC):
+            cell = dryrun.build_cell(arch, ShapeSuite("x", "train", 64, 16), make_mesh(shape, ("pod", "data", "model")),
+                                     dryrun.POLICIES["seqpar-ep"], cfg=get_model(arch).reduced)
+            _, c = dryrun.count_cell(cell, scopes=False)
+    j, m = c.costs.to_json(), c.memory()
+    got = {"flops": j["flops"], "bytes": j["bytes"], "argument_bytes": m["argument_bytes"],
+           "peak_bytes": m["peak_bytes"], "collective_bytes": j["collective_bytes"],
+           "collective_counts": j["collective_counts"]}
+    assert got == PINNED[(arch, shape)]
+
+
+#: sha256 of the parameters and metrics after two steps with no program
+#: installed, recorded before the sharded step
+NO_PROGRAM_BITS = {
+    ("qwen2.5-3b", "float32", False, 1): "b5caf9b7bc753295e5579535f7f57c1d7c48b98f579037d59343650674192e76",
+    ("qwen2.5-3b", None, True, 2): "a614cd50e62980d7ea1f080efd2e63a326cc61ffc8b741af646d5b848407428b",
+    ("qwen3-moe-30b-a3b", "float32", True, 1): "8d6dbc32588720fa68088cf52954df717c9c326f94d291765b18399b197081f5",
+}
+
+
+@pytest.mark.parametrize("arch,dtype,remat,microbatches", list(NO_PROGRAM_BITS))
+def test_a_step_with_no_program_gives_the_same_bits(arch, dtype, remat, microbatches):
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    assert D.current() is None
+    api = get_model(arch)
+    cfg = api.reduced if dtype is None else dataclasses.replace(api.reduced, dtype=dtype)
+    params = L.trainable(api.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    state = adamw.init(opt_cfg, params)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(np.int32))}
+    step = make_train_step(api, cfg, opt_cfg, remat=remat, microbatches=microbatches)
+    for _ in range(2):
+        params, state, metrics = step(params, state, batch)
+    h = hashlib.sha256()
+    for k, p in params.named_parameters():
+        h.update(k.encode())
+        t = p.detach()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t.contiguous().view(torch.uint8)).numpy()
+                 .tobytes())
+    for k in sorted(metrics):
+        h.update(k.encode())
+        h.update(np.asarray(metrics[k].float().numpy()).tobytes())
+    assert h.hexdigest() == NO_PROGRAM_BITS[(arch, dtype, remat, microbatches)]

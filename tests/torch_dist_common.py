@@ -1,0 +1,423 @@
+"""Gloo process groups for the port's sharded tests.
+
+``run_group(job, world, params, tmp)`` starts ``world`` child processes,
+this file run as a script, each a rank of one gloo group that meets through
+a ``FileStore`` in ``tmp`` (no port to share between pytest workers).  Each
+child sets one torch thread, calls ``JOBS[job](rank, world, params, tmp)``
+and writes what it returns (a dict of numpy arrays and numbers) to
+``tmp/out_<rank>.npz``.  A child that fails, or a group that outlasts its
+timeout, fails the caller with the children's output; every child is
+killed before ``run_group`` returns.
+
+The jobs (:data:`JOBS`) run the port alone, on the CPU; the reference's
+numbers reach them as inputs (``tmp/inputs.npz``) from the test.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+TESTS = Path(__file__).resolve().parent
+
+#: seconds a group's rendezvous and each of its collectives may wait
+GROUP_TIMEOUT = 120
+
+
+def run_group(job: str, world: int, params: dict, tmp: Path, timeout: float = 300.0) -> list[dict]:
+    """Run ``job`` on ``world`` gloo ranks; returns each rank's outputs."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    (tmp / "params.json").write_text(json.dumps(params))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), str(TESTS), env.get("PYTHONPATH", "")])
+    logs = [open(tmp / f"log_{r}.txt", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(tmp)], env=env,
+                              stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"group {job!r} outlasted {timeout} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(1.0)  # let the others report the failure too
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs) or any(not (tmp / f"out_{r}.npz").exists() for r in range(world)):
+        text = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n{(tmp / f'log_{r}.txt').read_text()[-3000:]}"
+                         for r, p in enumerate(procs))
+        raise RuntimeError(f"group {job!r} failed:\n{text}")
+    out = []
+    for r in range(world):
+        with np.load(tmp / f"out_{r}.npz", allow_pickle=False) as f:
+            out.append({k: f[k] for k in f.files})
+    return out
+
+
+def _child(job: str, rank: int, world: int, tmp: Path) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        params = json.loads((tmp / "params.json").read_text())
+        result = JOBS[job](rank, world, params, tmp)
+        np.savez(tmp / f"out_{rank}.npz", **{k: np.asarray(v) for k, v in result.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+# -----------------------------------------------------------------------------
+# the jobs: one rank's side
+# -----------------------------------------------------------------------------
+
+TOL = {"loss": 1e-4, "atol": 2e-4, "rtol": 2e-3}  # the reference's (tests/test_distributed.py:142)
+
+
+def _inputs(tmp: Path) -> dict:
+    path = tmp / "inputs.npz"
+    if not path.exists():
+        return {}
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def reduced_qwen():
+    """The reduced qwen2.5-3b in f32, its weights from seed 0, and the
+    reference test's batch (8 x 32 tokens from numpy's seed 1)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.registry import get_model
+
+    api = get_model("qwen2.5-3b")
+    cfg = dataclasses.replace(api.reduced, dtype="float32")
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(np.int32))
+    return api, cfg, params, tokens
+
+
+def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, steps: int = 2) -> dict:
+    """Two AdamW steps of the reduced qwen2.5-3b sharded on ``shape``
+    (data, model) under ``policy``, against the same steps of the whole
+    model in this process; and the first sharded step's counts against the
+    dry-run's plan of the same cell on meta.  The parameters gathered whole
+    (``whole/<name>``) go to the test, which holds them against the
+    reference's sharded step."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    mesh = make_mesh(shape, ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    api, cfg, whole, tokens = reduced_qwen()
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    one = L.trainable(copy.deepcopy(whole))
+    state = adamw.init(opt_cfg, one)
+    single = make_train_step(api, cfg, opt_cfg, remat=remat)
+    suite = ShapeSuite("x", "train", tokens.shape[1], tokens.shape[0])
+    pol = dryrun.POLICIES[policy]
+    cell = dryrun.build_cell("qwen2.5-3b", suite, mesh, pol, cfg=cfg, comm=comm, source=whole,
+                             batch={"tokens": tokens}, opt_cfg=opt_cfg, remat=remat)
+    plan = dryrun.build_cell("qwen2.5-3b", suite, mesh, pol, cfg=cfg, opt_cfg=opt_cfg, remat=remat)
+    _, planned = dryrun.count_cell(plan, scopes=False)
+    losses, single_losses, norms, single_norms = [], [], [], []
+    for i in range(steps):
+        _, state, m1 = single(one, state, {"tokens": tokens})
+        if i == 0:
+            (_, _, m2), counted = dryrun.count_cell(cell, scopes=False)
+        else:
+            _, _, m2 = cell.run()
+        losses.append(float(m2["loss"]))
+        single_losses.append(float(m1["loss"]))
+        norms.append(float(m2["grad_norm"]))
+        single_norms.append(float(m1["grad_norm"]))
+    got = cell.program.whole(cell.params)
+    errs, close = [], True
+    for k, p in one.named_parameters():
+        a, b = p.detach(), got[k]
+        errs.append(float((a - b).abs().max()))
+        close &= bool(torch.allclose(b, a, atol=TOL["atol"], rtol=TOL["rtol"]))
+    pj, cj = planned.costs.to_json(), counted.costs.to_json()
+    return {
+        "losses": np.array(losses), "single_losses": np.array(single_losses),
+        "norms": np.array(norms), "single_norms": np.array(single_norms),
+        "param_max_err": max(errs), "params_close": close,
+        **{f"whole/{k}": t.numpy() for k, t in got.items()},
+        "plan": json.dumps({"arguments": planned.memory()["argument_bytes"], "flops": pj["flops"],
+                            "collective_counts": pj["collective_counts"], "collective_bytes": pj["collective_bytes"],
+                            "kernels": pj["kernels"]},
+                           sort_keys=True),
+        "counted": json.dumps({"arguments": counted.memory()["argument_bytes"], "flops": cj["flops"],
+                               "collective_counts": cj["collective_counts"], "collective_bytes": cj["collective_bytes"],
+                               "kernels": cj["kernels"]},
+                              sort_keys=True),
+        "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
+    }
+
+
+def _whole_ref(params) -> dict:
+    return {k: p.detach().clone() for k, p in params.named_parameters()}
+
+
+def bodies(rank: int) -> dict:
+    """Each rank-aware body alone on (2, 4) under ``baseline`` (the
+    reduced qwen2.5-3b: one query head a device, kv heads gathered, the
+    vocabulary over model, the batch over data), held against the same
+    function of the whole model on this rank's share."""
+    import torch
+
+    from repro_torch.distributed import program as D
+    from repro_torch.distributed.comm import DistComm, take_local
+    from repro_torch.distributed.sharding import batch_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train.losses import next_token_loss
+
+    mesh = make_mesh((2, 4), ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    api, cfg, model, tokens = reduced_qwen()
+    whole = _whole_ref(model)
+    prog = D.Program(mesh, dryrun.POLICIES["baseline"], cfg, model, batch_axes=("data",), seq_len=tokens.shape[1],
+                     comm=comm)
+    prog.localize(model, source=model)
+    spec = batch_shardings(mesh, cfg, {"tokens": tokens})["tokens"]
+    mine = take_local(tokens, spec, mesh, rank)
+    rows = take_local(torch.arange(tokens.shape[0]), spec[:1], mesh, rank)
+    out = {}
+    g = torch.Generator().manual_seed(3)
+    # the whole model's side, with no program installed
+    mask = torch.from_numpy((np.arange(8 * 32).reshape(8, 32) % (3 + np.arange(8)[:, None]) != 0)
+                            .astype(np.float32))
+    full = torch.randn(8, 32, cfg.vocab, generator=g)
+    ref_loss, ref_m = next_token_loss(full, tokens, cfg, mask=mask)
+    names = ["blocks.0.0.attn.q.w", "blocks.0.0.ln_attn.scale"]
+    grads = {k: torch.randn(whole[k].shape, generator=g) for k in names}
+    ref_norm = float(adamw.global_norm(grads))
+    with torch.no_grad(), D.installed(prog):
+        # kv_select: the kv heads [B, Hkv, S, D] whole; this device's query head reads its group's
+        k = torch.randn(2, cfg.num_kv_heads, 5, cfg.resolved_head_dim, generator=g)
+        v = torch.randn(k.shape, generator=g)
+        heads = prog.attention.heads
+        ka, va = D.kv_select(k, v, heads)
+        first_q = prog.index(prog.attention.axes) * heads
+        group = cfg.num_heads // cfg.num_kv_heads
+        want = slice(first_q // group, first_q // group + ka.shape[1])
+        out["kv_select_group"] = first_q // group
+        out["kv_select_ok"] = bool(torch.equal(ka, k[:, want]) and torch.equal(va, v[:, want]))
+        # lookup: this device's rows of the table, summed over the vocabulary's devices
+        x = L.embed(model.embed, mine, cfg)
+        out["lookup_err"] = float((x - whole["embed.tok"][mine.long()]).abs().max())
+        # logsumexp (a max over the devices, then a sum) and pick on this device's columns
+        logits = torch.randn(tokens.shape[0], tokens.shape[1], cfg.vocab, generator=g)[rows]
+        cols = prog._own(logits, -1, prog.vocab_axes)
+        out["vocab_first"] = prog.index(prog.vocab_axes) * cols.shape[-1]
+        out["logsumexp_err"] = float((D.logsumexp(cols) - torch.logsumexp(logits, -1)).abs().max())
+        tgt = mine.long()
+        out["pick_err"] = float((D.pick(cols, tgt) - logits.gather(-1, tgt[..., None])[..., 0]).abs().max())
+        # the loss's mean over every device's targets, with a mask that differs by rows
+        _, m = next_token_loss(prog._own(full[rows], -1, prog.vocab_axes), mine, cfg, mask=mask[rows])
+        out["tokens"] = float(m["tokens"])
+        out["tokens_ref"] = float(ref_m["tokens"])
+        out["loss_err"] = abs(float(m["loss"]) - float(ref_loss))
+        # global_norm: a split leaf and a replicated one (a norm scale)
+        local = {k: prog._own(prog._own(grads[k], 0, _axes(prog, k, 0)), -1, _axes(prog, k, -1))
+                 if grads[k].dim() == 2 else prog._own(grads[k], 0, _axes(prog, k, 0)) for k in names}
+        out["global_norm_err"] = abs(float(adamw.global_norm(local)) - ref_norm)
+        out["global_norm"] = ref_norm
+    return out
+
+
+def _axes(prog, name: str, dim: int) -> tuple[str, ...]:
+    from repro_torch.distributed.sharding import axes_of
+
+    return prog.live(axes_of(prog.specs[name][dim]))
+
+
+def slices_gather(rank: int, inputs: dict) -> dict:
+    """Each case of ``inputs`` (a shape, a spec, a mesh): this rank's slice
+    of a seeded tensor, gathered whole again over the group."""
+    import torch
+
+    from repro_torch.distributed.comm import DistComm, take_local
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    comms = {}
+    for i, case in enumerate(json.loads(str(inputs["slice_cases"]))):
+        mesh = make_mesh(tuple(case["mesh"]), tuple(case["axes"]))
+        comm = comms.get(mesh) or comms.setdefault(mesh, DistComm(mesh, rank, "gloo"))
+        spec = tuple(tuple(e) if isinstance(e, list) else e for e in case["spec"])
+        t = torch.arange(int(np.prod(case["shape"])), dtype=torch.float32).reshape(case["shape"])
+        part = take_local(t, spec, mesh, rank)
+        out[f"gather_{i}"] = bool(torch.equal(comm.gather_whole(part, spec), t))
+    return out
+
+
+def compressed(rank: int, inputs: dict) -> dict:
+    """``compressed_psum_pod`` over ``pod`` on (pod 4, x 2): this device's
+    row of the reference's input."""
+    import torch
+
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.distributed.compression import compressed_psum_pod
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((4, 2), ("pod", "x"))
+    comm = DistComm(mesh, rank, "gloo")
+    x = torch.from_numpy(inputs["psum_x"])[comm.coords["pod"]][None]
+    return {"psum": compressed_psum_pod(x, comm, "pod").numpy()}
+
+
+def cross_mesh(rank: int, tmp: Path) -> dict:
+    """Save an 8 x 8 leaf laid out ('data', 'model') on (2, 4), restore it
+    laid out ('model', 'data') on (4, 2) (the reference's elastic rescale)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore_pytree, save_pytree
+    from repro_torch.distributed.comm import DistComm, take_local
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh_a, mesh_b = make_mesh((2, 4), ("data", "model")), make_mesh((4, 2), ("data", "model"))
+    comm, comm_b = DistComm(mesh_a, rank, "gloo"), DistComm(mesh_b, rank, "gloo")
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    tree = {"w": take_local(w, ("data", "model"), mesh_a, rank)}
+    save_pytree(tree, tmp / "ck", shardings={"w": comm.sharding(("data", "model"))})
+    sh_b = comm_b.sharding(("model", "data"))
+    got = restore_pytree(tree, tmp / "ck", shardings={"w": sh_b})["w"]  # device 0 reads and scatters
+    # the manager: device 0 writes in the background, every device's restore waits for it
+    manager = CheckpointManager(tmp / "mgr", keep=1, async_save=True)
+    manager.save(7, tree, shardings={"w": comm.sharding(("data", "model"))})
+    again, step = manager.restore(tree, shardings={"w": sh_b})
+    return {"restored": got.numpy(), "whole_again": bool(torch.equal(comm_b.gather_whole(got, sh_b.spec), w)),
+            "manager_step": step, "manager_restored": again["w"].numpy()}
+
+
+def pipeline(rank: int, inputs: dict) -> dict:
+    """The GPipe schedule at the reference test's shapes on 4 stages, this
+    rank's stage of the reference's weights."""
+    import torch
+
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.distributed.pipeline import pipeline_forward, split_stages
+    from repro_torch.launch.mesh import make_mesh
+
+    w = torch.from_numpy(inputs["pipe_w"])
+    x = torch.from_numpy(inputs["pipe_x"])
+
+    def block_fn(stage_w, h):
+        for wi in stage_w:
+            h = torch.tanh(h @ wi)
+        return h
+
+    mesh = make_mesh((4,), ("stage",))
+    comm = DistComm(mesh, rank, "gloo")
+    out = pipeline_forward(block_fn, split_stages(w, 4)[comm.coords["stage"]], x, comm)
+    seq = torch.stack([block_fn(w, xm) for xm in x])
+    return {"pipe": out.numpy(), "seq": seq.numpy()}
+
+
+def moe(rank: int) -> dict:
+    """The reduced qwen3-moe-30b-a3b in f32: its training step split over
+    devices on (2, 4) (experts over model) is refused; under a batch split
+    alone, (8, 1), a row a device, each device's aux loss is the statistic
+    of its own tokens, and its capacity its own tokens' (ROADMAP Queue C)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_loss_fn
+
+    api = get_model("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(api.reduced, dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(np.int32))
+    suite = ShapeSuite("x", "train", 32, 8)
+    out = {}
+    for shape in ((2, 4), (8, 1)):
+        mesh = make_mesh(shape, ("data", "model"))
+        whole = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        with torch.no_grad():
+            loss_fn = make_loss_fn(api, cfg, remat=False)
+            _, m_all = loss_fn(whole, {"tokens": tokens})
+            _, m_row = loss_fn(whole, {"tokens": tokens[rank:rank + 1]})
+        cell = dryrun.build_cell("qwen3-moe-30b-a3b", suite, mesh, dryrun.POLICIES["baseline"], cfg=cfg,
+                                 comm=DistComm(mesh, rank, "gloo"), source=L.trainable(whole),
+                                 batch={"tokens": tokens}, opt_cfg=adamw.AdamWConfig(), remat=False)
+        if shape == (2, 4):
+            try:
+                cell.run()
+                out["moe/tp_refused"] = False
+            except NotImplementedError as e:
+                out["moe/tp_refused"] = "Queue C" in str(e)
+            continue
+        _, _, m = cell.run()
+        out["moe/aux"] = float(m["moe_aux"])
+        out["moe/aux_own_rows"] = float(m_row["moe_aux"])
+        out["moe/aux_whole_batch"] = float(m_all["moe_aux"])
+    return out
+
+
+def job_eight(rank: int, world: int, params: dict, tmp: Path) -> dict:
+    """Every check of the 8-rank group, one after another."""
+    inputs = _inputs(tmp)
+    out = {}
+    for name, shape, policy, remat in params["cases"]:
+        out.update({f"{name}/{k}": v for k, v in train_case(rank, tuple(shape), policy, remat).items()})
+    out.update({f"bodies/{k}": v for k, v in bodies(rank).items()})
+    out.update(slices_gather(rank, inputs))
+    out.update(compressed(rank, inputs))
+    out.update(cross_mesh(rank, tmp))
+    out.update(moe(rank))
+    return out
+
+
+def job_four(rank: int, world: int, params: dict, tmp: Path) -> dict:
+    """The 4-rank group: (1, 4), the batch not split, and the pipeline."""
+    inputs = _inputs(tmp)
+    out = {}
+    for name, shape, policy, remat in params["cases"]:
+        out.update({f"{name}/{k}": v for k, v in train_case(rank, tuple(shape), policy, remat).items()})
+    out.update(pipeline(rank, inputs))
+    return out
+
+
+JOBS = {"eight": job_eight, "four": job_four}
+
+
+if __name__ == "__main__":
+    _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))

@@ -1218,7 +1218,150 @@ def job_replacement(params: dict, inputs: dict) -> dict:
     return out
 
 
+def _path_keys(path) -> list[str]:
+    return [str(getattr(k, "key", getattr(k, "idx", None))) for k in path]
+
+
+def tree_from_named(named: dict, template):
+    """A transformer's reference parameter tree shaped as ``template`` from
+    the port's named arrays: ``blocks.<slot>.<group>.<path>`` stacked on the
+    leading group axis of the slot's leaf, every other name its leaf."""
+    import jax
+    import jax.numpy as jnp
+
+    def leaf(path, like):
+        keys = _path_keys(path)
+        if keys[0] == "blocks":
+            rest = ".".join(keys[2:])
+            parts = [named[f"blocks.{keys[1]}.{g}.{rest}"] for g in range(like.shape[0])]
+            return jnp.asarray(np.stack(parts)).astype(like.dtype)
+        return jnp.asarray(named[".".join(keys)]).astype(like.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, template)
+
+
+def named_from_tree(tree) -> dict[str, np.ndarray]:
+    """The inverse of :func:`tree_from_named`: ``{port name: array}``."""
+    import jax
+
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys, a = _path_keys(path), np.asarray(leaf)
+        if keys[0] == "blocks":
+            out.update({f"blocks.{keys[1]}.{g}.{'.'.join(keys[2:])}": a[g] for g in range(a.shape[0])})
+        else:
+            out[".".join(keys)] = a
+    return out
+
+
+def job_sharded_steps(params: dict, inputs: dict) -> dict:
+    """``tests/test_distributed.py:142``'s sharded step, two of them, on the
+    port's reduced qwen2.5-3b weights (``qwen/<name>``) and tokens: for each
+    case (name, (data, model), policy, remat), ``jax.jit(step,
+    in_shardings=...)`` on a mesh of the first data·model devices under
+    ``ShardingPolicy`` (``seqpar`` with the residual stream's hint, as the
+    reference's dry-run sets it); its losses and parameters by port name."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.distributed import hints
+    from repro.distributed.sharding import (ShardingPolicy, batch_shardings, make_opt_shardings,
+                                            make_param_shardings)
+    from repro.models.registry import get_model
+    from repro.optim import adamw
+    from repro.train.train_step import make_train_step
+
+    api = get_model("qwen2.5-3b")
+    cfg = dataclasses.replace(api.reduced, dtype="float32")
+    template = jax.eval_shape(lambda: api.init(jax.random.PRNGKey(0), cfg))
+    named = {k.split("/", 1)[1]: v for k, v in inputs.items() if k.startswith("qwen/")}
+    if set(named) != set(named_from_tree(jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), template))):
+        raise ValueError("the port's parameter names are not the reference's tree")
+    tree = tree_from_named(named, template)
+    batch = {"tokens": jnp.asarray(inputs["qwen_tokens"])}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    out = {}
+    for name, shape, policy, remat in params["train_cases"]:
+        n = int(np.prod(shape))
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,
+                             devices=jax.devices()[:n])
+        seqpar = policy == "seqpar"
+        pol = ShardingPolicy(dp_axes=("data",), tp_axes=("model",), sequence_parallel=seqpar)
+        act = NamedSharding(mesh, P("data", "model", None)) if seqpar else None
+        opt = adamw.init(opt_cfg, tree)
+        psh = make_param_shardings(mesh, cfg, template, pol)
+        osh = make_opt_shardings(mesh, cfg, opt, psh, pol)
+        bsh = batch_shardings(mesh, cfg, jax.eval_shape(lambda: batch), pol)
+        step = jax.jit(make_train_step(api, cfg, opt_cfg, remat=remat), in_shardings=(psh, osh, bsh))
+        p, o, b = jax.device_put(tree, psh), jax.device_put(opt, osh), jax.device_put(batch, bsh)
+        losses = []
+        with hints.activation_pspec(act):  # read when the step is traced, at its first call
+            for _ in range(2):
+                p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+                p, o = jax.device_put(p, psh), jax.device_put(o, osh)  # the outputs' layout is XLA's choice
+        out[f"train/{name}/losses"] = np.asarray(losses)
+        out.update({f"train/{name}/p/{k}": v for k, v in named_from_tree(p).items()})
+    return out
+
+
+def job_distributed(params: dict, inputs: dict) -> dict:
+    """The reference's layouts and collectives on 8 forced devices:
+    ``devices_indices_map`` of each (mesh, spec, shape) case, a device's
+    entry at its row-major place on the mesh; ``compressed_psum_pod`` on
+    (pod 4, x 2) at ``tests/test_distributed.py:181``'s input; the pipeline
+    of ``:204`` (its weights, input, and output on 4 of the devices)."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.distributed.compression import compressed_psum_pod
+    from repro.distributed.pipeline import pipeline_forward, split_stages
+    from repro.launch.mesh import make_mesh
+
+    out: dict[str, np.ndarray] = {}
+    for i, case in enumerate(params["slice_cases"]):
+        mesh = make_mesh(tuple(case["mesh"]), tuple(case["axes"]))
+        spec = P(*(tuple(e) if isinstance(e, list) else e for e in case["spec"]))
+        imap = NamedSharding(mesh, spec).devices_indices_map(tuple(case["shape"]))
+        rows = []
+        for _, dev in np.ndenumerate(mesh.devices):  # row-major: rank order
+            rows.append([[s.start or 0, n if s.stop is None else s.stop]
+                         for s, n in zip(imap[dev], case["shape"])])
+        out[f"slices_{i}"] = np.asarray(rows)
+    mesh = make_mesh((4, 2), ("pod", "x"))
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((4, 256)).astype(np.float32))
+    f = shard_map(functools.partial(compressed_psum_pod, axis_name="pod"), mesh=mesh,
+                  in_specs=P("pod", None), out_specs=P("pod", None))
+    out["psum_x"] = np.asarray(x)
+    out["psum"] = np.asarray(f(x))
+    L, d, M, mb, S = 8, 16, 4, 2, 8
+    w = jax.random.normal(jax.random.PRNGKey(0), (L, d, d)) * 0.3
+    xs = jax.random.normal(jax.random.PRNGKey(1), (M, mb, S, d))
+
+    def block_fn(stage_w, h):
+        def one(h, wi):
+            return jnp.tanh(h @ wi), None
+
+        h, _ = jax.lax.scan(one, h, stage_w)
+        return h
+
+    stage_mesh = Mesh(np.asarray(jax.devices()[:4]), ("stage",))
+    out["pipe_w"], out["pipe_x"] = np.asarray(w), np.asarray(xs)
+    out["pipe_ref"] = np.asarray(pipeline_forward(block_fn, split_stages(w, 4), xs, stage_mesh))
+    out["pipe_seq_ref"] = np.asarray(jax.vmap(lambda xm: block_fn(w, xm))(xs))
+    return out
+
+
 JOBS = {
+    "distributed": job_distributed,
+    "sharded_steps": job_sharded_steps,
     "replacement": job_replacement,
     "kvcache": job_kvcache,
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
