@@ -45,13 +45,18 @@ result line:
    memory printed, timed (qwen's and zamba2's longest prefill and their
    4-slot decodes among others) beside their plain versions and one
    PyTorch call that computes the same function
-   (``scaled_dot_product_attention``);
+   (``scaled_dot_product_attention``); the decode kernel's state variant
+   (the output and each row's softmax state) at the sharded serving shapes
+   of qwen2.5-3b on (1, 4) (4 slots against a share of 512 keys, some rows
+   empty; 128 slots against a share of 8192), its output bit for bit the
+   plain decode's, its state within 1e-5 of the plain version's, timed;
 7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
    served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
    each, every prefill layer through the flash kernel and every decode
    layer through the decode kernel; request 0 served alone must equal a
    manual greedy prefill + decode loop; a 2-layer cut of the same width is
-   held against the CPU (the wrappers take the plain versions there); time
+   held against the CPU on a 128-token prompt (``CPU_CUT_PROMPTS``; the
+   wrappers take the plain versions there); time
    to first token, output tokens/s over the serving window, decode-tick
    tokens/s and a ``torch.profiler`` split;
 8. the SSD chunked-scan kernel against its plain version on the card at
@@ -151,13 +156,14 @@ result line:
     repro_torch topology generate large`` and ``topology calibrate small``
     with no ``--device``; and no ``BENCH_*.json`` of the repository changed;
 17. the MoE family, every earlier phase's model freed first:
-    qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts top-8,
-    random bf16 weights and an f32 router from a seed) served as in phase 7
-    (384 flash launches, 48 decode launches a tick, request 0 alone == the
+    qwen3-moe-30b-a3b at full width cut to 4 of its 48 layers
+    (``MOE_LAYERS``; 128 experts top-8, random bf16 weights and an f32 router
+    from a seed) served as in phase 7
+    (32 flash launches, 4 decode launches a tick, request 0 alone == the
     manual loop), a 2-layer f32 cut held against the CPU, the peak memory,
     the decode tick beside its bound, the profile and each MoE stage of one
-    layer timed; mixtral-8x7b at full width cut to 8 of its 32 layers,
-    served the same way (64 flash launches);
+    layer timed; mixtral-8x7b at full width cut to 2 of its 32 layers
+    (``MIXTRAL_LAYERS``), served the same way (16 flash launches);
 18. the ML-job continuum: ``schedule_jobs`` with the GA at its defaults on
     the makespan kernel (61 launches, a valid schedule, the kernel's
     makespan == the f32 oracle's), HEFT and ``auto`` beside it, and the job
@@ -233,7 +239,32 @@ result line:
     in bf16: the exchanges and FLOPs against the dry-run's, the peak within
     ``PEAK_BAND`` of ``max_memory_allocated``, ms a step, NCCL's kernel
     time by collective, the loss against one card's bf16 step; alone:
-    ``python3 -c "import chip_smoke; chip_smoke.four_card_main()"``.
+    ``python3 -c "import chip_smoke; chip_smoke.four_card_main()"``;
+25. sharded serving on real exchanges (``launch/dryrun.py::build_cell(...,
+    comm=)``: a prefill cell and a decode cell that carries its cache):
+    four child processes share the card in a gloo group (staged through the
+    host), each a device of (data 1, model 4) under ``serve-tp``;
+    qwen2.5-3b (16 query heads over 2 kv heads: the cache's sequence split
+    over the four, the decode kernel's state variant and the flash-decoding
+    combine) and mixtral-8x7b (its experts and kv heads split), each at full
+    width cut to 2 layers in f32 (TF32 off), the first four of phase 7's
+    prompts cut to the shortest of them as one batch, prefilled into a cache
+    of 2048, then 8 greedy ticks: every step's logits within 1e-4 +
+    1e-4·max|logit| of one device's unsharded run on the same weights (drawn
+    a module at a time from the seed on each rank), the greedy tokens equal,
+    one flash launch a layer in the prefill and one decode launch (the state
+    variant where the sequence is split) a layer a tick, and every rank's
+    argument bytes, FLOPs, kernel calls and exchanges by kind == the dry-run's
+    prefill cell, and a tick at a full cache drawn from a seed == its decode
+    cell, exactly.  On a host of four cards (b), alone in ``four_card_main``
+    after phase 24 (c): the same over NCCL, a card a rank: mixtral-8x7b at 8
+    layers in f32 against one card's run of the same 8 layers, then at all
+    32 in bf16 (the weights, 93 GB, fit no card: each rank draws a module at
+    a time and keeps its slices), qwen2.5-3b at all 36 in f32 against one
+    card's run, over phase 7's 8 prompts and 32 ticks; each model's
+    ``decode_32k`` cell in bf16 (batch 128, a cache of 32,768 positions from
+    a seed): the counts == the plan's, the peak within ``PEAK_BAND`` of
+    ``max_memory_allocated``.
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -274,6 +305,17 @@ SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
 # at which the ROADMAP cuts this path's depth first (phases 6 and 8 still
 # hold its attention and SSD shapes against the plain versions)
 ZAMBA_LAYERS = 27
+# the cut rule before phase 25 (sharded serving) came: the whole run took
+# 1183.3 s on a slow machine (H100 at 700 W), so phase 17 serves
+# qwen3-moe-30b-a3b at 4 of its 48 layers and mixtral-8x7b at 2 of its 32
+# (8 before; phase 6 still holds their attention shapes, phase 25 (b)
+# serves mixtral whole on four cards), and the serving phases'
+# card-against-CPU checks (phases 7, 9, 10) run the 128-token prompt alone,
+# not the 1000-token one too; ``tools/cut_probe.py`` times each cut before
+# and after
+MOE_LAYERS = 4
+MIXTRAL_LAYERS = 2
+CPU_CUT_PROMPTS = (128,)
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr",
         "init_free", "node_cores")
 
@@ -710,6 +752,63 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 zamba["decode_attention"] = {"zamba2_ms": ms, "zamba2_plain_ms": plain_ms,
                                              "zamba2_bound_ms": bound_ms, "zamba2_bound_by": bound_by,
                                              "zamba2_library_ms": library_ms}
+    # the state variant (o, lse [B, H] f32) at the sharded serving shapes of
+    # qwen2.5-3b on (1, 4), every query head against a device's share of the
+    # keys: phase 25's 4 slots against a share of 128 of 512 positions (a
+    # share past a row's keys is empty), decode_32k's 128 against 8192 of
+    # 32,768; ``lse`` held to the plain version's in f32 within 1e-5 of
+    # max(1, |lse|)
+    from repro_torch.kernels import work as work_mod
+    from repro_torch.kernels.decode_attention import decode_attention_state_cuda, decode_attention_state_ref
+
+    state_main = "qwen decode_32k on (1, 4): 128 slots against a share of 8192 of 32768 keys"
+    state_cases = [
+        ("qwen on (1, 4): 4 slots against a share of 128 of 512 keys", 4, 16, 2, 128, 128, [121, 0, 128, 100]),
+        (state_main, 128, 16, 2, 8192, 128, [8192] * 128),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, Hkv, S, D, lens in state_cases:
+            q, k, v = normal((B, H, D), dtype), normal((B, Hkv, S, D), dtype), normal((B, Hkv, S, D), dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            o, lse = decode_attention_state_cuda(q, k, v, lengths)
+            o_p, lse_p = decode_attention_state_ref(q, k, v, lengths)
+            o32, lse32 = decode_attention_state_ref(q.float(), k.float(), v.float(), lengths)
+            err, err32 = compare("decode_attention", f"state variant {label}", o, o_p, o32, dtype)
+            check(torch.equal(o, decode_attention_cuda(q, k, v, lengths)), f"{label}: the state variant's output "
+                                                                           f"== decode_attention_cuda's, bit for bit")
+            lse_err = float(((lse - lse32).abs() / lse32.abs().clamp(min=1.0)).max())
+            check(lse_err <= 1e-5, f"state variant {label}: lse within 1e-5 of max(1, |lse|) ({lse_err})")
+            check(bool((lse[lengths == 0] == -1e30).all()), f"state variant {label}: -1e30 for rows with no key")
+            ms = cuda_ms(lambda: decode_attention_state_cuda(q, k, v, lengths), reps=50)
+            plain_ms = cuda_ms(lambda: decode_attention_state_ref(q, k, v, lengths), reps=10)
+            # the library's one call for (o, lse): the memory-efficient SDPA
+            # kernel with its log-sum-exp, the lengths as an additive bias and
+            # the kv heads expanded beforehand (it takes no GQA); its output
+            # and lse against the f32 plain version's on the rows with keys
+            ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+            valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+            bias = torch.zeros(B, H, 1, S, dtype=dtype, device=dev).masked_fill_(~valid[:, None, None, :],
+                                                                                 float("-inf"))
+
+            def efficient():
+                return torch.ops.aten._scaled_dot_product_efficient_attention(q[:, :, None], ke, ve, bias, True)[:2]
+
+            o_l, lse_l = efficient()
+            live = lengths > 0
+            lib_err = max(float((o_l[:, :, 0].float() - o32)[live].abs().max()),
+                          float((lse_l[:, :, 0] - lse32)[live].abs().max()))
+            library_ms = cuda_ms(efficient, reps=50)
+            del ke, ve, bias, o_l, lse_l
+            w = work_mod.decode_attention_work(q, k, lengths, state=True)
+            bound_ms, bound_by = roofline_ms(w.flops, w.bytes, dtype)
+            print(f"decode state variant {label} lengths {sorted(set(lens))} {str(dtype)[6:]}: max abs diff {err:.3g} "
+                  f"(from f32 plain {err32:.3g}), lse max rel err {lse_err:.3g}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, efficient sdpa with lse {library_ms:.4f} ms (its o and lse within "
+                  f"{lib_err:.3g} of the f32 plain's), bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            if label == state_main and dtype == torch.bfloat16:
+                records["decode_attention"].update(state_ms=ms, state_plain_ms=plain_ms, state_bound_ms=bound_ms,
+                                                   state_bound_by=bound_by, state_lse_max_rel_err=lse_err,
+                                                   state_library_ms=library_ms, state_library_max_abs_err=lib_err)
     decode_edges = [
         ("lengths 0 to S, softcap 30, D=64", 6, 16, 4, 2048, 64, [0, 1, 63, 64, 65, 2000], 30.0),
         ("cache of 100, D=256", 3, 8, 4, 100, 256, [100, 37, 0], None),
@@ -852,7 +951,7 @@ class Served(NamedTuple):
 
 
 def serve_phase(arch: str, kernels: dict, cut: dict | None, *, layers: int | None = None,
-                cut_prompts: tuple[int, ...] = (128, 1000), cut_ticks: int = 4,
+                cut_prompts: tuple[int, ...] = CPU_CUT_PROMPTS, cut_ticks: int = 4,
                 profile_tokens: int | None = None) -> Served:
     """Phases 7, 9, 10 and 17: ``arch`` at full width served by the engine
     on the card.  ``kernels`` maps each kernel of the path to its wrapper,
@@ -1281,10 +1380,11 @@ def moe_stage_times(params, cfg, tokens: int) -> dict:
     return out
 
 
-def moe_phase() -> dict[str, dict[str, int]]:
+def moe_phase(moe_layers: int = MOE_LAYERS, mixtral_layers: int = MIXTRAL_LAYERS) -> dict[str, dict[str, int]]:
     """Phase 17: the MoE family on the card.  qwen3-moe-30b-a3b at full
-    width and depth (48 layers, 128 experts top-8, random bf16 weights and
-    an f32 router made on the card from a seed) served as in phase 7: 8
+    width cut to ``moe_layers`` of its 48 layers (128 experts top-8, random
+    bf16 weights and an f32 router made on the card from a seed) served as
+    in phase 7: 8
     requests through 4 slots, every prefill layer through the flash kernel,
     every decode layer through the decode kernel; request 0 alone equal to
     the manual loop; a 2-layer f32 cut held against the CPU on one prompt and
@@ -1293,8 +1393,9 @@ def moe_phase() -> dict[str, dict[str, int]]:
     reach (the requests served again, routing recorded), the profile (a wave
     of 4 requests to 8 new tokens: some 50,000 device kernels), and each MoE
     stage of one layer timed at the decode and the longest prefill's token
-    counts.  Then mixtral-8x7b at full width cut to 8 of its 32 layers (E 8,
-    top-2, d_ff 14336), served the same way without the CPU check; phase 6
+    counts.  Then mixtral-8x7b at full width cut to ``mixtral_layers`` of
+    its 32 layers (E 8, top-2, d_ff 14336), served the same way without the
+    CPU check; phase 6
     holds its attention shapes.  Every earlier phase's model is freed first.
     Returns each path's launches by kernel."""
     import gc
@@ -1310,11 +1411,11 @@ def moe_phase() -> dict[str, dict[str, int]]:
     out: dict[str, dict[str, int]] = {}
     arch = "qwen3-moe-30b-a3b"
     api = get_model(arch)
-    cfg = api.config
+    cfg = dataclasses.replace(api.config, num_layers=moe_layers)
     L = cfg.num_layers
     served = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", L),
                                 "decode_attention": (decode_attention_cuda, "tick", L)},
-                         cut={"num_layers": 2, "dtype": "float32"}, cut_prompts=(128,), cut_ticks=3,
+                         cut={"num_layers": 2, "dtype": "float32"}, layers=L, cut_prompts=(128,), cut_ticks=3,
                          profile_tokens=8)
     out[arch] = served.launches
     check(out[arch]["flash_attention"] == L * SERVE["requests"], f"{arch}: {L} x 8 flash launches")
@@ -1346,7 +1447,7 @@ def moe_phase() -> dict[str, dict[str, int]]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    arch, layers = "mixtral-8x7b", 8
+    arch, layers = "mixtral-8x7b", mixtral_layers
     out[arch] = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", layers),
                                    "decode_attention": (decode_attention_cuda, "tick", layers)},
                             cut=None, layers=layers, profile_tokens=8).launches
@@ -3669,6 +3770,14 @@ FOUR_CARD_LOSS_RTOL = 5e-3
 PIPE_RTOL = {"float32": 1e-6, "bfloat16": 2 ** -8}
 
 
+def plan_counts(counter) -> dict:
+    """What a rank's step and the dry-run's plan must count alike."""
+    j = counter.costs.to_json()
+    return {"arguments": counter.memory()["argument_bytes"], "flops": j["flops"],
+            "collective_counts": j["collective_counts"], "collective_bytes": j["collective_bytes"],
+            "kernels": j["kernels"]}
+
+
 def sharded_child() -> None:
     """One rank of phase 24 (``SHARDED_CHILD`` in the environment: its rank,
     the group's settings and the directory it reports to)."""
@@ -3777,16 +3886,10 @@ def sharded_child() -> None:
         (_, opt, m2), ms2 = sync_ms(cell.run)
         peak = torch.cuda.max_memory_allocated()
         lap(f"{name} step 2")
-        pj, cj = planned.costs.to_json(), counted.costs.to_json()
         row = {
             "launches_step1": launches, "losses": [float(m1["loss"]), float(m2["loss"])],
             "grad_norms": [float(m1["grad_norm"]), float(m2["grad_norm"])], "step2_ms": ms2,
-            "counted": {"arguments": counted.memory()["argument_bytes"], "flops": cj["flops"],
-                        "collective_counts": cj["collective_counts"], "collective_bytes": cj["collective_bytes"],
-                        "kernels": cj["kernels"]},
-            "plan": {"arguments": planned.memory()["argument_bytes"], "flops": pj["flops"],
-                     "collective_counts": pj["collective_counts"], "collective_bytes": pj["collective_bytes"],
-                     "kernels": pj["kernels"]},
+            "counted": plan_counts(counted), "plan": plan_counts(planned),
             "plan_peak_bytes": planned.memory()["peak_bytes"], "max_memory_allocated": peak,
             "layout": dryrun.layout(cell.program),
         }
@@ -3933,12 +4036,12 @@ def sharded_kernel_class(name: str) -> str:
     return "nccl other" if "nccl" in name.lower() else kernel_class(name)
 
 
-def run_sharded(job: dict, timeout: float) -> list[dict]:
-    """Start phase 24's ranks as children of this process, each a rank of
-    ``job``; wait for all (a failed rank fails the phase at once); their
-    reports."""
+def run_sharded(job: dict, timeout: float, child: str = "sharded_child", name: str = "phase24") -> list[dict]:
+    """Start a phase's ranks (phase 24's, or ``child``'s) as children of
+    this process, each a rank of ``job``; wait for all (a failed rank fails
+    the phase at once); their reports."""
     repo = Path(__file__).resolve().parent
-    out_dir = repo / "build" / f"phase24_{job['backend']}"
+    out_dir = repo / "build" / f"{name}_{job['backend']}"
     if out_dir.exists():
         import shutil
 
@@ -3950,7 +4053,7 @@ def run_sharded(job: dict, timeout: float) -> list[dict]:
         env["SHARDED_CHILD"] = json.dumps({**job, "rank": rank, "dir": str(out_dir)})
         log = open(out_dir / f"log_{rank}.txt", "w")
         logs.append(log)
-        procs.append(subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.sharded_child()"],
+        procs.append(subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{child}()"],
                                       env=env, cwd=repo, stdout=log, stderr=subprocess.STDOUT))
 
     def stop() -> None:
@@ -3972,7 +4075,7 @@ def run_sharded(job: dict, timeout: float) -> list[dict]:
             log.close()
     failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
     text = "".join(f"--- rank {r} ---\n{(out_dir / f'log_{r}.txt').read_text()[-2500:]}" for r, _ in failed)
-    check(not failed, f"phase 24 ranks {failed} failed or outlasted {timeout} s:\n{text}")
+    check(not failed, f"{name} ranks {failed} failed or outlasted {timeout} s:\n{text}")
     return [json.loads((out_dir / f"rank_{r}.json").read_text()) for r in range(job["world"])]
 
 
@@ -4078,12 +4181,260 @@ def sharded_phase() -> dict[str, int]:
     return by_path
 
 
+#: phase 25: sharded serving under serve-tp on (data 1, model 4), a group of
+#: four ranks: (a) on the one card over gloo staged through the host, each
+#: model at full width cut to 2 layers in f32, the first four of the serving
+#: run's prompts cut to the shortest of them as one batch, then 8 greedy
+#: ticks; (b) on four cards over NCCL (``four_card_main``): mixtral-8x7b at 8
+#: layers in f32 and at all 32 in bf16, qwen2.5-3b at all 36 in f32, over
+#: the serving run's 8 prompts (cut to the shortest) and 32 ticks, and each
+#: model's ``decode_32k`` cell in bf16 (batch 128, a cache of 32,768
+#: positions drawn from a seed). Each ``max_len`` is cut so that the
+#: prompts and ticks fill several of qwen2.5-3b's four shares of the cache's
+#: sequence and leave the last empty: (a) 369 + 8 positions in shares of 128,
+#: (b) 142 + 32 in shares of 64, so the combine merges live shares and
+#: weighs an empty one nothing
+SERVE_SHARDED_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards": 1, "max_len": 512, "runs": [
+    {"arch": "qwen2.5-3b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
+     "full_tick": True},
+    {"arch": "mixtral-8x7b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
+     "full_tick": True},
+]}
+SERVE_SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
+    {"arch": "mixtral-8x7b", "layers": 8, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True},
+    {"arch": "mixtral-8x7b", "layers": None, "dtype": None, "prompts": 8, "ticks": 32, "against_one": False,
+     "decode_32k": True},
+    {"arch": "qwen2.5-3b", "layers": None, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True},
+    {"arch": "qwen2.5-3b", "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
+     "decode_32k": True},
+]}
+#: a sharded step's logits against one device's unsharded run in f32: within
+#: ``atol + rtol * max|logit|`` of the step
+SERVE_SHARDED_TOL = {"atol": 1e-4, "rtol": 1e-4}
+
+
+def serve_sharded_child() -> None:
+    """One rank of phase 25 (``SHARDED_CHILD`` in the environment: its rank,
+    the group's runs and the directory it reports to)."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import SHAPES, ShapeSuite
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.distributed.sharding import logits_sharding
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_state_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+
+    job = json.loads(os.environ["SHARDED_CHILD"])
+    rank, world, out_dir = job["rank"], job["world"], Path(job["dir"])
+    torch.set_num_threads(2)
+    card = rank % job["cards"]
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32: MoE routing is discontinuous
+    dist.init_process_group(job["backend"], init_method=f"file://{out_dir / 'store'}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    on = torch.device("cpu") if job["backend"] == "gloo" else dev  # where the broadcast of one device's run lies
+    mesh = make_mesh((1, world), ("data", "model"))
+    comm = DistComm(mesh, rank, job["backend"], staged=job["staged"])
+    pol = dryrun.POLICIES["serve-tp"]
+    wrappers = {"flash_attention": flash_attention_cuda, "decode_attention": decode_attention_cuda,
+                "decode_attention_state": decode_attention_state_cuda}
+    report: dict = {"rank": rank, "card": card, "backend": job["backend"], "runs": []}
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for run in job["runs"]:
+        t_run = time.perf_counter()
+        api = get_model(run["arch"])
+        cfg = api.config if run["layers"] is None else dataclasses.replace(api.config, num_layers=run["layers"])
+        if run["dtype"]:
+            cfg = dataclasses.replace(cfg, dtype=run["dtype"])
+        row: dict = {"arch": run["arch"], "layers": cfg.num_layers, "dtype": cfg.dtype}
+        if run["prompts"]:
+            n, T = run["prompts"], run["ticks"]
+            prompts = serve_prompts(cfg.vocab)[:n]
+            S = min(len(p) for p in prompts)
+            tokens = torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev)
+            pre = ShapeSuite("prefill", "prefill", job["max_len"], n)
+            dec = ShapeSuite("decode", "decode", job["max_len"], n)
+            spec = logits_sharding(mesh, cfg, n, pol)
+            row.update(batch=n, prompt=S, ticks=T)
+            single_logits = torch.zeros(1 + T, n, cfg.vocab, device=on)
+            single_tokens = torch.zeros(T, n, dtype=torch.int32, device=on)
+            if run["against_one"]:
+                if rank == 0:  # one device's run of the whole model, the same weights
+                    whole = api.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+                    with torch.no_grad():
+                        cache = api.init_cache(n, job["max_len"], cfg, device=dev)
+                        lg, cache = api.prefill(whole, tokens, cache, cfg)
+                        single_logits[0] = lg.to(on)
+                        for t in range(T):
+                            single_tokens[t] = lg.argmax(-1).to(torch.int32).to(on)
+                            lg, cache = api.decode_step(whole, single_tokens[t].to(dev), cache, cfg)
+                            single_logits[t + 1] = lg.to(on)
+                    del whole, cache, lg
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.broadcast(single_logits, 0)
+                dist.broadcast(single_tokens, 0)
+            plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch={"tokens": tokens.to("meta")})
+            _, planned = dryrun.count_cell(plan, scopes=False)
+            del plan
+            gen = torch.Generator(device=dev).manual_seed(0)  # the model drawn a module at a time, sliced
+            cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, comm=comm,
+                                                             source=gen, batch={"tokens": tokens}))
+            for w in wrappers.values():
+                w.launches = 0
+            ((local, _), counted), prefill_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+            row.update(build_s=build_s, prefill_s=prefill_s, prefill_plan=plan_counts(planned),
+                       prefill_counted=plan_counts(counted),
+                       seq_axes=list(cell.program.cache_seq_axes(cell.cache["kv"][0]["k"][0])),
+                       span=list(cell.program.cache_span(cell.cache["kv"][0]["k"][0])),
+                       layout=dryrun.layout(cell.program))
+            errs, bounds, tokens_out, tick_s = [], [], [], []
+
+            def held(step, local):
+                whole_logits = comm.gather_whole(local, spec)
+                if run["against_one"]:
+                    ref = single_logits[step].to(dev)
+                    errs.append(float((whole_logits - ref).abs().max()))
+                    bounds.append(SERVE_SHARDED_TOL["atol"] + SERVE_SHARDED_TOL["rtol"] * float(ref.abs().max()))
+                return whole_logits.argmax(-1).to(torch.int32)
+
+            tok = held(0, local)
+            ticks = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tok},
+                                      cache=cell)
+            for t in range(T):
+                tokens_out.append(tok.cpu().tolist())
+                (local, _), s = sync_s(lambda: ticks.run(tok))
+                tick_s.append(s)
+                tok = held(t + 1, local)
+            row.update(launches={k: w.launches for k, w in wrappers.items()}, logits_max_abs_err=errs,
+                       logits_bound=bounds, tokens=tokens_out, tick_ms=[1e3 * s for s in tick_s])
+            if run["against_one"]:
+                row["tokens_equal"] = tokens_out == single_tokens.cpu().tolist()
+            del cell, ticks, local, single_logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        full = "decode_32k" if run.get("decode_32k") else ("full_tick" if run.get("full_tick") else None)
+        if full:  # a tick at a full cache drawn from a seed, against the plan's counts and peak
+            suite = (SHAPES["decode_32k"] if full == "decode_32k"
+                     else ShapeSuite("decode", "decode", job["max_len"], run["prompts"]))
+            plan = dryrun.build_cell(run["arch"], suite, mesh, pol, cfg=cfg)
+            _, planned = dryrun.count_cell(plan, scopes=False)
+            del plan
+            token = torch.from_numpy(np.random.default_rng(25).integers(0, cfg.vocab, suite.global_batch)
+                                     .astype(np.int32)).to(dev)
+            cell, build_s = sync_s(lambda: dryrun.build_cell(
+                run["arch"], suite, mesh, pol, cfg=cfg, comm=comm, source=torch.Generator(device=dev).manual_seed(0),
+                batch={"token": token}, cache=25))
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            (out, counted), tick_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+            row[full] = {"batch": suite.global_batch, "cache": suite.seq_len, "build_s": build_s, "tick_ms": 1e3 * tick_s,
+                         "plan": plan_counts(planned), "counted": plan_counts(counted),
+                         "plan_peak_bytes": planned.memory()["peak_bytes"],
+                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                         "launches": {k: w.launches for k, w in wrappers.items()},
+                         "finite": bool(torch.isfinite(out[0]).all())}
+            del cell, out
+            gc.collect()
+            torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_run
+        report["runs"].append(row)
+        print(f"rank {rank}: {row['arch']} {row['layers']} layers done in {row['seconds']:.1f} s", flush=True)
+    (out_dir / f"rank_{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, dict[str, int]]:
+    """Phase 25's checks on the ranks' reports, printed (the reports first,
+    whole); returns each kernel's launches by path."""
+    print(json.dumps({f"sharded_serve_{label}": reports}), flush=True)
+    by_path: dict[str, dict[str, int]] = {}
+    for i, run in enumerate(job["runs"]):
+        rows = [r["runs"][i] for r in reports]
+        name = f"{run['arch']} {rows[0]['layers']} layers {rows[0]['dtype']}"
+        for r, row in zip(reports, rows):
+            tag = f"sharded serve {label} {name} rank {r['rank']}"
+            if run["prompts"]:
+                check(row["prefill_counted"] == row["prefill_plan"],
+                      f"{tag}: the prefill's arguments, FLOPs, kernel calls and exchanges == the dry-run's: "
+                      f"{row['prefill_counted']} against {row['prefill_plan']}")
+                L, T = row["layers"], row["ticks"]
+                seq = bool(row["seq_axes"])
+                want = {"flash_attention": L, "decode_attention": 0 if seq else L * T,
+                        "decode_attention_state": L * T if seq else 0}
+                check(row["launches"] == want, f"{tag}: launches {row['launches']}, expected {want}")
+                for k, v in row["launches"].items():
+                    if v:
+                        by_path.setdefault(k, {})[f"sharded serve {label} {name} rank {r['rank']}"] = v
+                if run["against_one"] and seq:
+                    live = sum(rw["span"][0] < rw["prompt"] + T for rw in rows)
+                    check(live >= 2, f"{tag}: the prompts and ticks fill {live} of the cache's {len(rows)} shares, "
+                                     f"so the combine merges at least two")
+                if run["against_one"]:
+                    over = [(s, e, b) for s, (e, b) in enumerate(zip(row["logits_max_abs_err"], row["logits_bound"]))
+                            if e > b]
+                    check(not over, f"{tag}: every step's logits within {SERVE_SHARDED_TOL['atol']} + "
+                                    f"{SERVE_SHARDED_TOL['rtol']}·max|logit| of one device's: {over}")
+                    check(row["tokens_equal"], f"{tag}: the greedy tokens equal one device's")
+                ticks = row["tick_ms"]
+                print(f"{tag}: layout {row['layout']['attention']}, modules {row['layout']['modules']}, cache sequence "
+                      f"over {row['seq_axes']}; prefill {row['batch']} x {row['prompt']} in {row['prefill_s']:.3f} s "
+                      f"(built in {row['build_s']:.1f} s), {T} ticks: median {statistics.median(ticks):.2f} ms a tick "
+                      f"({row['batch'] * 1e3 / statistics.median(ticks):.1f} tokens/s), max logit err "
+                      f"{max(row['logits_max_abs_err'] or [0.0]):.3g}; launches {row['launches']}; counts "
+                      f"{row['prefill_counted']['collective_counts']} == the plan's", flush=True)
+            for full in ("full_tick", "decode_32k"):
+                if full not in row:
+                    continue
+                f = row[full]
+                check(f["counted"] == f["plan"], f"{tag} {full}: arguments, FLOPs, kernel calls and exchanges == the "
+                                                 f"dry-run's: {f['counted']} against {f['plan']}")
+                check(f["finite"], f"{tag} {full}: finite logits")
+                ratio = f["plan_peak_bytes"] / f["max_memory_allocated"]
+                if full == "decode_32k":
+                    check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1], f"{tag} {full}: dry-run peak within {PEAK_BAND} of "
+                                                                 f"max_memory_allocated ({ratio:.4f})")
+                print(f"{tag} {full} (batch {f['batch']}, cache {f['cache']}): arguments {f['counted']['arguments']:,} B, "
+                      f"FLOPs {f['counted']['flops']:.6e}, exchanges {f['counted']['collective_counts']} "
+                      f"{ {k: round(v / 1e6, 3) for k, v in f['counted']['collective_bytes'].items()} } MB == the "
+                      f"dry-run's; peak {f['max_memory_allocated'] / 1e9:.3f} GB (dry-run {f['plan_peak_bytes'] / 1e9:.3f} GB,"
+                      f" ratio {ratio:.4f}); the tick {f['tick_ms']:.1f} ms; launches {f['launches']}; built in "
+                      f"{f['build_s']:.1f} s", flush=True)
+    return by_path
+
+
+def serve_sharded_phase() -> dict[str, dict[str, int]]:
+    """Phase 25 (a) on the one card."""
+    print(f"phase 25: exchanges {SERVE_SHARDED_ONE_CARD['backend']}, staged through the host: "
+          f"{SERVE_SHARDED_ONE_CARD['staged']}", flush=True)
+    return serve_sharded_report(SERVE_SHARDED_ONE_CARD,
+                                run_sharded(SERVE_SHARDED_ONE_CARD, 600, child="serve_sharded_child",
+                                            name="phase25"), "one card")
+
+
 def four_card_main() -> int:
-    """Phase 24 (c) alone, on a host of four cards: build the kernels, run
-    the four NCCL ranks, print the report."""
+    """Phases 24 (c) and 25 (b) alone, on a host of four cards: build the
+    kernels, run the four NCCL ranks of each, print the reports."""
     from repro_torch.kernels import _build
 
-    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phase 24 (c) needs four")
+    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b) need four")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"four cards: {smi}", flush=True)
@@ -4091,6 +4442,11 @@ def four_card_main() -> int:
     t0 = time.perf_counter()
     by_path = sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1500), "four cards")
     print(f"phase 24 (c): {time.perf_counter() - t0:.1f} s; flash launches {by_path}", flush=True)
+    t0 = time.perf_counter()
+    serving = serve_sharded_report(SERVE_SHARDED_FOUR_CARDS,
+                                   run_sharded(SERVE_SHARDED_FOUR_CARDS, 1500, child="serve_sharded_child",
+                                               name="phase25"), "four cards")
+    print(f"phase 25 (b): {time.perf_counter() - t0:.1f} s; launches {serving}", flush=True)
     return 0
 
 
@@ -4480,6 +4836,14 @@ def main() -> int:
     sharded_by_path = sharded_phase()
     phase_done(24, "the sharded training step")
 
+    # 25. sharded serving on real exchanges: four ranks on the card in a gloo
+    # group, qwen2.5-3b (the cache's sequence split) and mixtral-8x7b cut to
+    # 2 layers, prefill and greedy ticks against one device's run
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_by_path = serve_sharded_phase()
+    phase_done(25, "sharded serving")
+
     makespan_by_path = {"ga": launches, "ga_sweep": sweep_launches, **mh_launches, **scenario_launches,
                         **service_launches, **campaign_launches, **topology_launches, **continuum_launches}
     record.update(service_record)
@@ -4501,6 +4865,10 @@ def main() -> int:
     for name, run in train_by_path.items():
         by_path[name].update(run)
     by_path["flash_attention"].update(sharded_by_path)
+    by_path["flash_attention"].update(serving_by_path.get("flash_attention", {}))
+    by_path["decode_attention"].update(serving_by_path.get("decode_attention", {}))
+    by_path["decode_attention"].update({f"{k} (state variant)": n for k, n in
+                                        serving_by_path.get("decode_attention_state", {}).items()})
 
     kernels = [{
         "name": "population_makespan",

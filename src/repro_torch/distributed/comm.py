@@ -19,8 +19,7 @@ runs outside the counters.
 * **Order.** A dimension split over axes ``(a, b)`` holds at device
   ``(i_a, i_b)`` the chunk ``i_a * n_b + i_b``: the spec's order, as JAX
   lays it out.  A group's members are in rank order, so the chunks are put
-  back in the spec's order after a gather and before a reduce-scatter or an
-  all-to-all.
+  back in the spec's order after a gather and before a reduce-scatter.
 * **Backend.** The caller names it: ``nccl`` for cards, ``gloo`` for the
   CPU.  ``staged=True`` copies each exchange's tensors through the host
   (gloo over CUDA tensors); nothing switches on failure.
@@ -195,7 +194,7 @@ class DistComm:
         dist.all_gather_into_tensor(buf, src.view(-1), group=g.group)
         buf = self._reorder(buf.view(n, *src.shape), g.pos_of_entry)
         shape = (*src.shape[:dim], n * src.shape[dim], *src.shape[dim + 1:])
-        return self._back(buf.movedim(0, dim).reshape(shape), x)
+        return self._back(buf.movedim(0, dim).reshape(shape).contiguous(), x)  # contiguous, as on meta
 
     def all_gather(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
         with self._uncounted():
@@ -233,29 +232,6 @@ class DistComm:
         with self._uncounted():
             out = self._all_reduce(x, axes, op)
         work.collective("all-reduce", _nbytes(out))
-        return out
-
-    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
-                   axes: tuple[str, ...]) -> torch.Tensor:
-        """Chunk j of ``x``'s ``split_dim`` to the device holding chunk j of
-        ``axes``; what each device sent, in their chunks' order, along
-        ``concat_dim``."""
-        with self._uncounted():
-            g = self._group(axes)
-            if g is None:
-                out = x
-            else:
-                n, src = len(g.ranks), self._io(x)
-                m = src.shape[split_dim] // n
-                send = src.reshape(*src.shape[:split_dim], n, m, *src.shape[split_dim + 1:]).movedim(split_dim, 0)
-                send = self._reorder(send, g.entry_of_pos).contiguous()
-                recv = torch.empty_like(send)
-                dist.all_to_all_single(recv, send, group=g.group)
-                recv = self._reorder(recv, g.pos_of_entry)
-                part = recv.shape[1:]
-                shape = (*part[:concat_dim], n * part[concat_dim], *part[concat_dim + 1:])
-                out = self._back(recv.movedim(0, concat_dim).reshape(shape), x)
-        work.collective("all-to-all", _nbytes(out))
         return out
 
     def gather_to(self, x: torch.Tensor, shape, axes: Mapping[int, tuple[str, ...]] | None = None) -> torch.Tensor:

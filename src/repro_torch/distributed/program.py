@@ -25,19 +25,36 @@ functions at the points where the layouts meet:
 * :func:`kv_heads` / :func:`kv_select`: kv heads split inside a head are
   gathered whole before attention, and each device's query heads read the
   kv heads of their group;
-* :func:`decode_query` / :func:`decode_combine`: a decode step against a
-  KV cache whose sequence is split over devices: the query's heads
-  gathered, attention over the local keys, the partial softmax states
-  combined (an all-reduce of ``[B, H, D + 2]`` f32);
+* :func:`decode_query` / :func:`decode_combine` / :func:`cache_span`: a
+  decode step against a KV cache whose sequence is split over devices: the
+  query's heads gathered, attention over the local keys by the decode
+  kernel's state variant, the partial attentions combined by their softmax
+  states (flash-decoding: a max all-reduce of ``[B, H]``, then a sum
+  all-reduce of ``[B, H, D + 1]`` f32); the new key written by the device
+  that holds its slot;
 * :func:`cache_load` / :func:`cache_store` / :func:`prompt_slice`: a cache
-  kept in a finer layout than its computation;
+  kept in a finer layout than its computation (a prompt's keys cut to the
+  device's share of the whole cache, ring buffer included);
 * :func:`lookup`, :func:`logsumexp`, :func:`pick`: the vocabulary split
   over devices (the embedding's partial rows all-reduced; the loss's max,
   sum and target logit all-reduced over ``[B, S]``);
-* :func:`moe_dispatch` / :func:`moe_return`: the ``[E, C, d]`` dispatch
-  buffer laid out for the experts and back: split by expert where the
-  experts are, its capacity over the axes an installed
-  ``hints.moe_buffer_pspec`` names (else over the tokens' own axes);
+* :func:`moe_enter`, :func:`moe_gates`, :func:`moe_means`,
+  :func:`moe_offsets`, :func:`moe_dispatch` / :func:`moe_return`: a MoE
+  layer.  The router reads the block's input with no exchange (its gradient
+  is whole on every device of the module's axes and is taken once), the
+  experts read it entered; in ``ffn`` mode the gates' gradient is summed
+  over the ffn axes.  A device whose tokens are a share of the batch routes
+  them as the whole batch's: the capacity of every device's tokens, each
+  pair's position after the same expert's pairs on earlier devices (an
+  all-gather of per-row counts), the aux loss from the batch's means (an
+  all-reduce of ``[2, E]`` sums).  Each device writes its kept pairs at
+  their places in the whole batch's ``[E, C, d]`` buffer, zero elsewhere,
+  and the buffer reaches the experts' layout summed over the token axes
+  (reduce-scatters over the axes that split the experts or the capacity,
+  an all-reduce over the rest): each slot is written once, so the sum is
+  exact.  The outputs come back gathered; its capacity is split over the
+  axes an installed ``hints.moe_buffer_pspec`` names (else over the
+  tokens' own axes);
 * :func:`data_parallel_grads`: each gradient all-reduced over the batch
   axes on which its parameter is replicated;
 * :func:`batch_sum` / :func:`norm_parts`: the loss's target count and
@@ -59,10 +76,9 @@ exchanges are ``torch.distributed`` collectives, counted alike.  Every body
 takes its slices at the device's own offset along the axes it cuts
 (``comm.coords``), with the same operations at every offset, so that every
 device counts what device 0's plan counts.  :meth:`Program.localize` with
-``source`` cuts a whole model's weights to the device's stored slices.  The
-flash-decoding combine (:func:`decode_combine`) only counts its all-reduce
-of the softmax state; a real backend refuses it until the decode kernel
-returns that state (ROADMAP Queue A, 8h-2).
+``source`` cuts a whole model's weights to the device's stored slices, or
+draws them a module at a time from a seed (a model larger than one card).
+No body asks which backend it runs on.
 """
 
 from __future__ import annotations
@@ -142,14 +158,6 @@ class CountingComm:
     def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...], op: str = "sum") -> torch.Tensor:
         return self._out("all-reduce", x, x.shape)
 
-    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
-                   axes: tuple[str, ...]) -> torch.Tensor:
-        n = self.size(axes)
-        shape = list(x.shape)
-        shape[split_dim] //= n
-        shape[concat_dim] *= n
-        return self._out("all-to-all", x, shape)
-
     def gather_to(self, x: torch.Tensor, shape, axes=None) -> torch.Tensor:
         """``x`` gathered to ``shape`` (over ``axes``, ``{dim: axes}``)."""
         return self._out("all-gather", x, shape)
@@ -174,6 +182,21 @@ class _Exchange(torch.autograd.Function):
 
 def _exchange(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
     return _Exchange.apply(x, fwd, bwd)
+
+
+class _Fork(torch.autograd.Function):
+    """``fwd(x)`` forward, as two outputs whose gradients come back by
+    different rules: ``bwd_a(grad_a) + bwd_b(grad_b)``."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd_a, bwd_b):
+        ctx.bwd_a, ctx.bwd_b = bwd_a, bwd_b
+        y = fwd(x)
+        return y, y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad_a, grad_b):
+        return ctx.bwd_a(grad_a) + ctx.bwd_b(grad_b), None, None, None
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -432,33 +455,56 @@ class Program:
         return dataclasses.replace(cfg, num_heads=self.attention.heads, num_kv_heads=self.attention.kv_heads,
                                    head_dim=cfg.resolved_head_dim)
 
-    def localize(self, params: nn.Module, source: nn.Module | Mapping[str, torch.Tensor] | None = None) -> nn.Module:
+    def localize(self, params: nn.Module,
+                 source: nn.Module | Mapping[str, torch.Tensor] | torch.Generator | None = None) -> nn.Module:
         """Replace every parameter of ``params`` (built at global shapes) by
         its stored slice, and key the weight plans by the new parameters.
         Without ``source`` the slices are empty, on meta (the dry-run); with
-        it (a model or ``{name: tensor}`` at global shapes, ``params`` itself
+        a model or ``{name: tensor}`` at global shapes (``params`` itself
         allowed) each is a copy of the device's own slice of the source's
         tensor, on its device: a sharded run starts from the same weights as
-        a whole one."""
+        a whole one.  With a seeded ``torch.Generator`` (``params`` then on
+        meta) the model is drawn as ``models/layers.py::init_modules`` draws
+        it, a module at a time on the generator's device, and each module's
+        slices are kept before the next is drawn: the slices equal those of
+        the whole model drawn from the same generator state, bit for bit,
+        and the whole model is never held (a model larger than one card)."""
         from repro_torch.distributed.sharding import local_shape
 
-        whole = None if source is None else (dict(source.named_parameters()) if isinstance(source, nn.Module)
-                                             else dict(source))
         by_name = {}
-        for pname, p in list(params.named_parameters()):
-            mod_name, leaf = pname.rsplit(".", 1) if "." in pname else ("", pname)
-            mod = params.get_submodule(mod_name)
+
+        def keep(mod: nn.Module, leaf: str, pname: str, whole: torch.Tensor | None, like: nn.Parameter) -> None:
             spec = self.specs[pname]
             if whole is None:
-                data = torch.empty(local_shape(tuple(p.shape), spec, self.mesh), dtype=p.dtype, device="meta")
+                data = torch.empty(local_shape(tuple(like.shape), spec, self.mesh), dtype=like.dtype, device="meta")
             else:
-                data = whole[pname].detach()
+                data = whole.detach()
                 for dim, entry in enumerate(spec):
                     data = self._own(data, dim, axes_of(entry))
                 data = data.clone()
-            new = nn.Parameter(data, requires_grad=p.requires_grad)
+            new = nn.Parameter(data, requires_grad=like.requires_grad)
             setattr(mod, leaf, new)
             by_name[pname] = new
+
+        if isinstance(source, torch.Generator):
+            prefix = {id(m): n for n, m in params.named_modules()}
+            for mod in params.modules():
+                if not hasattr(mod, "init_"):
+                    continue
+                mod.to_empty(device=source.device, recurse=False)
+                with torch.no_grad():
+                    mod.init_(source)
+                for leaf, p in list(mod.named_parameters(recurse=False)):
+                    keep(mod, leaf, f"{prefix[id(mod)]}.{leaf}" if prefix[id(mod)] else leaf, p, p)
+            missing = {k for k, _ in params.named_parameters()} - set(by_name)
+            if missing:
+                raise ValueError(f"parameters no module draws: {sorted(missing)}")
+        else:
+            whole = None if source is None else (dict(source.named_parameters()) if isinstance(source, nn.Module)
+                                                 else dict(source))
+            for pname, p in list(params.named_parameters()):
+                mod_name, leaf = pname.rsplit(".", 1) if "." in pname else ("", pname)
+                keep(params.get_submodule(mod_name), leaf, pname, None if whole is None else whole[pname], p)
         self.weights = {id(by_name[k]): v for k, v in self.weights.items()}
         self.names = {id(p): k for k, p in by_name.items()}
         return params
@@ -505,13 +551,6 @@ class Program:
 
     def enter(self, x: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
         comm, sp = self.comm, self.sp_axes
-        if (plan.moe_mode and plan.kind == "tp" and torch.is_grad_enabled()
-                and not isinstance(comm, CountingComm)):
-            raise NotImplementedError("training a MoE layer split over devices: the plan's backward sums every "
-                                      "device's copy of the router's gradient over the expert axes (ROADMAP "
-                                      "Queue C)")
-        if plan.moe_mode == "experts" and sp:  # each device routes its own tokens
-            return x
         if self._seq_sharded(x):
             if plan.kind == "tp":
                 return _exchange(x, lambda t: comm.all_gather(t, 1, sp), lambda g: comm.reduce_scatter(g, 1, sp))
@@ -556,6 +595,13 @@ class Program:
         S, D]`` (dimension 3 of its stacked leaf)."""
         return self.cache_axes.get(cache.untyped_storage()._cdata, {}).get(3, ())
 
+    def cache_span(self, cache: torch.Tensor) -> tuple[int, int]:
+        """(the first global position this device holds, the whole cache's
+        positions) of a layer's KV cache ``[B, Hkv, S, D]``."""
+        axes = self.cache_seq_axes(cache)
+        S = cache.shape[2]
+        return self.index(axes) * S, S * self.size(axes)
+
     def _head_seq_axes(self, seq_axes: tuple[str, ...]) -> tuple[str, ...]:
         """The axes that split both the query heads and the cache's sequence."""
         plan = self.attention
@@ -567,19 +613,23 @@ class Program:
         axes = self._head_seq_axes(seq_axes)
         return self.comm.all_gather(q, 1, axes) if axes else q
 
-    def decode_combine(self, o: torch.Tensor, seq_axes: tuple[str, ...]) -> torch.Tensor:
-        """Combine the attention over each device's share of the keys: an
-        all-reduce of the partial softmax states ``[B, H, D + 2]`` f32 over
-        the sequence's axes; then each device's own query heads."""
+    def decode_combine(self, o: torch.Tensor, lse: torch.Tensor, seq_axes: tuple[str, ...]) -> torch.Tensor:
+        """Combine the attention ``o [B, H, D]`` over each device's share of
+        the keys by the rows' softmax states ``lse [B, H]`` f32 (the decode
+        kernel's state variant): ``M = max lse`` over the sequence's axes,
+        ``w = exp(lse - M)``, the sums of ``w·o`` and ``w`` over them (one
+        all-reduce of ``[B, H, D + 1]`` f32), their quotient; then each
+        device's own query heads.  A share with no key has ``lse = -1e30``
+        and weighs nothing beside one that has keys."""
         if not seq_axes:
             return o
-        if not isinstance(self.comm, CountingComm):
-            raise NotImplementedError("the flash-decoding combine needs the decode kernel's softmax state "
-                                      "(ROADMAP Queue A, 8h-2)")
-        B, H, D = o.shape
-        self.comm.all_reduce(o.new_empty(B, H, D + 2, dtype=torch.float32), seq_axes)
+        comm, D = self.comm, o.shape[-1]
+        top = comm.all_reduce(lse, seq_axes, op="max")
+        w = torch.exp(lse - top)[..., None]
+        sums = comm.all_reduce(torch.cat([o.float() * w, w], dim=-1), seq_axes)
+        o = (sums[..., :D] / sums[..., D:]).to(o.dtype)
         if self._head_seq_axes(seq_axes):
-            o = o.narrow(1, 0, self.attention.heads).contiguous()
+            o = self._own(o, 1, self._head_seq_axes(seq_axes)).contiguous()
         return o
 
     def cache_load(self, t: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
@@ -597,11 +647,24 @@ class Program:
                     src = self._own(src, d, dims.get(d + 1, ()))
         dst.copy_(src)
 
-    def prompt_slice(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-        seq = self.cache_axes.get(dst.untyped_storage()._cdata, {}).get(3, ())
+    def prompt_slice(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor | None:
+        """This device's share ``[B, Hkv, S_local, D]`` of the whole cache
+        that a prompt's keys or values ``src [B, Hkv, S, D]`` fill (positions
+        ``0 .. S-1``, zeros past them; the last ``S_global`` of them laid out
+        as the ring buffer when they do not fit), or None when the cache's
+        sequence is whole here.  Every device builds the whole cache and
+        takes its slice, so every offset runs the same operations."""
+        seq = self.cache_seq_axes(dst)
         if not seq:
-            return src
-        return self._own(src, 2, seq) if src.shape[2] % self.size(seq) == 0 else src
+            return None
+        S, cap = src.shape[2], dst.shape[2] * self.size(seq)
+        if S >= cap:
+            whole = torch.roll(src[:, :, S - cap:], S % cap, dims=2)
+        else:
+            pad = list(src.shape)
+            pad[2] = cap - S
+            whole = torch.cat([src, src.new_zeros(pad)], dim=2)
+        return self._own(whole, 2, seq)
 
     def lookup(self, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         w = self.weight(tok)
@@ -639,47 +702,160 @@ class Program:
         comm = self.comm
         return _exchange(got, lambda t: comm.all_reduce(t, axes), _identity)
 
+    # -- a MoE layer ---------------------------------------------------------------
+    def moe_token_axes(self, plan: ModulePlan) -> tuple[tuple[str, ...], tuple[str, ...]]:
+        """(the axes splitting the batch, the axes splitting the sequence) of
+        the tokens a MoE layer routes on this device: the batch axes, and in
+        ``experts`` mode the sequence-parallel axes (each device routes its
+        own share of the sequence there; elsewhere ``moe_enter`` gathers it)."""
+        return self.batch_axes, (self.sp_axes if plan.moe_mode == "experts" else ())
+
+    def moe_token_devices(self, plan: ModulePlan) -> int:
+        """The devices whose tokens one MoE layer routes together."""
+        b, s = self.moe_token_axes(plan)
+        return self.size(b + s)
+
+    def moe_enter(self, x: torch.Tensor, plan: ModulePlan) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block's input twice, for the router and for the experts.  The
+        router, its gates and the aux loss compute whole on every device of
+        the module's axes, so the router's share of the input's gradient is
+        whole there too and is taken once; the experts' share is partial
+        under a tensor-parallel split and is summed (Megatron's ``f``).  One
+        exchange forward: the sequence's all-gather under sequence
+        parallelism, none otherwise."""
+        comm, sp = self.comm, self.sp_axes
+        if plan.moe_mode == "experts" and sp:  # each device routes its own tokens
+            return x, x
+        if self._seq_sharded(x):
+            experts = ((lambda g: comm.reduce_scatter(g, 1, sp)) if plan.kind == "tp"
+                       else (lambda g: self._own(g, 1, sp)))
+            return _Fork.apply(x, lambda t: comm.all_gather(t, 1, sp), lambda g: self._own(g, 1, sp), experts)
+        if plan.kind == "tp":
+            return _Fork.apply(x, _identity, _identity, lambda g: comm.all_reduce(g, plan.axes))
+        return x, x
+
+    def moe_gates(self, gates: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
+        """The gates ``[T, k]``, whose gradient is summed over the ffn axes
+        in ``ffn`` mode: there they weigh each device's partial sums of the
+        experts' outputs, so each device holds a partial gradient."""
+        if plan.moe_mode != "ffn":
+            return gates
+        comm = self.comm
+        return _exchange(gates, _identity, lambda g: comm.all_reduce(g, plan.axes))
+
+    def moe_means(self, probs: torch.Tensor, top1: torch.Tensor, plan: ModulePlan
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole batch's mean router probability and top-1 share per
+        expert (``[T, E]`` each on this device): the ``[2, E]`` sums
+        all-reduced over the token axes, divided by every device's tokens.
+        Their gradient flows back to each device's own sums."""
+        b, s = self.moe_token_axes(plan)
+        if not b + s:
+            return probs.mean(dim=0), top1.mean(dim=0)
+        comm, n = self.comm, self.size(b + s)
+        sums = _exchange(torch.stack([probs.sum(dim=0), top1.sum(dim=0)]),
+                         lambda t: comm.all_reduce(t, b + s), _identity)
+        means = sums / float(probs.shape[0] * n)
+        return means[0], means[1]
+
+    def moe_aux_share(self, aux: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
+        """This device's share of the whole batch's aux loss in the
+        objective: under a batch split each device reports ``aux / n`` (the
+        step's reported loss sums the devices' shares) with the whole
+        term's gradient (the step sums the gradients over the batch axes)."""
+        n = self.size(self.batch_axes)
+        if n == 1:
+            return aux
+        return _exchange(aux, lambda t: t / float(n), _identity)
+
+    def moe_rows(self, capacity: int, plan: ModulePlan) -> int:
+        """The rows an expert's buffer holds: the capacity rounded up to the
+        devices its capacity is split over (the rows past the capacity stay
+        zero, and so do their outputs)."""
+        _, _, cut_c, _, take_c = self._buffer_steps(plan)
+        n = self.size(cut_c + take_c)
+        return -(-capacity // n) * n
+
+    def moe_offsets(self, experts: torch.Tensor, num_experts: int, batch: int, plan: ModulePlan
+                    ) -> torch.Tensor | None:
+        """Each (token, slot) pair's count of earlier pairs of its expert on
+        other devices, ``[T, k]`` int64 (None when this device routes the
+        whole batch): the reference sorts the whole batch's pairs, in the
+        order of the global tokens ``[B, S]``, row-major.  A device holds
+        rows ``[B_loc]`` of the batch axes' chunk and columns ``[S_loc]`` of
+        the sequence axes' chunk, so an earlier pair sits on a device of an
+        earlier batch chunk, in an earlier row of this chunk on another
+        device, or in the same row on an earlier sequence chunk.  One
+        all-gather of each device's per-row counts ``[B_loc, E]`` int32."""
+        b_axes, s_axes = self.moe_token_axes(plan)
+        if not b_axes + s_axes:
+            return None
+        T, k = experts.shape
+        counts = torch.zeros(batch, num_experts, dtype=torch.int64, device=experts.device)
+        counts.scatter_add_(1, experts.reshape(batch, -1), torch.ones_like(experts.reshape(batch, -1)))
+        nb, ns = self.size(b_axes), self.size(s_axes)
+        every = self.comm.all_gather(counts.to(torch.int32)[None], 0, b_axes + s_axes)
+        every = every.to(torch.int64).view(nb, ns, batch, num_experts)
+        db, ds = self.index(b_axes), self.index(s_axes)
+        chunks = every.sum(dim=(1, 2))  # [nb, E]: each batch chunk's pairs
+        before = (chunks.cumsum(0) - chunks)[db]  # earlier batch chunks
+        mine = every[db]  # [ns, B_loc, E]
+        rows_before = mine.cumsum(1) - mine  # earlier rows, each sequence chunk
+        other_rows = rows_before.sum(0) - rows_before[ds]  # its own earlier rows: in its own positions
+        same_row = (mine.cumsum(0) - mine)[ds]  # the same row on earlier sequence chunks
+        per_row = before[None] + other_rows + same_row  # [B_loc, E]
+        row = torch.arange(T, device=experts.device) // (T // batch)
+        return per_row[row[:, None], experts]
+
     def _buffer_steps(self, plan: ModulePlan) -> tuple[tuple[str, ...], ...]:
-        """How the ``[E, C, d]`` buffer, built from a device's own tokens,
-        reaches the experts' layout: the axes over which a device takes its
-        experts (its tokens are those of every device there), swaps experts
-        for capacity (an all-to-all), gathers the capacity, and takes its
-        share of the capacity."""
-        tokens = self.batch_axes + (self.sp_axes if plan.moe_mode == "experts" else ())
+        """How the ``[E, C, d]`` buffer reaches the experts' layout.  Each
+        device writes its kept pairs at their places in the whole batch's
+        buffer, zero elsewhere, so the whole buffer is the sum over the
+        token axes: the axes over which a device takes its experts (its
+        tokens are those of every device there), reduce-scatters the experts
+        (token axes that split them), reduce-scatters the capacity (token
+        axes that split it), all-reduces (the other token axes), and takes
+        its share of the capacity."""
+        b, s = self.moe_token_axes(plan)
+        tokens = b + s
         experts = plan.axes if plan.moe_mode == "experts" else ()
         cap = plan.capacity_axes
         if cap is None:
             cap = tuple(a for a in tokens if a not in experts)
         return (tuple(a for a in experts if a not in tokens),
                 tuple(a for a in experts if a in tokens),
+                tuple(a for a in cap if a in tokens),
                 tuple(a for a in tokens if a not in experts and a not in cap),
                 tuple(a for a in cap if a not in tokens))
 
     def moe_dispatch(self, buf: torch.Tensor, plan: ModulePlan) -> torch.Tensor:
-        take_e, swap, gather_c, take_c = self._buffer_steps(plan)
+        take_e, cut_e, cut_c, summed, take_c = self._buffer_steps(plan)
         comm = self.comm
         if take_e:
             E = buf.shape[0]
             buf = _exchange(buf, lambda t: self._own(t, 0, take_e).contiguous(),
                             lambda g: self._placed(g, 0, take_e, E))
-        if swap:
-            buf = _exchange(buf, lambda t: comm.all_to_all(t, 0, 1, swap), lambda g: comm.all_to_all(g, 1, 0, swap))
-        if gather_c:
-            buf = _exchange(buf, lambda t: comm.all_gather(t, 1, gather_c), lambda g: self._own(g, 1, gather_c))
+        if cut_e:
+            buf = _exchange(buf, lambda t: comm.reduce_scatter(t, 0, cut_e), lambda g: comm.all_gather(g, 0, cut_e))
+        if cut_c:
+            buf = _exchange(buf, lambda t: comm.reduce_scatter(t, 1, cut_c), lambda g: comm.all_gather(g, 1, cut_c))
+        if summed:
+            buf = _exchange(buf, lambda t: comm.all_reduce(t, summed), _identity)
         if take_c:
-            C, n = buf.shape[1], self.size(take_c)
-            if C % n:
-                raise ValueError(f"the MoE buffer's capacity {C} does not split over {take_c}")
+            C = buf.shape[1]
             buf = _exchange(buf, lambda t: self._own(t, 1, take_c).contiguous(),
                             lambda g: self._placed(g, 1, take_c, C))
         return buf
 
     def moe_return(self, out: torch.Tensor, plan: ModulePlan, experts: int) -> torch.Tensor:
-        """The experts' outputs ``[E_local * C_local, d]`` back in the
-        layout of the device's own tokens' buffer, :meth:`moe_dispatch`
-        undone step by step."""
-        take_e, swap, gather_c, take_c = self._buffer_steps(plan)
-        if not (take_e or swap or gather_c or take_c):
+        """The experts' outputs ``[E_local * C_local, d]`` gathered to the
+        whole batch's ``[E * C, d]``, :meth:`moe_dispatch` undone step by
+        step.  A pair's output is read only by the device that holds its
+        token, so over the token axes each gather's gradient is summed back
+        (a reduce-scatter), and over the others it is the same on every
+        device and taken (a slice)."""
+        take_e, cut_e, cut_c, _, take_c = self._buffer_steps(plan)
+        if not (take_e or cut_e or cut_c or take_c):
             return out
         comm, d = self.comm, out.shape[-1]
         if plan.moe_mode == "experts":
@@ -687,10 +863,10 @@ class Program:
         out = out.reshape(experts, -1, d)
         if take_c:
             out = _exchange(out, lambda t: comm.all_gather(t, 1, take_c), lambda g: self._own(g, 1, take_c))
-        if gather_c:
-            out = _exchange(out, lambda t: self._own(t, 1, gather_c), lambda g: comm.all_gather(g, 1, gather_c))
-        if swap:
-            out = _exchange(out, lambda t: comm.all_to_all(t, 1, 0, swap), lambda g: comm.all_to_all(g, 0, 1, swap))
+        if cut_c:
+            out = _exchange(out, lambda t: comm.all_gather(t, 1, cut_c), lambda g: comm.reduce_scatter(g, 1, cut_c))
+        if cut_e:
+            out = _exchange(out, lambda t: comm.all_gather(t, 0, cut_e), lambda g: comm.reduce_scatter(g, 0, cut_e))
         if take_e:
             out = _exchange(out, lambda t: comm.all_gather(t, 0, take_e), lambda g: self._own(g, 0, take_e))
         return out.reshape(-1, d)
@@ -794,9 +970,19 @@ def decode_query(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
     return q if prog is None else prog.decode_query(q, prog.cache_seq_axes(cache))
 
 
-def decode_combine(o: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+def cache_span(cache: torch.Tensor) -> tuple[int, int]:
+    """(the first position this device holds, the whole cache's positions)
+    of a layer's KV cache ``[B, Hkv, S, D]``: ``(0, S)`` unless a program
+    splits its sequence."""
     prog = _PROGRAM
-    return o if prog is None else prog.decode_combine(o, prog.cache_seq_axes(cache))
+    return (0, cache.shape[2]) if prog is None else prog.cache_span(cache)
+
+
+def decode_combine(o: torch.Tensor, lse: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """The attention over this device's share of ``cache``'s keys, with its
+    softmax state, combined with every other share's."""
+    prog = _PROGRAM
+    return o if prog is None else prog.decode_combine(o, lse, prog.cache_seq_axes(cache))
 
 
 def cache_load(t: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
@@ -815,11 +1001,11 @@ def cache_store(dst: torch.Tensor, src: torch.Tensor) -> None:
         prog.cache_store(dst, src)
 
 
-def prompt_slice(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """A prompt's keys or values ``src`` cut to the positions a
-    sequence-split cache ``dst`` holds."""
+def prompt_slice(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor | None:
+    """The share of the cache ``dst`` that a prompt's keys or values ``src``
+    fill, where a program splits its sequence (None elsewhere)."""
     prog = _PROGRAM
-    return src if prog is None else prog.prompt_slice(dst, src)
+    return None if prog is None else prog.prompt_slice(dst, src)
 
 
 def lookup(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -835,6 +1021,54 @@ def logsumexp(pred: torch.Tensor) -> torch.Tensor:
 def pick(pred: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     prog = _PROGRAM
     return pred.gather(-1, targets[..., None])[..., 0] if prog is None else prog.pick(pred, targets)
+
+
+def _moe_plan(module: nn.Module) -> tuple[Program | None, ModulePlan | None]:
+    prog = _PROGRAM
+    return (None, None) if prog is None else (prog, prog.modules[id(module)])
+
+
+def moe_enter(x: torch.Tensor, module: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+    """A MoE block's input for its router and for its experts."""
+    prog, plan = _moe_plan(module)
+    return (x, x) if prog is None else prog.moe_enter(x, plan)
+
+
+def moe_token_devices(module: nn.Module) -> int:
+    """The devices whose tokens a MoE layer routes together (1: its own)."""
+    prog, plan = _moe_plan(module)
+    return 1 if prog is None else prog.moe_token_devices(plan)
+
+
+def moe_means(probs: torch.Tensor, top1: torch.Tensor, module: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole batch's per-expert means of ``probs`` and ``top1``."""
+    prog, plan = _moe_plan(module)
+    if prog is None:
+        return probs.mean(dim=0), top1.mean(dim=0)
+    return prog.moe_means(probs, top1, plan)
+
+
+def moe_aux_share(aux: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    prog, plan = _moe_plan(module)
+    return aux if prog is None else prog.moe_aux_share(aux, plan)
+
+
+def moe_gates(gates: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    prog, plan = _moe_plan(module)
+    return gates if prog is None else prog.moe_gates(gates, plan)
+
+
+def moe_rows(capacity: int, module: nn.Module) -> int:
+    """The rows of an expert's buffer for ``capacity``."""
+    prog, plan = _moe_plan(module)
+    return capacity if prog is None else prog.moe_rows(capacity, plan)
+
+
+def moe_offsets(experts: torch.Tensor, num_experts: int, batch: int, module: nn.Module) -> torch.Tensor | None:
+    """Each pair's count of earlier pairs of its expert on other devices
+    (None: the device routes the whole batch)."""
+    prog, plan = _moe_plan(module)
+    return None if prog is None else prog.moe_offsets(experts, num_experts, batch, plan)
 
 
 def moe_dispatch(buf: torch.Tensor, module: nn.Module) -> torch.Tensor:

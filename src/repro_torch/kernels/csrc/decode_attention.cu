@@ -54,6 +54,14 @@
 // even number of columns (DP / 32) of every row; cp.async copies only the D
 // columns of a row, and the product with v walks only D / 2 column pairs.
 // The combine runs D threads rounded up to whole warps.
+//
+// The state variant (decode_attention_state) runs the same two kernels and
+// also writes each row's softmax state lse = M + log(sum_s e^(m_s - M) l_s)
+// [B, H] f32 from the combine, the log of the row's softmax denominator:
+// a caller whose keys are split over devices combines the devices' outputs
+// by it (flash-decoding across devices).  A row with no visible key gets
+// kNeg (-1e30), so that it weighs nothing beside a device that has keys,
+// and an output of 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -310,6 +318,7 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
                                                 const float* __restrict__ part_ml,
                                                 const int* __restrict__ lengths,
                                                 T* __restrict__ o,  // [B, H, D]
+                                                float* __restrict__ lse,  // [B, H] or null
                                                 int H, int Hkv, int S, int D, int splits,
                                                 int chunk) {
   extern __shared__ float w[];  // [splits] weights, then [splits] l
@@ -338,6 +347,11 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
   for (int i = 0; i < (blockDim.x + 31) / 32; ++i) M = fmaxf(M, red[i]);
   for (int s = threadIdx.x; s < live; s += blockDim.x) w[s] = expf(w[s] - M);
   __syncthreads();
+  if (lse != nullptr && threadIdx.x == 0) {
+    float den = 0.f;
+    for (int s = 0; s < live; ++s) den = fmaf(w[s], ls[s], den);
+    lse[static_cast<size_t>(b) * H + h] = den > 0.f ? M + logf(den) : kNeg;
+  }
   if (threadIdx.x >= D) return;
 
   const float* acc = part_acc + (slot0 * G + g) * D + threadIdx.x;
@@ -352,8 +366,8 @@ __global__ void decode_attention_kernel_combine(const float* __restrict__ part_a
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* o,
-                   float* scratch, int B, int H, int Hkv, int S, int D, int splits, int chunk,
-                   float softcap, float scale, cudaStream_t stream) {
+                   float* lse, float* scratch, int B, int H, int Hkv, int S, int D, int splits,
+                   int chunk, float softcap, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
   const size_t smem = smem_bytes<T, DP>(G);
   cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, DP>,
@@ -380,27 +394,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, decode_attention_kernel_combine<T>, static_cast<const float*>(part_acc),
-                         static_cast<const float*>(part_ml), lengths, static_cast<T*>(o), H, Hkv, S,
-                         D, splits, chunk);
+                         static_cast<const float*>(part_ml), lengths, static_cast<T*>(o), lse, H, Hkv,
+                         S, D, splits, chunk);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* lengths,
-                     void* o, float* scratch, int B, int H, int Hkv, int S, int splits, int chunk,
-                     float softcap, float scale, cudaStream_t stream) {
+                     void* o, float* lse, float* scratch, int B, int H, int Hkv, int S, int splits,
+                     int chunk, float softcap, float scale, cudaStream_t stream) {
   if (!takes_head_dim(D)) return cudaErrorInvalidValue;
   switch (padded_width(D)) {
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
+      return launch<T, 64>(q, k, v, lengths, o, lse, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
+      return launch<T, 128>(q, k, v, lengths, o, lse, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     case 192:
-      return launch<T, 192>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
+      return launch<T, 192>(q, k, v, lengths, o, lse, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
     default:
-      return launch<T, 256>(q, k, v, lengths, o, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
+      return launch<T, 256>(q, k, v, lengths, o, lse, scratch, B, H, Hkv, S, D, splits, chunk, softcap, scale, stream);
   }
+}
+
+int launch_any(const void* q, const void* k, const void* v, const void* lengths, void* o, float* lse,
+               void* scratch, int B, int H, int Hkv, int S, int D, int splits, int chunk, int bf16,
+               float softcap, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* sc = static_cast<float*>(scratch);
+  const cudaError_t e =
+      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, len, o, lse, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s)
+           : launch_d<float>(D, q, k, v, len, o, lse, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -437,13 +463,17 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
                                 void* o, void* scratch, int B, int H, int Hkv, int S, int D,
                                 int splits, int chunk, int bf16, float softcap, float scale,
                                 void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  float* sc = static_cast<float*>(scratch);
-  const cudaError_t e =
-      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s)
-           : launch_d<float>(D, q, k, v, len, o, sc, B, H, Hkv, S, splits, chunk, softcap, scale, s);
-  return static_cast<int>(e);
+  return launch_any(q, k, v, lengths, o, nullptr, scratch, B, H, Hkv, S, D, splits, chunk, bf16, softcap,
+                    scale, stream);
+}
+
+// The same, and each row's softmax state into lse [B, H] f32.
+extern "C" int decode_attention_state(const void* q, const void* k, const void* v, const void* lengths,
+                                      void* o, void* lse, void* scratch, int B, int H, int Hkv, int S,
+                                      int D, int splits, int chunk, int bf16, float softcap, float scale,
+                                      void* stream) {
+  return launch_any(q, k, v, lengths, o, static_cast<float*>(lse), scratch, B, H, Hkv, S, D, splits, chunk,
+                    bf16, softcap, scale, stream);
 }
 
 extern "C" const char* cuda_error_string(int e) {

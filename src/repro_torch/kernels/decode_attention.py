@@ -21,6 +21,16 @@ softcapped where asked, and the softmax state is f32:
   :func:`~repro_torch.kernels.work.kernel_call` of
   :func:`~repro_torch.kernels.work.decode_attention_work`.
 
+The state variant, :func:`decode_attention_state_cuda` beside its plain
+version :func:`decode_attention_state_ref`, also returns each row's softmax
+state ``lse = m + log l`` ``[B, H]`` f32, the log of the softmax's
+denominator over the row's visible keys (:data:`_NEG` and an output of 0
+for a row with none): where a cache's keys are split over devices, each
+device attends to its own and the devices' outputs are combined by it
+(``distributed/program.py::decode_combine``).  It launches the same two
+device kernels, whose combine also writes the state, and counts its own
+launches (``decode_attention_state_cuda.launches``).
+
 :func:`decode_split_plan` is how the wrapper spreads the keys over blocks;
 it reads only shapes and the SM count, never the lengths on the device.
 Keys are unordered, so a ring-buffered window cache needs only its length.
@@ -91,6 +101,30 @@ def _launch_plan(B: int, H: int, Hkv: int, S: int, D: int, bf16: bool, device: i
     return decode_split_plan(B, Hkv, S, sm_count)
 
 
+def _decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                softcap: float | None, scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's output and softmax state (see the callers)."""
+    B, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    if S == 0:
+        return torch.zeros_like(q), torch.full((B, H), _NEG, dtype=torch.float32, device=q.device)
+    group = H // Hkv
+    qg = (q.float() * softmax_scale(D, scale)).reshape(B, Hkv, group, D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device, torch.long)[:, None]
+    valid = valid[:, None, None, :]  # [B, 1, 1, S]
+    s = torch.where(valid, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    lse = torch.where(l > 0.0, m + torch.log(l), _NEG).reshape(B, H)
+    l = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / l
+    return o.reshape(B, H, D).to(q.dtype), lse
+
+
 def decode_attention_ref(
     q: torch.Tensor,  # [B, H, D]
     k_cache: torch.Tensor,  # [B, Hkv, S, D]
@@ -104,24 +138,21 @@ def decode_attention_ref(
     logits of the query scaled by ``scale`` (``D**-0.5`` when None),
     softcap, masked max, ``p = exp(s - m)`` on the valid prefix only,
     ``(p v) / l`` with p in f32."""
-    B, H, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    if S == 0:
-        return torch.zeros_like(q)
-    group = H // Hkv
-    qg = (q.float() * softmax_scale(D, scale)).reshape(B, Hkv, group, D)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device, torch.long)[:, None]
-    valid = valid[:, None, None, :]  # [B, 1, 1, S]
-    s = torch.where(valid, s, _NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    l = torch.where(l == 0.0, 1.0, l)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / l
-    return o.reshape(B, H, D).to(q.dtype)
+    return _decode_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)[0]
+
+
+def decode_attention_state_ref(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache: torch.Tensor,  # [B, Hkv, S, D]
+    v_cache: torch.Tensor,  # [B, Hkv, S, D]
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_ref` and each row's softmax state ``m + log
+    l`` ``[B, H]`` f32 (:data:`_NEG` for a row with no visible key)."""
+    return _decode_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
 
 
 @functools.cache
@@ -131,11 +162,24 @@ def _library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [f32, f32, ptr]
     lib.decode_attention.restype = i32
+    lib.decode_attention_state.argtypes = [ptr] * 7 + [i32] * 8 + [f32, f32, ptr]
+    lib.decode_attention_state.restype = i32
     lib.decode_attention_smem.argtypes = [i32, i32, i32]
     lib.decode_attention_smem.restype = ctypes.c_longlong
     lib.decode_attention_max_smem.argtypes = []
     lib.decode_attention_max_smem.restype = ctypes.c_longlong
     return lib
+
+
+def _check_decode_args(q, k_cache, v_cache, lengths, softcap) -> None:
+    check_attention_args(q, k_cache, v_cache, q_dims=3, window=None, softcap=softcap)
+    B = q.shape[0]
+    if (lengths.device != q.device or lengths.dtype != torch.int32
+            or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
+        raise ValueError(
+            f"lengths: need contiguous int32 [{B}] on {q.device}, got {lengths.dtype} "
+            f"{tuple(lengths.shape)} on {lengths.device}"
+        )
 
 
 def decode_attention_cuda(
@@ -157,47 +201,73 @@ def decode_attention_cuda(
     take (:func:`check_decode_launch`), on a GQA group whose tiles exceed the card's
     shared memory and on grids beyond the launch limits.  The partial
     softmax states of the splits go to f32 scratch allocated here."""
-    check_attention_args(q, k_cache, v_cache, q_dims=3, window=None, softcap=softcap)
-    B, H, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    if (lengths.device != q.device or lengths.dtype != torch.int32
-            or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
-        raise ValueError(
-            f"lengths: need contiguous int32 [{B}] on {q.device}, got {lengths.dtype} "
-            f"{tuple(lengths.shape)} on {lengths.device}"
-        )
+    _check_decode_args(q, k_cache, v_cache, lengths, softcap)
     with work.kernel_call(lambda: work.decode_attention_work(q, k_cache, lengths)):
         if q.device.type == "cpu":
             return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
         if q.device.type == "meta":
-            check_decode_launch(B, Hkv, D)
+            check_decode_launch(q.shape[0], k_cache.shape[1], q.shape[2])
             return torch.empty_like(q)
-        return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
+        return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale, state=False)[0]
+
+
+def decode_attention_state_cuda(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache: torch.Tensor,  # [B, Hkv, S, D]
+    v_cache: torch.Tensor,  # [B, Hkv, S, D]
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_cuda` and each row's softmax state ``lse``
+    ``[B, H]`` f32 (module docstring): the kernel on the card (the same two
+    device kernels, the combine writing the state too), the plain version
+    :func:`decode_attention_state_ref` on the CPU, a shape function on meta,
+    with the same checks.  One :func:`~repro_torch.kernels.work.kernel_call`
+    a call, whose bytes count the state's write."""
+    _check_decode_args(q, k_cache, v_cache, lengths, softcap)
+    with work.kernel_call(lambda: work.decode_attention_work(q, k_cache, lengths, state=True)):
+        if q.device.type == "cpu":
+            return decode_attention_state_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
+        if q.device.type == "meta":
+            check_decode_launch(q.shape[0], k_cache.shape[1], q.shape[2])
+            return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+        return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale, state=True)
 
 
 def _on_card(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
-             softcap: float | None, scale: float | None) -> torch.Tensor:
-    """Plan and launch one decode call on the card of ``q``."""
+             softcap: float | None, scale: float | None, state: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plan and launch one decode call on the card of ``q``; with ``state``
+    the rows' softmax states too."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     with torch.cuda.device(q.device):  # the library queries the current card
         splits, chunk = _launch_plan(B, H, Hkv, S, D, q.dtype == torch.bfloat16, q.device.index)
     check_alignment(q, k_cache, v_cache)
     o = torch.empty_like(q)
+    lse = torch.empty(B, H, dtype=torch.float32, device=q.device) if state else None
     if o.numel() == 0:
-        return o
+        return o, lse
     scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
     lib = _library()
+    args = (B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16), 0.0 if softcap is None else softcap,
+            softmax_scale(D, scale), torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):  # the library launches on the current card
-        err = lib.decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            scratch.data_ptr(), B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16),
-            0.0 if softcap is None else softcap, softmax_scale(D, scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if state:
+            err = lib.decode_attention_state(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                             lengths.data_ptr(), o.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                                             *args)
+        else:
+            err = lib.decode_attention(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+                                       o.data_ptr(), scratch.data_ptr(), *args)
     _build.check(lib, err, "decode_attention launch")
-    decode_attention_cuda.launches += 1
-    return o
+    if state:
+        decode_attention_state_cuda.launches += 1
+    else:
+        decode_attention_cuda.launches += 1
+    return o, lse
 
 
 decode_attention_cuda.launches = 0
+decode_attention_state_cuda.launches = 0

@@ -67,8 +67,9 @@ def kernel_call(work: Callable[[], Work]) -> Iterator[None]:
 
 def collective(kind: str, nbytes: int) -> None:
     """Tell every listening counter of one exchange between devices: its
-    kind (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``)
-    and the bytes of its result on this device."""
+    kind (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+    ``collective-permute``, ``gather``) and the bytes of its result on this
+    device."""
     for c in LISTENERS:
         c.collective(kind, nbytes)
 
@@ -112,10 +113,12 @@ def flash_attention_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
                           kv_rows=B * Hkv * keys, dtype=q.dtype)
 
 
-def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor) -> Work:
+def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          state: bool = False) -> Work:
     """The decode kernel's work on ``q [B, H, D]`` against a cache ``[B,
     Hkv, S, D]``: each row sees its first ``lengths[b]`` keys (cut at S), or,
-    on meta, all S."""
+    on meta, all S; with ``state`` it also writes each row's softmax state
+    ``[B, H]`` f32."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     if lengths.device.type == "meta":
@@ -124,8 +127,9 @@ def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch
         with _disable_current_modes():  # the copy to the host is the counter's, not the step's
             host = lengths.detach().cpu().numpy().astype(np.int64)
         seen = int(np.clip(host, 0, S).sum())
-    return attention_work("decode_attention", B=B, H=H, Hkv=Hkv, D=D, q_rows=1, pairs=H * seen,
-                          kv_rows=Hkv * seen, dtype=q.dtype)
+    out = attention_work("decode_attention", B=B, H=H, Hkv=Hkv, D=D, q_rows=1, pairs=H * seen,
+                         kv_rows=Hkv * seen, dtype=q.dtype)
+    return dataclasses.replace(out, bytes=out.bytes + 4 * B * H) if state else out
 
 
 def ssd_scan_work(x: torch.Tensor, B_mat: torch.Tensor) -> Work:

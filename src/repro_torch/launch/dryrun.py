@@ -32,7 +32,13 @@ seconds the meta trace took, for the reference's ``lower_s`` and
 ``compile_s``), ``op_costs`` (for ``hlo_costs``: the counter's record),
 ``layout`` (how the attention, MLP and MoE compute: split over which axes,
 the kv heads' mode), ``top_scopes`` (bytes and FLOPs by module) and
-``kernel_launches`` (the four launch counters' change, always 0).
+``kernel_launches`` (the kernel wrappers' launch counters' change, always
+0).
+
+``build_cell(..., comm=)`` builds the same cells as one device's share of a
+real run over ``distributed/comm.py::DistComm``: a training step, a prefill
+and a decode cell that carries its cache from tick to tick, each counted
+alike, so that a real rank's counts can be held against the plan's.
 """
 
 from __future__ import annotations
@@ -97,15 +103,16 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _local_tree(tree, specs: Mapping[str, Spec], mesh: Mesh, prefix: str = ""):
-    """A cache (nested dicts and tuples of meta tensors) at one device's
-    shapes; the position kept."""
+def _local_tree(tree, specs: Mapping[str, Spec], mesh: Mesh, device: torch.device | str = "meta",
+                prefix: str = ""):
+    """A cache (nested dicts and tuples of tensors) at one device's shapes,
+    zeros on ``device`` (on meta, no data); the position kept."""
     if isinstance(tree, Mapping):
-        return {k: _local_tree(v, specs, mesh, f"{prefix}{k}/") for k, v in tree.items()}
+        return {k: _local_tree(v, specs, mesh, device, f"{prefix}{k}/") for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_local_tree(v, specs, mesh, f"{prefix}{i}/") for i, v in enumerate(tree))
+        return type(tree)(_local_tree(v, specs, mesh, device, f"{prefix}{i}/") for i, v in enumerate(tree))
     if isinstance(tree, torch.Tensor):
-        return _meta(local_shape(tuple(tree.shape), specs[prefix[:-1]], mesh), tree.dtype)
+        return torch.zeros(local_shape(tuple(tree.shape), specs[prefix[:-1]], mesh), dtype=tree.dtype, device=device)
     return tree
 
 
@@ -113,13 +120,15 @@ def _local_tree(tree, specs: Mapping[str, Spec], mesh: Mesh, prefix: str = ""):
 class Cell:
     """One device's step of a cell: ``run()`` runs it (the program and the
     hints installed), ``arguments`` are its inputs, ``params`` the model
-    (stored slices), ``program`` its layout."""
+    (stored slices), ``program`` its layout; a serving cell's ``cache`` is
+    its device's cache as the last run left it."""
 
-    run: Callable[[], object]
+    run: Callable[..., object]
     arguments: tuple
     params: torch.nn.Module
     program: D.Program
     kind: str
+    cache: dict | None = None
 
 
 def activation_spec(mesh: Mesh, policy: ShardingPolicy) -> tuple | None:
@@ -132,28 +141,88 @@ def activation_spec(mesh: Mesh, policy: ShardingPolicy) -> tuple | None:
     return (dp if len(dp) > 1 else dp[0], tp if len(tp) > 1 else (tp[0] if tp else None), None)
 
 
+def _draw_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int, seed: int,
+                device: torch.device) -> dict:
+    """Device ``rank``'s share of a cache of ``cache``'s global shapes filled
+    with standard normal values from ``seed``: each layer's slice of each
+    leaf drawn whole on ``device`` and cut, so the shares are those of one
+    whole cache and no device holds it whole."""
+    from repro_torch.distributed.comm import take_local
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"kv": [], "pos": cache["pos"]}
+    for i, slot in enumerate(cache["kv"]):
+        leaves = {}
+        for name, leaf in slot.items():
+            spec = specs[f"kv/{i}/{name}"]
+            layers = []
+            for _ in range(leaf.shape[0]):
+                whole = torch.randn(tuple(leaf.shape[1:]), generator=gen, device=device).to(leaf.dtype)
+                layers.append(take_local(whole, spec[1:], mesh, rank))
+                del whole
+            leaves[name] = torch.stack(layers)
+        out["kv"].append(leaves)
+    out["kv"] = tuple(out["kv"])
+    return out
+
+
+def _cut_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int, device: torch.device,
+               prefix: str = ""):
+    """Device ``rank``'s share of a whole cache (its tensors cut, on
+    ``device``; the position kept)."""
+    from repro_torch.distributed.comm import take_local
+
+    if isinstance(cache, Mapping):
+        return {k: _cut_cache(v, specs, mesh, rank, device, f"{prefix}{k}/") for k, v in cache.items()}
+    if isinstance(cache, (tuple, list)):
+        return type(cache)(_cut_cache(v, specs, mesh, rank, device, f"{prefix}{i}/") for i, v in enumerate(cache))
+    if isinstance(cache, torch.Tensor):
+        return take_local(cache.to(device), specs[prefix[:-1]], mesh, rank)
+    return cache
+
+
 def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingPolicy, *,
-               microbatches: int = 1, cfg=None, comm=None, source: torch.nn.Module | None = None,
+               microbatches: int = 1, cfg=None, comm=None,
+               source: torch.nn.Module | torch.Generator | None = None,
                batch: Mapping[str, torch.Tensor] | None = None, opt_cfg: adamw.AdamWConfig | None = None,
-               remat: bool = True) -> Cell:
+               remat: bool = True, cache: Mapping | int | Cell | None = None) -> Cell:
     """One device's step of ``arch`` at ``shape`` (a suite's name, or a
     suite of its own) on ``mesh`` under ``policy``, at the local shapes, on
     meta (``cfg``: another config of the architecture, e.g. one cut in
-    depth).
+    depth; ``batch``: inputs whose shapes replace the suite's, e.g. a prompt
+    shorter than a prefill suite's cache).
 
     With ``comm`` (``distributed/comm.py::DistComm``) the same cell is
-    device ``comm.rank``'s share of a real training step: ``source``, a
-    whole model of ``cfg``, is cut in place to the device's stored slices,
-    ``batch`` (whole) to its rows, and AdamW's state (``opt_cfg``) is made
-    at the local shapes on the model's device."""
+    device ``comm.rank``'s share of a real step.  ``source`` is a whole
+    model of ``cfg``, cut in place to the device's stored slices, or a
+    seeded ``torch.Generator`` on the device's card, from which the model is
+    drawn a module at a time and cut (``Program.localize``: a model that
+    fits no card).  ``batch`` (whole) is cut to the device's rows.
+
+    * ``train``: AdamW's state (``opt_cfg``) is made at the local shapes on
+      the model's device; ``run()`` steps on from the last run's state.
+    * ``prefill``: ``batch`` holds ``tokens [B, S]`` (and the family's
+      extras); the prompt's keys go into a zero cache of the suite's length
+      (``make_cache_shardings``); ``run()`` gives the last position's logits
+      in the layout of ``logits_sharding`` and the cache, kept in
+      ``cell.cache``.
+    * ``decode``: ``batch`` holds ``token [B]``, and ``cache`` is a seed (a
+      cache of the suite's length drawn from it, at its last position, so
+      that every row sees all its keys, as the plan on meta), a whole cache
+      (cut to the device's share), or a prefill cell whose model, program
+      and cache this cell continues; ``run(token=None)`` decodes ``token``
+      (whole ``[B]``; default ``batch``'s) and carries the cache to the next
+      run."""
     api = get_model(arch)
     cfg = cfg or api.config
     suite = SHAPES[shape] if isinstance(shape, str) else shape
     real = comm is not None
-    if real and (suite.kind != "train" or source is None or batch is None):
-        raise ValueError("a real backend runs a training step: give the whole model and batch")
-    params = source if real else api.param_specs(cfg)
-    if not real:
+    if real and (source is None and not isinstance(cache, Cell) or batch is None):
+        raise ValueError("a real backend runs a step of a given model and batch: give the whole model "
+                         "(or a seeded generator) and batch")
+    if real and suite.kind == "decode" and cache is None:
+        raise ValueError("a real decode cell needs a cache: a seed, a whole cache or a prefill cell")
+    if batch is None:
         batch = api.batch_specs(cfg, suite)
     bspecs = batch_shardings(mesh, cfg, batch, policy)
     if real:
@@ -162,11 +231,15 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
         local_batch = {k: take_local(x, bspecs[k], mesh, comm.rank) for k, x in batch.items()}
     else:
         local_batch = {k: _meta(local_shape(tuple(x.shape), bspecs[k], mesh), x.dtype) for k, x in batch.items()}
-    first = "token" if suite.kind == "decode" else "tokens"
-    batch_axes = axes_of(bspecs[first][0])
-    seq = 1 if suite.kind == "decode" else suite.seq_len + (cfg.num_patches if cfg.family == "vlm" else 0)
-    program = D.Program(mesh, policy, cfg, params, batch_axes=batch_axes, seq_len=seq, comm=comm)
-    program.localize(params, source=params if real else None)
+    if isinstance(cache, Cell):  # a decode continuing a prefill cell
+        params, program = cache.params, cache.program
+    else:
+        first = "token" if suite.kind == "decode" else "tokens"
+        batch_axes = axes_of(bspecs[first][0])
+        seq = 1 if suite.kind == "decode" else suite.seq_len + (cfg.num_patches if cfg.family == "vlm" else 0)
+        params = source if real and isinstance(source, torch.nn.Module) else api.param_specs(cfg)
+        program = D.Program(mesh, policy, cfg, params, batch_axes=batch_axes, seq_len=seq, comm=comm)
+        program.localize(params, source=source if real else None)
     lcfg = program.local_config()
 
     def installed():
@@ -190,10 +263,19 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
 
         return Cell(run, (params, opt_state, local_batch), params, program, "train")
 
-    cache = api.cache_specs(cfg, suite)
-    cspecs = make_cache_shardings(mesh, cfg, cache, policy)
-    local_cache = _local_tree(cache, cspecs, mesh)
-    program.add_cache(local_cache, cspecs)
+    whole_cache = api.cache_specs(cfg, suite)
+    cspecs = make_cache_shardings(mesh, cfg, whole_cache, policy)
+    device = next(params.parameters()).device  # meta for the plan
+    if isinstance(cache, Cell):
+        local_cache = cache.cache
+    elif not real or suite.kind == "prefill":
+        local_cache = _local_tree(whole_cache, cspecs, mesh, device)
+    elif isinstance(cache, int):
+        local_cache = _draw_cache(whole_cache, cspecs, mesh, comm.rank, cache, device)
+    else:
+        local_cache = _cut_cache(cache, cspecs, mesh, comm.rank, device)
+    if not isinstance(cache, Cell):
+        program.add_cache(local_cache, cspecs)
     B = suite.global_batch
     logits_spec = logits_sharding(mesh, cfg, B, policy)
     logits_shape = local_shape((B, cfg.vocab), logits_spec, mesh)
@@ -204,28 +286,38 @@ def build_cell(arch: str, shape: str | ShapeSuite, mesh: Mesh, policy: ShardingP
         def run():
             with installed(), torch.no_grad():
                 logits, out = api.prefill(params, local_batch["tokens"], local_cache, lcfg, **extras)
+                cell.cache = out
                 return program.to_layout(logits, logits_shape, logits_spec), out
 
-        return Cell(run, (params, local_batch, local_cache), params, program, "prefill")
+        cell = Cell(run, (params, local_batch, local_cache), params, program, "prefill", local_cache)
+        return cell
 
-    local_cache["pos"] = suite.seq_len - 1  # a full cache: every row sees all its keys
+    if not real or isinstance(cache, int):
+        local_cache["pos"] = suite.seq_len - 1  # a full cache: every row sees all its keys
 
-    def run():
+    def run(token: torch.Tensor | None = None):
+        tok = local_batch["token"]
+        if token is not None:
+            from repro_torch.distributed.comm import take_local
+
+            tok = take_local(token, bspecs["token"], mesh, comm.rank)
         with installed(), torch.no_grad():
-            logits, out = api.decode_step(params, local_batch["token"], local_cache, lcfg)
+            logits, out = api.decode_step(params, tok, cell.cache, lcfg)
+            cell.cache = out
             return program.to_layout(logits, logits_shape, logits_spec), out
 
-    return Cell(run, (params, local_batch["token"], local_cache), params, program, "decode")
+    cell = Cell(run, (params, local_batch["token"], local_cache), params, program, "decode", local_cache)
+    return cell
 
 
 def _launches() -> dict[str, int]:
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_state_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.makespan import population_makespan_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    return {f.__name__: f.launches for f in (flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda,
-                                             population_makespan_cuda)}
+    return {f.__name__: f.launches for f in (flash_attention_cuda, decode_attention_cuda, decode_attention_state_cuda,
+                                             ssd_scan_cuda, population_makespan_cuda)}
 
 
 def layout(program: D.Program) -> dict:

@@ -28,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import program as D
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_state_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.config import ModelConfig
 
@@ -245,7 +245,10 @@ def write_prompt_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
     ``dst [B, Hkv, cap, D]`` in place: positions ``0 .. S-1`` when they fit,
     else the last ``cap`` of them laid out as the ring buffer a decode step
     continues (position ``p`` at slot ``p % cap``)."""
-    src = D.prompt_slice(dst, src)
+    share = D.prompt_slice(dst, src)
+    if share is not None:  # a sequence split over devices: this device's share
+        dst.copy_(share)
+        return
     S, cap = src.shape[2], dst.shape[2]
     if S >= cap:
         dst.copy_(torch.roll(src[:, :, S - cap:], S % cap, dims=2))
@@ -271,7 +274,10 @@ def attention_decode(
     reference returns updated copies; writing in place saves a copy of the
     cache per layer and step), unless ``update_cache`` is False.  A
     window-sized cache is a ring buffer: the token goes to slot ``pos % S``
-    and at most ``S`` keys are visible."""
+    and at most ``S`` keys are visible.  Under a program that splits the
+    cache's sequence over devices, ``S`` is the whole cache's: the device
+    that holds the slot writes it, each device attends to the keys of its
+    share, and the shares' outputs are combined by their softmax states."""
     x = D.enter(x, p)
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)  # S == 1
@@ -281,15 +287,30 @@ def attention_decode(
         q = apply_rope(q, sin, cos)  # q, k [B, 1, H, D]; sin, cos [B, 1, D/2]
         k = apply_rope(k, sin, cos)
     S = k_cache.shape[2]
-    if update_cache:
+    first, S_all = D.cache_span(k_cache)  # the cache's sequence may be split over devices
+    if update_cache and S_all == S:
         slot = posb % S
         bidx = torch.arange(B, device=x.device)
         k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
-    lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
+    elif update_cache:  # the device that holds the global slot writes it
+        slot = posb % S_all - first
+        bidx = torch.arange(B, device=x.device)
+        mine = ((slot >= 0) & (slot < S))[:, None, None]
+        at = slot.clamp(0, S - 1)
+        k_cache[bidx, :, at] = torch.where(mine, k[:, 0].to(k_cache.dtype), k_cache[bidx, :, at])
+        v_cache[bidx, :, at] = torch.where(mine, v[:, 0].to(v_cache.dtype), v_cache[bidx, :, at])
+    if S_all == S:
+        lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
+    else:  # the keys of this device's share
+        lengths = torch.clamp(torch.clamp(posb + 1, max=S_all) - first, 0, S).to(torch.int32)
     q1 = D.decode_query(q[:, 0].contiguous(), k_cache)
     ka, va = D.kv_select(k_cache, v_cache, q1.shape[1])
-    o = D.decode_combine(decode_attention_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap), k_cache)
+    if S_all == S:
+        o = decode_attention_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap)
+    else:  # every share's attention combined by the softmax states
+        o, lse = decode_attention_state_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap)
+        o = D.decode_combine(o, lse, k_cache)
     o = o.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
     return D.exit(linear(p.o, o), p), k_cache, v_cache
 

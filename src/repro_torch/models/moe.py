@@ -98,12 +98,17 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], index[..., :k]
 
 
-def dispatch(experts: torch.Tensor, num_experts: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+def dispatch(experts: torch.Tensor, num_experts: int, capacity: int, *, rows: int | None = None,
+             offsets: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Where each (token, slot) pair goes: ``experts [T, k]`` -> (``slot [T,
-    k]``, the pair's row ``expert * C + position`` of the ``[E * C, d]``
-    buffer, ``keep [T, k]``, False for a pair past its expert's capacity).
-    Positions follow the stable sort of the flat expert ids, as the
-    reference's ``argsort(stable=True)`` and ``searchsorted(side="left")``."""
+    k]``, the pair's row ``expert * rows + position`` of the ``[E * rows,
+    d]`` buffer (``rows``: the capacity unless given), ``keep [T, k]``, False
+    for a pair past its expert's capacity).  Positions follow the stable
+    sort of the flat expert ids, as the reference's ``argsort(stable=True)``
+    and ``searchsorted(side="left")``, plus ``offsets [T, k]`` where given:
+    the pairs of the same expert that other devices hold earlier in the
+    whole batch."""
+    rows = capacity if rows is None else rows
     flat = experts.reshape(-1)
     order = torch.sort(flat, stable=True).indices
     se = flat[order]
@@ -112,8 +117,10 @@ def dispatch(experts: torch.Tensor, num_experts: int, capacity: int) -> tuple[to
     pos_sorted = torch.arange(flat.numel(), device=flat.device) - starts[se]
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted  # a permutation: each pair written once
+    if offsets is not None:
+        pos = pos + offsets.reshape(-1)
     keep = pos < capacity
-    slot = flat * capacity + torch.where(keep, pos, 0)
+    slot = flat * rows + torch.where(keep, pos, 0)
     return slot.view_as(experts), keep.view_as(experts)
 
 
@@ -154,24 +161,31 @@ def combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor, gates
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, d]`` -> (``y [B, S, d]`` in x's dtype, the aux loss, an
-    f32 scalar)."""
-    x = D.enter(x, p)
+    f32 scalar).  Under a sharded program the router reads the input with
+    no exchange and the experts read it entered, and a device whose tokens
+    are a share of the batch routes them as the whole batch's: the
+    capacity, each pair's position in its expert and the aux loss's means
+    are the whole batch's (``distributed/program.py``)."""
+    x_route, x = D.moe_enter(x, p)
     B, S, d = x.shape
     T, E = B * S, cfg.num_experts
     xt = x.reshape(T, d)
-    probs, gates, experts = route(p, xt, cfg)
+    probs, gates, experts = route(p, x_route.reshape(T, d), cfg)
 
     # Switch eq. 4-6: mean router probability times the top-1 share, per expert
     # a one-hot by comparison, as on every device (F.one_hot takes another
     # path on meta tensors, which the dry-run's count would see)
-    top1 = (experts[:, :1] == torch.arange(E, device=x.device)).float().mean(dim=0)
-    aux = cfg.aux_loss_coef * E * (probs.mean(dim=0) * top1).sum()
+    top1 = (experts[:, :1] == torch.arange(E, device=x.device)).float()
+    me, ce = D.moe_means(probs, top1, p)
+    aux = D.moe_aux_share(cfg.aux_loss_coef * E * (me * ce).sum(), p)
 
-    C = moe_capacity(cfg, T)
-    slot, keep = dispatch(experts, E, C)
-    buf = D.moe_dispatch(hints.constrain_moe_buffer(scatter(xt, slot, keep, E, C)), p)
+    C = moe_capacity(cfg, T * D.moe_token_devices(p))
+    rows = D.moe_rows(C, p)
+    slot, keep = dispatch(experts, E, C, rows=rows, offsets=D.moe_offsets(experts, E, B, p))
+    buf = D.moe_dispatch(hints.constrain_moe_buffer(scatter(xt, slot, keep, E, rows)), p)
     out_buf = D.moe_return(experts_ffn(p, buf), p, E)
-    return D.exit(combine(out_buf, slot, keep, gates, experts).reshape(B, S, d), p), aux
+    y = combine(out_buf, slot, keep, D.moe_gates(gates, p), experts)
+    return D.exit(y.reshape(B, S, d), p), aux
 
 
 def moe_ffn_dense_ref(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

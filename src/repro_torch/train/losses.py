@@ -51,8 +51,9 @@ def next_token_loss(
         metrics["moe_aux"] = aux_loss
     metrics["loss"] = loss
     # ``loss`` is this device's share of the objective; the reported terms
-    # are the sums of every device's shares (the MoE aux term is each
-    # device's own: ROADMAP Queue C)
-    summed = [k for k in ("nll", "z_loss", "loss") if k in metrics]
+    # are the sums of every device's shares (a MoE layer's aux term is the
+    # whole batch's, of which each device's share is its ``1 / n``:
+    # ``program.moe_aux_share``)
+    summed = [k for k in ("nll", "z_loss", "moe_aux", "loss") if k in metrics]
     metrics.update(zip(summed, D.batch_sum(*(metrics[k] for k in summed))))
     return loss, metrics

@@ -254,3 +254,85 @@ def test_decode_wrapper_refuses(bad):
     q, k, v, n = bad(q, k, v, torch.tensor([4, 16], dtype=torch.int32))
     with pytest.raises(ValueError):
         decode_attention_cuda(q, k, v, n)
+
+
+# -----------------------------------------------------------------------------
+# the state variant and the combine of shares
+# -----------------------------------------------------------------------------
+
+
+def _direct_softmax(q, k, v, lengths):
+    """Decode attention and its log-denominator by a direct f32 softmax over
+    each row's visible keys (f64 products, then f32)."""
+    B, H, D = q.shape
+    G = H // k.shape[1]
+    o = torch.zeros(B, H, D)
+    lse = torch.full((B, H), -1e30)
+    for b in range(B):
+        n = int(lengths[b])
+        for h in range(H):
+            if n == 0:
+                continue
+            s = (k[b, h // G, :n].double() @ q[b, h].double()) * D ** -0.5
+            lse[b, h] = float(torch.logsumexp(s, 0))
+            o[b, h] = (torch.softmax(s, 0) @ v[b, h // G, :n].double()).float()
+    return o, lse
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(4, 2, 16), (16, 2, 128), (32, 8, 128)],
+                         ids=["reduced", "qwen2.5-3b", "mixtral-8x7b"])
+def test_decode_state_variant_is_a_direct_softmax(H, Hkv, D):
+    """``decode_attention_state_ref`` / ``decode_attention_state_cuda`` on
+    the CPU: the output equals ``decode_attention_ref``'s bit for bit, and
+    both it and ``lse`` equal a direct f32 softmax over the visible keys; a
+    row with none gives 0 and -1e30, and no launch is counted."""
+    from repro_torch.kernels.decode_attention import decode_attention_state_cuda, decode_attention_state_ref
+
+    _, (q, k, v) = _inputs(12, [(3, H, D), (3, Hkv, 40, D), (3, Hkv, 40, D)], "float32")
+    lengths = torch.tensor([0, 17, 40], dtype=torch.int32)
+    before = decode_attention_state_cuda.launches
+    o, lse = decode_attention_state_cuda(q, k, v, lengths)
+    assert decode_attention_state_cuda.launches == before
+    o_ref, lse_ref = decode_attention_state_ref(q, k, v, lengths)
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    assert torch.equal(o, decode_attention_ref(q, k, v, lengths))
+    o_dir, lse_dir = _direct_softmax(q, k, v, lengths)
+    np.testing.assert_allclose(o.numpy(), o_dir.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), lse_dir.numpy(), atol=1e-5, rtol=1e-5)
+    assert lse.dtype == torch.float32 and bool((o[0] == 0).all()) and bool((lse[0] == -1e30).all())
+
+
+class _StackedComm:
+    """Every device's tensors at once, stacked on a leading axis: an
+    all-reduce is the reduction over it."""
+
+    def all_reduce(self, x, axes, op="sum"):
+        y = x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+        return y.expand_as(x)
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(4, 2, 16), (16, 2, 128)], ids=["reduced", "qwen2.5-3b"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_the_combine_of_n_shares_is_the_whole(H, Hkv, D, n):
+    """The keys split into ``n`` shares, each attended to by the state
+    variant's plain version and combined by ``Program.decode_combine``:
+    the whole cache's attention within 2e-6, with rows whose keys end in
+    the first share (the later shares empty)."""
+    from repro_torch.distributed.program import Program
+    from repro_torch.kernels.decode_attention import decode_attention_state_ref
+
+    S = 64
+    _, (q, k, v) = _inputs(13, [(4, H, D), (4, Hkv, S, D), (4, Hkv, S, D)], "float32")
+    lengths = torch.tensor([1, S // n - 1, S // 2 + 3, S], dtype=torch.int32)
+    share = S // n
+    parts = [decode_attention_state_ref(q, k[:, :, i * share:(i + 1) * share].contiguous(),
+                                        v[:, :, i * share:(i + 1) * share].contiguous(),
+                                        torch.clamp(lengths - i * share, 0, share).to(torch.int32))
+             for i in range(n)]
+    o = torch.stack([p[0] for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    holder = type("Holder", (), {"comm": _StackedComm(), "_head_seq_axes": staticmethod(lambda axes: ())})()
+    got = Program.decode_combine(holder, o, lse, ("model",))
+    want = decode_attention_ref(q, k, v, lengths)
+    for i in range(n):
+        np.testing.assert_allclose(got[i].numpy(), want.numpy(), atol=2e-6, rtol=2e-6)

@@ -8,19 +8,25 @@ each test reads its part:
 * eight ranks: the reduced qwen2.5-3b train step in f32 on (2, 4) under
   ``baseline`` (whole query heads a device, kv heads gathered, the
   vocabulary split), on (4, 2) and on (2, 4) under ``seqpar`` with the
-  activation hint; each rank-aware body alone; every slice gathered whole;
+  activation hint; the reduced qwen3-moe-30b-a3b's step on (8, 1) and (2,
+  4) (the batch split: the whole batch's routing) and with 6 experts on (2,
+  4) (an ffn split); the reduced qwen2.5-3b served on (2, 4) under
+  ``serve-tp``; each rank-aware body alone; every slice gathered whole;
   ``compressed_psum_pod`` on (pod 4, x 2); a save under (2, 4) restored
-  under (4, 2);
-* four ranks: the step on (1, 4), the batch not split, and the pipeline
-  on four stages.
+  under (4, 2); the MoE aux loss and a binding capacity under a batch split;
+* four ranks: the step on (1, 4), the batch not split, of the reduced
+  qwen2.5-3b and qwen3-moe-30b-a3b (experts over model); the reduced
+  qwen2.5-3b and mixtral-8x7b served on (1, 4) (the cache's sequence split,
+  mixtral's ring-buffered window too); the decode combine with empty
+  shares; and the pipeline on four stages.
 
 The reference's side (``devices_indices_map``, ``compressed_psum_pod`` and
-``pipeline_forward`` on 8 forced devices; and its sharded train step,
-``tests/test_distributed.py:142``, on the port's weights and tokens for
-each case, beside the groups) runs in children of
-``tests/torch_reference.py``.  The dry-run's pinned cells, counted before
-the sharded step came, must not move; and a step with no program gives the
-bits it gave then.
+``pipeline_forward`` on 8 forced devices; its sharded train step,
+``tests/test_distributed.py:142``, and its dry-run's jitted ``prefill_fn``
+and ``decode_fn``, on the port's weights and tokens for each case, beside
+the groups) runs in children of ``tests/torch_reference.py``.  The
+dry-run's pinned cells must not move but where a repair moved them; and a
+step with no program gives the bits it gave then.
 """
 
 import concurrent.futures
@@ -52,6 +58,13 @@ SLICE_CASES = [
 EIGHT = [("2x4", (2, 4), "baseline", False), ("4x2", (4, 2), "baseline", True),
          ("2x4-seqpar", (2, 4), "seqpar", True)]
 FOUR = [("1x4", (1, 4), "baseline", True)]
+MOE = "qwen3-moe-30b-a3b"
+MOE_EIGHT = [("moe-8x1", (8, 1), "baseline", False, MOE, None), ("moe-2x4", (2, 4), "baseline", True, MOE, None),
+             ("moe-ffn-2x4", (2, 4), "baseline", False, MOE, {"num_experts": 6})]
+MOE_FOUR = [("moe-1x4", (1, 4), "baseline", False, MOE, None)]
+SERVE_EIGHT = [("serve-qwen-2x4", "qwen2.5-3b", (2, 4), "serve-tp")]
+SERVE_FOUR = [("serve-qwen-1x4", "qwen2.5-3b", (1, 4), "serve-tp"),
+              ("serve-mixtral-1x4", "mixtral-8x7b", (1, 4), "serve-tp")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,22 +82,33 @@ def reference():
 
 @pytest.fixture(scope="module")
 def groups(reference, tmp_path_factory):
-    """Each rank's outputs of the eight- and the four-rank group, and
-    (``steps``) the reference's sharded steps of the same cases on the same
-    weights and tokens, run beside them."""
+    """Each rank's outputs of the eight- and the four-rank group, and the
+    reference's sharded steps (``steps``) and jitted serving steps
+    (``serve``) of the same cases on the same weights and tokens, run
+    beside them."""
     inputs = {"slice_cases": np.array(json.dumps(SLICE_CASES)), **{k: reference[k] for k in
               ("psum_x", "pipe_w", "pipe_x")}}
-    _, _, params, tokens = G.reduced_qwen()
+    _, _, params, tokens = G.reduced()
     weights = {f"qwen/{k}": p.detach().numpy() for k, p in params.named_parameters()}
+    for name, _, _, _, arch, overrides in MOE_EIGHT + MOE_FOUR:
+        weights.update({f"{name}/{k}": p.detach().numpy() for k, p in G.reduced(arch, overrides)[2].named_parameters()})
+    served = {}
+    for name, arch, _, _ in SERVE_EIGHT + SERVE_FOUR:
+        prompt, _, ticks, _ = G.serve_single(arch)
+        served.update({f"{name}/w/{k}": p.detach().numpy() for k, p in G.reduced(arch)[2].named_parameters()})
+        served[f"{name}/prompt"], served[f"{name}/tokens"] = prompt.numpy(), ticks.numpy()
     out = {}
-    with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        steps = ex.submit(R.run, "sharded_steps", {"train_cases": EIGHT + FOUR},
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        steps = ex.submit(R.run, "sharded_steps", {"train_cases": EIGHT + FOUR + MOE_EIGHT + MOE_FOUR},
                           {**weights, "qwen_tokens": tokens.numpy()}, timeout=300, devices=8)
-        for name, world, cases in (("eight", 8, EIGHT), ("four", 4, FOUR)):
+        serve = ex.submit(R.run, "sharded_serve", {"serve_cases": SERVE_EIGHT + SERVE_FOUR,
+                                                   "max_len": G.SERVE["max_len"]}, served, timeout=300, devices=8)
+        for name, world, cases, serving in (("eight", 8, EIGHT + MOE_EIGHT, SERVE_EIGHT),
+                                            ("four", 4, FOUR + MOE_FOUR, SERVE_FOUR)):
             tmp = tmp_path_factory.mktemp(name)
             np.savez(tmp / "inputs.npz", **inputs)
-            out[name] = G.run_group(name, world, {"cases": cases}, tmp)
-        out["steps"] = steps.result()
+            out[name] = G.run_group(name, world, {"cases": cases, "serve": serving}, tmp)
+        out["steps"], out["serve"] = steps.result(), serve.result()
     return out
 
 
@@ -122,7 +146,7 @@ def test_every_slice_is_the_references(case, reference, groups):
 
 
 def _case(groups, name):
-    group = "four" if name in [c[0] for c in FOUR] else "eight"
+    group = "four" if name in [c[0] for c in FOUR + MOE_FOUR + SERVE_FOUR] else "eight"
     return [{k.split("/", 1)[1]: v for k, v in r.items() if k.startswith(name + "/")} for r in groups[group]]
 
 
@@ -155,13 +179,45 @@ def test_sharded_train_step_equals_the_references_sharded_step(name, groups):
             np.testing.assert_allclose(got[k], w, atol=G.TOL["atol"], rtol=G.TOL["rtol"], err_msg=f"{rank} {k}")
 
 
-@pytest.mark.parametrize("name", [c[0] for c in EIGHT + FOUR])
+@pytest.mark.parametrize("name", [c[0] for c in EIGHT + FOUR + MOE_EIGHT + MOE_FOUR])
 def test_every_rank_counts_the_dry_runs_plan(name, groups):
     """The first sharded step counted on each rank: its argument bytes,
     FLOPs, kernel calls and exchanges by kind equal the dry-run's cell of
     the same config and mesh on meta, exactly."""
     for rank, r in enumerate(_case(groups, name)):
         assert json.loads(str(r["counted"])) == json.loads(str(r["plan"])), rank
+
+
+@pytest.mark.parametrize("name", [c[0] for c in MOE_EIGHT + MOE_FOUR])
+def test_sharded_moe_train_step_equals_the_single_device_and_the_references(name, groups):
+    """The reduced qwen3-moe-30b-a3b in f32, experts over model on (1, 4),
+    the batch split on (8, 1) and (2, 4), and with 6 experts the ffn columns
+    over model on (2, 4): two AdamW steps, every rank's losses within 1e-4
+    of one device's and of the reference's sharded step, the first
+    gradients and the parameters after two steps, gathered whole, within
+    atol 2e-4, rtol 2e-3 of one device's, and the parameters of the
+    reference's."""
+    ref = groups["steps"]
+    want = {k.split("/p/", 1)[1]: v for k, v in ref.items() if k.startswith(f"train/{name}/p/")}
+    for rank, r in enumerate(_case(groups, name)):
+        np.testing.assert_allclose(r["losses"], r["single_losses"], atol=G.TOL["loss"], rtol=0, err_msg=str(rank))
+        np.testing.assert_allclose(r["losses"], ref[f"train/{name}/losses"], atol=G.TOL["loss"], rtol=0,
+                                   err_msg=str(rank))
+        assert bool(r["grads_close"]), (rank, float(r["grad_max_err"]))
+        assert bool(r["params_close"]), (rank, float(r["param_max_err"]))
+        got = {k.split("/", 1)[1]: v for k, v in r.items() if k.startswith("whole/")}
+        assert sorted(got) == sorted(want), rank
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, atol=G.TOL["atol"], rtol=G.TOL["rtol"], err_msg=f"{rank} {k}")
+
+
+def test_the_moe_layouts_are_the_ones_named(groups):
+    """Experts over model on (1, 4) and (2, 4), the ffn columns with 6
+    experts, the MoE whole on every device of (8, 1)."""
+    want = {"moe-1x4": "experts", "moe-2x4": "experts", "moe-ffn-2x4": "ffn", "moe-8x1": "whole"}
+    for name, mode in want.items():
+        for r in _case(groups, name):
+            assert mode in json.loads(str(r["layout"]))["modules"], (name, str(r["layout"]))
 
 
 def test_the_layouts_are_the_ones_named():
@@ -223,20 +279,100 @@ def test_global_norm_counts_a_replicated_leaf_once(groups):
         assert float(r["bodies/global_norm_err"]) <= 1e-6 * float(r["bodies/global_norm"])
 
 
-def test_training_a_moe_split_over_devices_is_refused(groups):
-    """The plan's backward of a MoE layer split over devices sums every
-    device's copy of the router's gradient (ROADMAP Queue C): a real
-    backend refuses the step rather than train on it."""
-    assert all(bool(r["moe/tp_refused"]) for r in groups["eight"])
+def test_the_moe_aux_loss_under_a_batch_split_is_the_whole_batchs(groups):
+    """(8, 1), a row a device: every device's aux loss is the load-balance
+    statistic of the whole batch's tokens, as the reference's one global
+    step takes it, not of its own row; its share of the reported loss sums
+    over the devices to the whole batch's loss."""
+    rows = groups["eight"]
+    for r in rows:
+        assert abs(float(r["moe/aux"]) - float(r["moe/aux_whole_batch"])) <= 1e-6 * abs(float(r["moe/aux_whole_batch"]))
+        assert abs(float(r["moe/loss"]) - float(r["moe/loss_whole_batch"])) <= 1e-5
+    assert any(abs(float(r["moe/aux_own_row"]) - float(r["moe/aux_whole_batch"])) > 1e-4 for r in rows)
 
 
-def test_the_moe_aux_loss_under_a_batch_split_is_each_devices_own(groups):
-    """(8, 1), a row a device: each device's aux loss is the load-balance
-    statistic of its own tokens, not the whole batch's as in the reference
-    (ROADMAP Queue C)."""
-    for r in groups["eight"]:
-        assert abs(float(r["moe/aux"]) - float(r["moe/aux_own_rows"])) <= 1e-6 * abs(float(r["moe/aux_own_rows"]))
-    assert any(abs(float(r["moe/aux"]) - float(r["moe/aux_whole_batch"])) > 1e-4 for r in groups["eight"])
+def test_a_device_keeps_more_than_its_share_of_an_experts_capacity(groups):
+    """One MoE layer at a capacity factor of 0.5 under (8, 1): the whole
+    batch's capacity drops pairs, some device keeps more of one expert's
+    pairs than an even share of the capacity, and every device's output
+    and aux loss equal those of the layer over the whole batch."""
+    rows = groups["eight"]
+    assert all(int(r["moe/dropped"]) > 0 for r in rows)
+    assert any(int(r["moe/kept_most"]) > float(r["moe/share"]) for r in rows)
+    for r in rows:
+        assert float(r["moe/layer_err"]) <= 1e-6, float(r["moe/layer_err"])
+        assert float(r["moe/layer_aux_err"]) <= 1e-6, float(r["moe/layer_aux_err"])
+
+
+# -----------------------------------------------------------------------------
+# sharded serving
+# -----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [c[0] for c in SERVE_EIGHT + SERVE_FOUR])
+def test_sharded_serving_equals_one_device_and_the_references_jitted_steps(name, groups):
+    """A prefill of 4 prompts of 5 tokens and 4 greedy ticks under
+    ``serve-tp``: every rank's logits, in the layout of ``logits_sharding``
+    and gathered whole, within 1e-4 of one device's on the same weights
+    and tokens, and of the reference's ``jax.jit(prefill_fn / decode_fn,
+    in_shardings=...)`` on 8 CPU devices; a decode cell built from one
+    device's whole cache after the prefill gives the first tick's too."""
+    from repro_torch.distributed.comm import take_local
+
+    ref = groups["serve"][f"serve/{name}/logits"]
+    shape = dict((c[0], c[2]) for c in SERVE_EIGHT + SERVE_FOUR)[name]
+    mesh = make_mesh(shape, ("data", "model"))
+    for rank, r in enumerate(_case(groups, name)):
+        spec = tuple(tuple(e) if isinstance(e, list) else e for e in json.loads(str(r["logits_spec"])))
+        assert float(r["whole_cache_err"]) <= G.TOL["loss"], (rank, float(r["whole_cache_err"]))
+        for i in range(1 + G.SERVE["ticks"]):
+            assert float(r[f"err_{i}"]) <= G.TOL["loss"], (rank, i, float(r[f"err_{i}"]))
+            np.testing.assert_allclose(r[f"logits_{i}"], ref[i], atol=G.TOL["loss"], rtol=0, err_msg=f"{rank} {i}")
+            want = take_local(torch.from_numpy(r[f"logits_{i}"]), spec, mesh, rank).numpy()
+            assert np.array_equal(r[f"local_{i}"], want), (rank, i)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in SERVE_EIGHT + SERVE_FOUR])
+def test_every_rank_counts_the_serving_plan(name, groups):
+    """The prefill, and a tick at a full cache drawn from a seed, counted on
+    each rank: argument bytes, FLOPs, kernel calls and exchanges by kind
+    equal the dry-run's prefill and decode cells on meta, exactly."""
+    for rank, r in enumerate(_case(groups, name)):
+        assert json.loads(str(r["prefill_counted"])) == json.loads(str(r["prefill_plan"])), rank
+        assert json.loads(str(r["decode_counted"])) == json.loads(str(r["decode_plan"])), rank
+        assert json.loads(str(r["decode_counted"]))["collective_counts"]["all-reduce"] > 0, rank
+
+
+def test_the_decode_combine_weighs_an_empty_share_nothing(groups):
+    """Four shares of 8 keys each and rows of 5, 12 and 30 keys: the shares
+    past a row's keys have the state -1e30 and an output of 0, and the
+    combined attention equals the whole cache's; the reduced qwen2.5-3b's
+    cache splits its 32 positions over the four ranks, so its prefill of 5
+    tokens leaves three shares empty."""
+    rows = groups["four"]
+    assert sum(int(r["combine/empty_rows"]) for r in rows) > 0
+    for r in rows:
+        assert float(r["combine/err"]) <= 1e-6, float(r["combine/err"])
+        if int(r["combine/empty_rows"]):
+            assert float(r["combine/lse_empty"]) <= -1e29
+    for rank, r in enumerate(_case(groups, "serve-qwen-1x4")):
+        assert json.loads(str(r["seq_axes"])) == ["model"]
+        first, whole = (int(x) for x in r["cache_span"])
+        assert whole == G.SERVE["max_len"] and first == rank * whole // 4
+
+
+def test_the_ring_buffered_window_split_over_devices_serves_past_its_window(groups):
+    """The reduced mixtral-8x7b's window of 8 is a ring buffer of 8 slots,
+    2 a rank on (1, 4); the prompt and the ticks pass it, and every step's
+    logits stay within 1e-4 of one device's."""
+    from repro_torch.models.registry import get_model
+
+    window = get_model("mixtral-8x7b").reduced.window
+    assert G.SERVE["prompt"] + G.SERVE["ticks"] > window
+    for rank, r in enumerate(_case(groups, "serve-mixtral-1x4")):
+        assert json.loads(str(r["seq_axes"])) == ["model"]
+        assert [int(x) for x in r["cache_span"]] == [rank * window // 4, window]
+        assert max(float(r[f"err_{i}"]) for i in range(1 + G.SERVE["ticks"])) <= G.TOL["loss"]
 
 
 # -----------------------------------------------------------------------------
@@ -298,7 +434,8 @@ def test_a_save_under_one_mesh_restores_under_another_bit_for_bit(reference, gro
 # -----------------------------------------------------------------------------
 
 #: the dry-run's counts of these cells, recorded before the sharded step
-#: (argument bytes, FLOPs, bytes, peak and exchanges by kind)
+#: (argument bytes, FLOPs, bytes, peak and exchanges by kind); the dense
+#: cells must not move
 PINNED = {
     ("qwen2.5-3b", (2, 2)): {
         "flops": 24258479774915.0, "bytes": 417313976078.0, "argument_bytes": 8494118916,
@@ -311,24 +448,47 @@ PINNED = {
         "peak_bytes": 11748497460,
         "collective_bytes": {"all-reduce": 3053502416.0, "all-gather": 301989888.0, "reduce-scatter": 37748736.0},
         "collective_counts": {"all-reduce": 185.0, "all-gather": 144.0, "reduce-scatter": 72.0}},
+    # re-pinned when its MoE layers came to route the whole batch's tokens
+    # (the global capacity, positions and aux loss; the buffer summed over
+    # the token axes in place of the all-to-all): see CHANGES.md
     ("qwen3-moe-30b-a3b", (2, 2, 4)): {
-        "flops": 68290311.0, "bytes": 28902784.0, "argument_bytes": 204932, "peak_bytes": 652700,
-        "collective_bytes": {"all-gather": 835584.0, "reduce-scatter": 122880.0, "all-to-all": 294912.0,
-                             "all-reduce": 44624.0},
-        "collective_counts": {"all-gather": 56.0, "reduce-scatter": 30.0, "all-to-all": 12.0, "all-reduce": 26.0}},
+        "flops": 62760879.0, "bytes": 32367968.0, "argument_bytes": 204932, "peak_bytes": 1134940,
+        "collective_bytes": {"all-gather": 3067904.0, "all-reduce": 212816.0, "reduce-scatter": 878592.0},
+        "collective_counts": {"all-gather": 66.0, "all-reduce": 34.0, "reduce-scatter": 42.0}},
+    # dense and SSM cells, recorded on the commit before the MoE repairs: the
+    # reduced configs' training step at 16 x 64 under ``baseline``
+    ("mamba2-780m", (2, 4)): {
+        "flops": 305831963.0, "bytes": 200700604.0, "argument_bytes": 101396, "peak_bytes": 7212044,
+        "collective_bytes": {"all-gather": 309632.0, "all-reduce": 139344.0, "reduce-scatter": 34048.0},
+        "collective_counts": {"all-gather": 34.0, "all-reduce": 20.0, "reduce-scatter": 6.0}},
+    ("zamba2-7b", (2, 4)): {
+        "flops": 717471397.0, "bytes": 447937756.0, "argument_bytes": 252580, "peak_bytes": 7494556,
+        "collective_bytes": {"all-gather": 684800.0, "all-reduce": 797056.0, "reduce-scatter": 80384.0},
+        "collective_counts": {"all-gather": 94.0, "all-reduce": 46.0, "reduce-scatter": 24.0}},
+    ("gemma2-2b", (2, 4)): {
+        "flops": 215091245.0, "bytes": 190422948.0, "argument_bytes": 217732, "peak_bytes": 3560992,
+        "collective_bytes": {"all-gather": 688128.0, "all-reduce": 1712160.0, "reduce-scatter": 110592.0},
+        "collective_counts": {"all-gather": 74.0, "all-reduce": 46.0, "reduce-scatter": 38.0}},
 }
 
 
 @pytest.mark.parametrize("arch,shape", list(PINNED))
 def test_the_dry_runs_pinned_cells_have_not_moved(arch, shape):
     """qwen2.5-3b's training step at 4 x 1024 under ``baseline`` on (2, 2)
-    and (1, 4), full width and depth, and the reduced qwen3-moe's under
-    ``seqpar-ep`` on (2, 2, 4) (16 x 64): every count equal, exactly."""
+    and (1, 4), full width and depth; the reduced qwen3-moe's under
+    ``seqpar-ep`` on (2, 2, 4) (16 x 64, re-pinned with the MoE repairs);
+    the reduced mamba2-780m's, zamba2-7b's and gemma2-2b's under
+    ``baseline`` on (2, 4) (16 x 64), which the MoE repairs must not move:
+    every count equal, exactly."""
     from repro_torch.models.registry import get_model
 
     if arch == "qwen2.5-3b":
         cell = dryrun.build_cell(arch, ShapeSuite("train_4x1024", "train", 1024, 4),
                                  make_mesh(shape, ("data", "model")), dryrun.POLICIES["baseline"])
+        _, c = dryrun.count_cell(cell, scopes=False)
+    elif arch != MOE:
+        cell = dryrun.build_cell(arch, ShapeSuite("x", "train", 64, 16), make_mesh(shape, ("data", "model")),
+                                 dryrun.POLICIES["baseline"], cfg=get_model(arch).reduced)
         _, c = dryrun.count_cell(cell, scopes=False)
     else:
         with hints.moe_buffer_pspec(dryrun.MOE_BUFFER_SPEC):

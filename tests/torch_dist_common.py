@@ -99,29 +99,39 @@ def _inputs(tmp: Path) -> dict:
         return {k: f[k] for k in f.files}
 
 
-def reduced_qwen():
-    """The reduced qwen2.5-3b in f32, its weights from seed 0, and the
-    reference test's batch (8 x 32 tokens from numpy's seed 1)."""
+def reduced(arch: str = "qwen2.5-3b", overrides: dict | None = None):
+    """A reduced config in f32 (``overrides`` replaced in it), its weights
+    from seed 0, and the reference test's batch (8 x 32 tokens from numpy's
+    seed 1)."""
     import dataclasses
 
     import torch
 
     from repro_torch.models.registry import get_model
 
-    api = get_model("qwen2.5-3b")
-    cfg = dataclasses.replace(api.reduced, dtype="float32")
+    api = get_model(arch)
+    cfg = dataclasses.replace(api.reduced, dtype="float32", **(overrides or {}))
     params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(np.int32))
     return api, cfg, params, tokens
 
 
-def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, steps: int = 2) -> dict:
-    """Two AdamW steps of the reduced qwen2.5-3b sharded on ``shape``
-    (data, model) under ``policy``, against the same steps of the whole
-    model in this process; and the first sharded step's counts against the
-    dry-run's plan of the same cell on meta.  The parameters gathered whole
-    (``whole/<name>``) go to the test, which holds them against the
-    reference's sharded step."""
+def _counts(counter) -> str:
+    j = counter.costs.to_json()
+    return json.dumps({"arguments": counter.memory()["argument_bytes"], "flops": j["flops"],
+                       "collective_counts": j["collective_counts"], "collective_bytes": j["collective_bytes"],
+                       "kernels": j["kernels"]}, sort_keys=True)
+
+
+def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, steps: int = 2,
+               arch: str = "qwen2.5-3b", overrides: dict | None = None) -> dict:
+    """Two AdamW steps of a reduced config (:func:`reduced`) sharded on
+    ``shape`` (data, model) under ``policy``, against the same steps of the
+    whole model in this process; the first step's gradients (from AdamW's
+    first moment after step 1) against the whole model's; and the first
+    sharded step's counts against the dry-run's plan of the same cell on
+    meta.  The parameters gathered whole (``whole/<name>``) go to the test,
+    which holds them against the reference's sharded step."""
     import copy
 
     import torch
@@ -136,22 +146,30 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
 
     mesh = make_mesh(shape, ("data", "model"))
     comm = DistComm(mesh, rank, "gloo")
-    api, cfg, whole, tokens = reduced_qwen()
+    api, cfg, whole, tokens = reduced(arch, overrides)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
     one = L.trainable(copy.deepcopy(whole))
     state = adamw.init(opt_cfg, one)
     single = make_train_step(api, cfg, opt_cfg, remat=remat)
     suite = ShapeSuite("x", "train", tokens.shape[1], tokens.shape[0])
     pol = dryrun.POLICIES[policy]
-    cell = dryrun.build_cell("qwen2.5-3b", suite, mesh, pol, cfg=cfg, comm=comm, source=whole,
+    cell = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, comm=comm, source=whole,
                              batch={"tokens": tokens}, opt_cfg=opt_cfg, remat=remat)
-    plan = dryrun.build_cell("qwen2.5-3b", suite, mesh, pol, cfg=cfg, opt_cfg=opt_cfg, remat=remat)
+    plan = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, opt_cfg=opt_cfg, remat=remat)
     _, planned = dryrun.count_cell(plan, scopes=False)
     losses, single_losses, norms, single_norms = [], [], [], []
+    grad_err, grads_close = 0.0, True
     for i in range(steps):
         _, state, m1 = single(one, state, {"tokens": tokens})
         if i == 0:
-            (_, _, m2), counted = dryrun.count_cell(cell, scopes=False)
+            (_, opt, m2), counted = dryrun.count_cell(cell, scopes=False)
+            # AdamW's m after step 1 is (1 - beta1) * clip * g: the first gradients
+            scale = [min(1.0, opt_cfg.grad_clip / (float(m["grad_norm"]) + 1e-9)) for m in (m1, m2)]
+            for k, t in opt["m"].items():
+                g = cell.program.comm.gather_whole(t, cell.program.specs[k]) / ((1 - opt_cfg.beta1) * scale[1])
+                ref = state["m"][k] / ((1 - opt_cfg.beta1) * scale[0])
+                grad_err = max(grad_err, float((g - ref).abs().max()))
+                grads_close &= bool(torch.allclose(g, ref, atol=TOL["atol"], rtol=TOL["rtol"]))
         else:
             _, _, m2 = cell.run()
         losses.append(float(m2["loss"]))
@@ -164,22 +182,106 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
         a, b = p.detach(), got[k]
         errs.append(float((a - b).abs().max()))
         close &= bool(torch.allclose(b, a, atol=TOL["atol"], rtol=TOL["rtol"]))
-    pj, cj = planned.costs.to_json(), counted.costs.to_json()
     return {
         "losses": np.array(losses), "single_losses": np.array(single_losses),
         "norms": np.array(norms), "single_norms": np.array(single_norms),
-        "param_max_err": max(errs), "params_close": close,
+        "param_max_err": max(errs), "params_close": close, "grad_max_err": grad_err, "grads_close": grads_close,
         **{f"whole/{k}": t.numpy() for k, t in got.items()},
-        "plan": json.dumps({"arguments": planned.memory()["argument_bytes"], "flops": pj["flops"],
-                            "collective_counts": pj["collective_counts"], "collective_bytes": pj["collective_bytes"],
-                            "kernels": pj["kernels"]},
-                           sort_keys=True),
-        "counted": json.dumps({"arguments": counted.memory()["argument_bytes"], "flops": cj["flops"],
-                               "collective_counts": cj["collective_counts"], "collective_bytes": cj["collective_bytes"],
-                               "kernels": cj["kernels"]},
-                              sort_keys=True),
+        "plan": _counts(planned), "counted": _counts(counted),
         "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
     }
+
+
+#: the sharded serving cases' sizes: a batch of 4 prompts of 5 tokens into a
+#: cache of 32 positions (a device's share of a sequence split 4 ways starts
+#: at 8, past the prompt), then 4 greedy ticks; the reduced mixtral's window
+#: of 8 is a ring buffer split 2 positions a device, which the ticks pass
+SERVE = {"batch": 4, "prompt": 5, "max_len": 32, "ticks": 4}
+
+
+def serve_single(arch: str):
+    """One device's serving of a reduced config (:func:`reduced`), the whole
+    model with no program: the prompts (from numpy's seed 2), the logits of
+    the prefill and of each greedy tick ``[1 + ticks, B, V]``, the greedy
+    tokens ``[ticks, B]`` int32, and the whole cache after the prefill."""
+    import copy
+
+    import torch
+
+    api, cfg, whole, _ = reduced(arch)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"]))
+                              .astype(np.int32))
+    with torch.no_grad():
+        cache = api.init_cache(SERVE["batch"], SERVE["max_len"], cfg, device="cpu")
+        logits, cache = api.prefill(whole, prompt, cache, cfg)
+        prefilled = copy.deepcopy(cache)
+        steps, tokens = [logits], []
+        for _ in range(SERVE["ticks"]):
+            tokens.append(steps[-1].argmax(-1).to(torch.int32))
+            logits, cache = api.decode_step(whole, tokens[-1], cache, cfg)
+            steps.append(logits)
+    return prompt, torch.stack(steps), torch.stack(tokens), prefilled
+
+
+def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dict:
+    """A prefill and greedy decode ticks of a reduced config (:func:`reduced`)
+    sharded on ``shape`` (data, model) under ``policy`` through
+    ``dryrun.build_cell(..., comm=)``: each step's logits in the layout of
+    ``logits_sharding`` (``local_<i>``) and gathered whole (``logits_<i>``),
+    against one device's prefill and ticks of the whole model in this
+    process (:func:`serve_single`), on its greedy tokens; the prefill's and
+    a full-cache tick's counts against the dry-run's plan of the same cells
+    on meta."""
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.distributed.sharding import logits_sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    api, cfg, _, _ = reduced(arch)
+    pol = dryrun.POLICIES[policy]
+    B, T = SERVE["batch"], SERVE["ticks"]
+    prompt, single, tokens, prefilled = serve_single(arch)
+    pre = ShapeSuite("p", "prefill", SERVE["max_len"], B)
+    dec = ShapeSuite("d", "decode", SERVE["max_len"], B)
+    spec = logits_sharding(mesh, cfg, B, pol)
+    # the sharded cells on the same weights (the source is cut in place: a copy)
+    source = reduced(arch)[2]
+    plan = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, batch={"tokens": prompt})
+    _, planned = dryrun.count_cell(plan, scopes=False)
+    cell = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=source, batch={"tokens": prompt})
+    (local, _), counted = dryrun.count_cell(cell, scopes=False)
+    out = {"prefill_plan": _counts(planned), "prefill_counted": _counts(counted),
+           "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
+           "seq_axes": json.dumps(list(cell.program.cache_seq_axes(cell.cache["kv"][0]["k"][0]))),
+           "cache_span": np.array(cell.program.cache_span(cell.cache["kv"][0]["k"][0])),
+           "logits_spec": json.dumps(spec)}
+    got = [local]
+    ticks = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tokens[0]}, cache=cell)
+    for t in range(T):
+        got.append(ticks.run(tokens[t])[0])
+    for i, (a, b) in enumerate(zip(got, single)):
+        out[f"local_{i}"] = a.numpy()
+        w = comm.gather_whole(a, spec)
+        out[f"logits_{i}"] = w.numpy()
+        out[f"err_{i}"] = float((w - b).abs().max())
+    # a decode cell from one device's whole cache after the prefill, cut to
+    # this device's share: its first tick
+    cut = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
+                            batch={"token": tokens[0]}, cache=prefilled)
+    out["whole_cache_err"] = float((comm.gather_whole(cut.run()[0], spec) - single[1]).abs().max())
+    # a tick at a full cache drawn from a seed: its counts against the plan's
+    plan = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg)
+    _, planned = dryrun.count_cell(plan, scopes=False)
+    full = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
+                             batch={"token": tokens[0]}, cache=7)
+    _, counted = dryrun.count_cell(full, scopes=False)
+    out["decode_plan"], out["decode_counted"] = _counts(planned), _counts(counted)
+    return out
 
 
 def _whole_ref(params) -> dict:
@@ -204,7 +306,7 @@ def bodies(rank: int) -> dict:
 
     mesh = make_mesh((2, 4), ("data", "model"))
     comm = DistComm(mesh, rank, "gloo")
-    api, cfg, model, tokens = reduced_qwen()
+    api, cfg, model, tokens = reduced()
     whole = _whole_ref(model)
     prog = D.Program(mesh, dryrun.POLICIES["baseline"], cfg, model, batch_axes=("data",), seq_len=tokens.shape[1],
                      comm=comm)
@@ -346,19 +448,22 @@ def pipeline(rank: int, inputs: dict) -> dict:
 
 
 def moe(rank: int) -> dict:
-    """The reduced qwen3-moe-30b-a3b in f32: its training step split over
-    devices on (2, 4) (experts over model) is refused; under a batch split
-    alone, (8, 1), a row a device, each device's aux loss is the statistic
-    of its own tokens, and its capacity its own tokens' (ROADMAP Queue C)."""
+    """The reduced qwen3-moe-30b-a3b in f32 under a batch split, (8, 1), a
+    row a device: each device's aux loss against the whole batch's (one
+    device, no program); and one MoE layer at a capacity factor of 0.5, so
+    that the whole batch's capacity drops pairs, against the same layer on
+    the whole batch, with each device's kept pairs of each expert against
+    its even share of the capacity."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed import program as D
     from repro_torch.distributed.comm import DistComm
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
     from repro_torch.models.registry import get_model
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_loss_fn
@@ -366,53 +471,100 @@ def moe(rank: int) -> dict:
     api = get_model("qwen3-moe-30b-a3b")
     cfg = dataclasses.replace(api.reduced, dtype="float32")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(np.int32))
-    suite = ShapeSuite("x", "train", 32, 8)
+    mesh = make_mesh((8, 1), ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    whole = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with torch.no_grad():
+        _, m_all = make_loss_fn(api, cfg, remat=False)(whole, {"tokens": tokens})
+        _, m_row = make_loss_fn(api, cfg, remat=False)(whole, {"tokens": tokens[rank:rank + 1]})
+    cell = dryrun.build_cell("qwen3-moe-30b-a3b", ShapeSuite("x", "train", 32, 8), mesh, dryrun.POLICIES["baseline"],
+                             cfg=cfg, comm=comm, source=api.init(torch.Generator().manual_seed(0), cfg, device="cpu"),
+                             batch={"tokens": tokens}, opt_cfg=adamw.AdamWConfig(), remat=False)
+    with torch.no_grad(), D.installed(cell.program):
+        _, m = make_loss_fn(api, cell.program.local_config(), remat=False)(cell.params, {"tokens": tokens[rank:rank + 1]})
+    out = {"aux": float(m["moe_aux"]), "aux_whole_batch": float(m_all["moe_aux"]), "aux_own_row": float(m_row["moe_aux"]),
+           "loss": float(m["loss"]), "loss_whole_batch": float(m_all["loss"])}
+    # one layer whose capacity binds: the whole batch's kept set
+    tight = dataclasses.replace(cfg, capacity_factor=0.5)
+    layer, mine = whole.blocks[0][0].moe, cell.params.blocks[0][0].moe
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 32, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        y_all, aux_all = M.moe_ffn(layer, x, tight)
+        C = M.moe_capacity(tight, 8 * 32)
+        _, _, experts = M.route(layer, x.reshape(-1, cfg.d_model), tight)
+        _, keep = M.dispatch(experts, tight.num_experts, C)
+        with D.installed(cell.program):
+            y, aux = M.moe_ffn(mine, x[rank:rank + 1], tight)
+    own = experts.reshape(8, -1)[rank]
+    kept = keep.reshape(8, -1)[rank]
+    out.update(capacity=C, share=C / 8, dropped=int((~keep).sum()),
+               kept_most=int(max(int((kept & (own == e)).sum()) for e in range(tight.num_experts))),
+               layer_err=float((y - y_all[rank:rank + 1]).abs().max()), layer_aux_err=abs(float(aux) * 8 - float(aux_all)))
+    return out
+
+
+def combine_shares(rank: int) -> dict:
+    """``decode_combine`` on four devices of (1, 4), the cache's sequence
+    split over model, a device's share of 8 keys each: rows of 5, 12 and 30
+    keys (so the last devices' shares of the first row are empty) attended
+    on each share with the state variant's plain version and combined,
+    against the whole cache's attention."""
+    import torch
+
+    from repro_torch.distributed.comm import DistComm
+    from repro_torch.kernels.decode_attention import decode_attention_ref, decode_attention_state_cuda
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 4), ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(3, 4, 16, generator=g)
+    k, v = torch.randn(3, 2, 32, 16, generator=g), torch.randn(3, 2, 32, 16, generator=g)
+    lengths = torch.tensor([5, 12, 30], dtype=torch.int32)
+    first = rank * 8
+    mine = torch.clamp(lengths - first, 0, 8).to(torch.int32)
+    o, lse = decode_attention_state_cuda(q, k[:, :, first:first + 8].contiguous(), v[:, :, first:first + 8].contiguous(),
+                                         mine)
+    holder = type("Holder", (), {"comm": comm, "_head_seq_axes": staticmethod(lambda axes: ())})()
+    from repro_torch.distributed.program import Program
+
+    got = Program.decode_combine(holder, o, lse, ("model",))
+    return {"err": float((got - decode_attention_ref(q, k, v, lengths)).abs().max()),
+            "empty_rows": int((mine == 0).sum()), "lse_empty": float(lse[mine == 0].max()) if (mine == 0).any() else 0.0}
+
+
+def _cases(rank: int, params: dict) -> dict:
+    """The train cases ``(name, shape, policy, remat[, arch, overrides])``
+    and the serving cases ``(name, arch, shape, policy)`` of ``params``."""
     out = {}
-    for shape in ((2, 4), (8, 1)):
-        mesh = make_mesh(shape, ("data", "model"))
-        whole = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-        with torch.no_grad():
-            loss_fn = make_loss_fn(api, cfg, remat=False)
-            _, m_all = loss_fn(whole, {"tokens": tokens})
-            _, m_row = loss_fn(whole, {"tokens": tokens[rank:rank + 1]})
-        cell = dryrun.build_cell("qwen3-moe-30b-a3b", suite, mesh, dryrun.POLICIES["baseline"], cfg=cfg,
-                                 comm=DistComm(mesh, rank, "gloo"), source=L.trainable(whole),
-                                 batch={"tokens": tokens}, opt_cfg=adamw.AdamWConfig(), remat=False)
-        if shape == (2, 4):
-            try:
-                cell.run()
-                out["moe/tp_refused"] = False
-            except NotImplementedError as e:
-                out["moe/tp_refused"] = "Queue C" in str(e)
-            continue
-        _, _, m = cell.run()
-        out["moe/aux"] = float(m["moe_aux"])
-        out["moe/aux_own_rows"] = float(m_row["moe_aux"])
-        out["moe/aux_whole_batch"] = float(m_all["moe_aux"])
+    for name, shape, policy, remat, *more in params["cases"]:
+        arch, overrides = more if more else ("qwen2.5-3b", None)
+        out.update({f"{name}/{k}": v for k, v in train_case(rank, tuple(shape), policy, remat, arch=arch,
+                                                             overrides=overrides).items()})
+    for name, arch, shape, policy in params.get("serve", ()):
+        out.update({f"{name}/{k}": v for k, v in serve_case(rank, arch, tuple(shape), policy).items()})
     return out
 
 
 def job_eight(rank: int, world: int, params: dict, tmp: Path) -> dict:
     """Every check of the 8-rank group, one after another."""
     inputs = _inputs(tmp)
-    out = {}
-    for name, shape, policy, remat in params["cases"]:
-        out.update({f"{name}/{k}": v for k, v in train_case(rank, tuple(shape), policy, remat).items()})
+    out = _cases(rank, params)
     out.update({f"bodies/{k}": v for k, v in bodies(rank).items()})
     out.update(slices_gather(rank, inputs))
     out.update(compressed(rank, inputs))
     out.update(cross_mesh(rank, tmp))
-    out.update(moe(rank))
+    out.update({f"moe/{k}": v for k, v in moe(rank).items()})
     return out
 
 
 def job_four(rank: int, world: int, params: dict, tmp: Path) -> dict:
-    """The 4-rank group: (1, 4), the batch not split, and the pipeline."""
+    """The 4-rank group: (1, 4), the batch not split, the pipeline and the
+    decode combine with empty shares."""
     inputs = _inputs(tmp)
-    out = {}
-    for name, shape, policy, remat in params["cases"]:
-        out.update({f"{name}/{k}": v for k, v in train_case(rank, tuple(shape), policy, remat).items()})
+    out = _cases(rank, params)
     out.update(pipeline(rank, inputs))
+    out.update({f"combine/{k}": v for k, v in combine_shares(rank).items()})
     return out
 
 

@@ -1254,15 +1254,36 @@ def named_from_tree(tree) -> dict[str, np.ndarray]:
     return out
 
 
-def job_sharded_steps(params: dict, inputs: dict) -> dict:
-    """``tests/test_distributed.py:142``'s sharded step, two of them, on the
-    port's reduced qwen2.5-3b weights (``qwen/<name>``) and tokens: for each
-    case (name, (data, model), policy, remat), ``jax.jit(step,
-    in_shardings=...)`` on a mesh of the first data·model devices under
-    ``ShardingPolicy`` (``seqpar`` with the residual stream's hint, as the
-    reference's dry-run sets it); its losses and parameters by port name."""
+def _reduced_tree(arch: str, overrides: dict, named: dict):
+    """The reference's api, reduced config in f32 (``overrides`` replaced)
+    and parameter tree from the port's named arrays."""
     import dataclasses
 
+    import jax
+
+    from repro.models.registry import get_model
+
+    api = get_model(arch)
+    cfg = dataclasses.replace(api.reduced, dtype="float32", **overrides)
+    template = jax.eval_shape(lambda: api.init(jax.random.PRNGKey(0), cfg))
+    if set(named) != set(named_from_tree(jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), template))):
+        raise ValueError("the port's parameter names are not the reference's tree")
+    return api, cfg, template, tree_from_named(named, template)
+
+
+def _weights(inputs: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in inputs.items() if k.startswith(prefix + "/")}
+
+
+def job_sharded_steps(params: dict, inputs: dict) -> dict:
+    """``tests/test_distributed.py:142``'s sharded step, two of them, on the
+    port's reduced weights and tokens: for each case (name, (data, model),
+    policy, remat[, arch, overrides]; qwen2.5-3b when no arch is named),
+    ``jax.jit(step, in_shardings=...)`` on a mesh of the first data·model
+    devices under ``ShardingPolicy`` (``seqpar`` with the residual stream's
+    hint, as the reference's dry-run sets it), from the weights ``qwen/<name>``
+    (qwen2.5-3b) or ``<case>/<name>``; its losses and parameters by port
+    name."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -1270,21 +1291,17 @@ def job_sharded_steps(params: dict, inputs: dict) -> dict:
     from repro.distributed import hints
     from repro.distributed.sharding import (ShardingPolicy, batch_shardings, make_opt_shardings,
                                             make_param_shardings)
-    from repro.models.registry import get_model
     from repro.optim import adamw
     from repro.train.train_step import make_train_step
 
-    api = get_model("qwen2.5-3b")
-    cfg = dataclasses.replace(api.reduced, dtype="float32")
-    template = jax.eval_shape(lambda: api.init(jax.random.PRNGKey(0), cfg))
-    named = {k.split("/", 1)[1]: v for k, v in inputs.items() if k.startswith("qwen/")}
-    if set(named) != set(named_from_tree(jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), template))):
-        raise ValueError("the port's parameter names are not the reference's tree")
-    tree = tree_from_named(named, template)
     batch = {"tokens": jnp.asarray(inputs["qwen_tokens"])}
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
     out = {}
-    for name, shape, policy, remat in params["train_cases"]:
+    for case in params["train_cases"]:
+        name, shape, policy, remat = case[:4]
+        arch, overrides = (case[4], case[5] or {}) if len(case) > 4 else ("qwen2.5-3b", {})
+        prefix = "qwen" if len(case) == 4 else name
+        api, cfg, template, tree = _reduced_tree(arch, overrides, _weights(inputs, prefix))
         n = int(np.prod(shape))
         mesh = jax.make_mesh(tuple(shape), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,
                              devices=jax.devices()[:n])
@@ -1305,6 +1322,56 @@ def job_sharded_steps(params: dict, inputs: dict) -> dict:
                 p, o = jax.device_put(p, psh), jax.device_put(o, osh)  # the outputs' layout is XLA's choice
         out[f"train/{name}/losses"] = np.asarray(losses)
         out.update({f"train/{name}/p/{k}": v for k, v in named_from_tree(p).items()})
+    return out
+
+
+def job_sharded_serve(params: dict, inputs: dict) -> dict:
+    """The reference dry-run's ``prefill_fn`` and ``decode_fn``
+    (``src/repro/launch/dryrun.py:113``), jitted with their ``in_shardings``
+    and ``out_shardings`` on a mesh of the first data·model devices under
+    ``serve-tp`` (TP-only parameters), on the port's reduced weights
+    (``<case>/<name>``): the prompts ``<case>/prompt`` into a zero cache of
+    ``max_len`` positions, then one tick for each token of ``<case>/tokens``
+    (the port's greedy tokens, teacher-forced); each step's logits."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.distributed.sharding import (ShardingPolicy, batch_shardings, logits_sharding,
+                                            make_cache_shardings, make_param_shardings)
+
+    out = {}
+    pol = ShardingPolicy(dp_axes=("data",), tp_axes=("model",), param_fsdp_axes=())
+    for name, arch, shape, policy in params["serve_cases"]:
+        if policy != "serve-tp":
+            raise ValueError(f"no reference policy {policy!r} here")
+        api, cfg, template, tree = _reduced_tree(arch, {}, _weights(inputs, f"{name}/w"))
+        prompt = jnp.asarray(inputs[f"{name}/prompt"])
+        B = prompt.shape[0]
+        n = int(np.prod(shape))
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,
+                             devices=jax.devices()[:n])
+        cache = api.init_cache(B, params["max_len"], cfg)
+        psh = make_param_shardings(mesh, cfg, template, pol)
+        csh = make_cache_shardings(mesh, cfg, jax.eval_shape(lambda: cache), pol)
+        tsh = batch_shardings(mesh, cfg, {"tokens": jax.ShapeDtypeStruct(prompt.shape, prompt.dtype)}, pol)
+        ksh = batch_shardings(mesh, cfg, {"token": jax.ShapeDtypeStruct((B,), jnp.int32)}, pol)
+        lsh = logits_sharding(mesh, cfg, B, pol)
+
+        def prefill_fn(params, tokens, cache):
+            return api.module.prefill(params, cfg, tokens, cache)
+
+        def decode_fn(params, token, cache):
+            return api.module.decode_step(params, cfg, token, cache)
+
+        prefill = jax.jit(prefill_fn, in_shardings=(psh, tsh["tokens"], csh), out_shardings=(lsh, csh))
+        decode = jax.jit(decode_fn, in_shardings=(psh, ksh["token"], csh), out_shardings=(lsh, csh))
+        p = jax.device_put(tree, psh)
+        logits, cache = prefill(p, jax.device_put(prompt, tsh["tokens"]), jax.device_put(cache, csh))
+        steps = [np.asarray(logits)]
+        for tok in inputs[f"{name}/tokens"]:
+            logits, cache = decode(p, jax.device_put(jnp.asarray(tok), ksh["token"]), cache)
+            steps.append(np.asarray(logits))
+        out[f"serve/{name}/logits"] = np.stack(steps)
     return out
 
 
@@ -1362,6 +1429,7 @@ def job_distributed(params: dict, inputs: dict) -> dict:
 JOBS = {
     "distributed": job_distributed,
     "sharded_steps": job_sharded_steps,
+    "sharded_serve": job_sharded_serve,
     "replacement": job_replacement,
     "kvcache": job_kvcache,
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
