@@ -50,6 +50,11 @@ result line:
    of qwen2.5-3b on (1, 4) (4 slots against a share of 512 keys, some rows
    empty; 128 slots against a share of 8192), its output bit for bit the
    plain decode's, its state within 1e-5 of the plain version's, timed;
+   and a card's heads of deepseek-67b and internvl2-76b on (1, 4) (16 over
+   2 kv heads of 128) at phase 25 (c)'s shapes in bf16: a causal prompt of
+   32,768 positions (held on its last 256 query rows, against every key)
+   and deepseek-67b's decode tick at ``FIT_BATCH`` against 32,768 keys,
+   timed;
 7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
    served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
    each, every prefill layer through the flash kernel and every decode
@@ -72,9 +77,10 @@ result line:
 9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
    served as in phase 7, every prefill layer through the SSD kernel, with
    the same checks and readings;
-10. zamba2-7b at full width cut to 27 of its 81 Mamba2 layers (4
+10. zamba2-7b at full width cut to 12 of its 81 Mamba2 layers (2
     invocations of one shared attention + MLP block, random bf16 weights
-    from a seed; the ROADMAP's cut once the run passed 1000 s) served
+    from a seed; the ROADMAP's cuts once the run passed 1000 s, then to
+    make room for phase 25 (c)'s paths) served
     as in phase 7: every prefill layer through the SSD kernel, every shared
     invocation through the flash kernel in prefill and the decode kernel in
     decode; the card-against-CPU cut is 2 layers with the shared block
@@ -174,11 +180,12 @@ result line:
     ``prefill(frames=)`` and 32 greedy decode ticks (18 flash launches a
     prefill, 12 decode a tick), request 0 alone against its row of the
     batch, a profiled batch, and the whole model in f32 card against CPU;
-20. internvl2-76b at full width cut to 8 of its 80 layers (8,948,686,848
-    parameters): served text-only by ``ServeEngine`` as in phase 7, then 4
-    requests of 256 random patch embeddings and 128 tokens through
-    ``prefill(patches=)`` and 31 decode ticks (8 flash a prefill, 8 decode a
-    tick), request 0 alone against its row, the peak memory, the tick
+20. internvl2-76b at full width cut to 2 of its 80 layers (3,814,760,448
+    parameters; phase 25 (c) serves all 80 on four cards): served text-only
+    by ``ServeEngine`` as in phase 7, then 4 requests of 256 random patch
+    embeddings and 128 tokens through ``prefill(patches=)`` and 31 decode
+    ticks (2 flash a prefill, 2 decode a tick), request 0 alone against its
+    row, the peak memory, the tick
     beside the bytes of the weights it reads, and a 1-layer f32 cut card
     against CPU;
 21. sampling and the int8 KV cache: greedy == argmax, the top-k and top-p
@@ -246,10 +253,12 @@ result line:
     host), each a device of (data 1, model 4) under ``serve-tp``;
     qwen2.5-3b (16 query heads over 2 kv heads: the cache's sequence split
     over the four, the decode kernel's state variant and the flash-decoding
-    combine) and mixtral-8x7b (its experts and kv heads split), each at full
-    width cut to 2 layers in f32 (TF32 off), the first four of phase 7's
-    prompts cut to the shortest of them as one batch, prefilled into a cache
-    of 2048, then 8 greedy ticks: every step's logits within 1e-4 +
+    combine), mixtral-8x7b (its experts and kv heads split), deepseek-67b
+    and internvl2-76b (its 256 patches from a seed, the same on every rank,
+    through the sharded prefill), each at full width cut to 2 layers in f32
+    (TF32 off), the first four of phase 7's prompts cut to the shortest of
+    them as one batch, prefilled into a cache of 512 (internvl2-76b's
+    1024), then 8 greedy ticks: every step's logits within 1e-4 +
     1e-4·max|logit| of one device's unsharded run on the same weights (drawn
     a module at a time from the seed on each rank), the greedy tokens equal,
     one flash launch a layer in the prefill and one decode launch (the state
@@ -264,7 +273,16 @@ result line:
     card's run, over phase 7's 8 prompts and 32 ticks; each model's
     ``decode_32k`` cell in bf16 (batch 128, a cache of 32,768 positions from
     a seed): the counts == the plan's, the peak within ``PEAK_BAND`` of
-    ``max_memory_allocated``.
+    ``max_memory_allocated``.  Then (c), the two models that fit no card:
+    deepseek-67b and internvl2-76b (behind 256 patches), each at 8 layers
+    in f32 against one card's run of the same 8 layers (logits and tokens),
+    at full depth in bf16 (95 and 80 layers, drawn a module at a time) over
+    the same prompts and ticks, ms a tick; a full cache of 32,768 positions
+    at the batch that fits (``FIT_BATCH``: the dry-run's peak at most 72 GB
+    a card, found on meta and printed first) and one prompt of 32,768
+    positions at full depth: every count == the plan's, each peak within
+    ``PEAK_BAND``, the long prefill's seconds.  ``four_card_main`` ends with
+    the attention kernels' launches on its paths (JSON).
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -303,8 +321,10 @@ SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
 # zamba2-7b's serving depth in phase 10: 81 layers took 118-139 s; with
 # phase 22 the whole run took 1026.2 s (H100 at 700 W), past the 1000 s
 # at which the ROADMAP cuts this path's depth first (phases 6 and 8 still
-# hold its attention and SSD shapes against the plain versions)
-ZAMBA_LAYERS = 27
+# hold its attention and SSD shapes against the plain versions); 12 since
+# phase 25 served deepseek-67b and internvl2-76b on one card too (the cut
+# rule, ``tools/cut_probe.py 10``: two shared invocations, 4 before)
+ZAMBA_LAYERS = 12
 # the cut rule before phase 25 (sharded serving) came: the whole run took
 # 1183.3 s on a slow machine (H100 at 700 W), so phase 17 serves
 # qwen3-moe-30b-a3b at 4 of its 48 layers and mixtral-8x7b at 2 of its 32
@@ -896,6 +916,62 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
             print(line, flush=True)
 
+    # deepseek-67b's and internvl2-76b's heads on a card of (data 1, model
+    # 4) (phase 25 (c): 16 query heads over 2 kv heads of 128), in bf16: a
+    # causal prompt of LONG positions, held against the plain version on its
+    # last 256 query rows against every key (a slice of the same function:
+    # the whole score matrix, [16, LONG, LONG] in f32, is 68.7 GB), its plain
+    # time that slice's; and deepseek-67b's tick at FIT_BATCH against LONG
+    # keys; each beside its bound and SDPA (no math backend: it would
+    # materialise the scores)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+
+    def library(fn):
+        try:
+            with sdpa_kernel(fused):
+                return cuda_ms(fn, reps=5)
+        except RuntimeError as e:  # no fused backend takes the shape
+            print(f"sdpa: no fused backend ({str(e).splitlines()[0]})", flush=True)
+            return None
+
+    t_long = time.perf_counter()
+    bf16, rows = torch.bfloat16, 256
+    label = f"long prefill S={LONG} (H 16, Hkv 2 a card)"
+    q, k, v = normal((1, 16, LONG, 128), bf16), normal((1, 2, LONG, 128), bf16), normal((1, 2, LONG, 128), bf16)
+    tail = q[:, :, -rows:]
+    err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v)[:, :, -rows:],
+                         flash_attention_ref(tail, k, v), flash_attention_ref(tail.float(), k.float(), v.float()), bf16)
+    row = {"ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), reps=5), "plain_ms": None, "plain_rows": rows,
+           "plain_rows_ms": cuda_ms(lambda: flash_attention_ref(tail, k, v), reps=3, warmup=1),
+           "library_ms": library(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))}
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, 16 * LONG * (LONG + 1) // 2, 2 * LONG)
+    more["flash_attention"][label] = row
+    print(f"flash {label} bfloat16: the last {rows} rows' max abs diff {err:.3g} (from f32 plain {err32:.3g}); kernel "
+          f"{row['ms']:.4f} ms, plain on the last {rows} rows {row['plain_rows_ms']:.4f} ms, sdpa "
+          f"{row['library_ms']} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    del q, k, v, tail
+    B = FIT_BATCH["deepseek-67b"]
+    label = f"deepseek-67b decode {B} x {LONG} keys (H 16, Hkv 2 a card)"
+    q, k, v = normal((B, 16, 128), bf16), normal((B, 2, LONG, 128), bf16), normal((B, 2, LONG, 128), bf16)
+    lengths = torch.full((B,), LONG, dtype=torch.int32, device=dev)
+    err, err32 = compare("decode_attention", label, decode_attention_cuda(q, k, v, lengths),
+                         decode_attention_ref(q, k, v, lengths),
+                         decode_attention_ref(q.float(), k.float(), v.float(), lengths), bf16)
+    valid = (torch.arange(LONG, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    row = {"ms": cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths), reps=20),
+           "plain_ms": cuda_ms(lambda: decode_attention_ref(q, k, v, lengths), reps=5),
+           "library_ms": library(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=valid,
+                                                                        enable_gqa=True))}
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, 16 * B * LONG, 2 * B * LONG)
+    more["decode_attention"][label] = row
+    print(f"decode {label} bfloat16: max abs diff {err:.3g} (from f32 plain {err32:.3g}); kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})", flush=True)
+    del q, k, v, valid
+    print(f"phase 25 (c)'s attention shapes: {time.perf_counter() - t_long:.1f} s", flush=True)
+
     # every head width the kernels take, at small shapes, held as above and
     # not timed
     for D in range(8, 257, 8):
@@ -1380,6 +1456,25 @@ def moe_stage_times(params, cfg, tokens: int) -> dict:
     return out
 
 
+def zamba_phase(layers: int = ZAMBA_LAYERS) -> dict[str, int]:
+    """Phase 10: zamba2-7b at full width cut to ``layers`` served by the
+    engine (every Mamba2 layer's prefill through the SSD kernel, every
+    shared invocation through flash and decode), with its card-against-CPU
+    cut of one Mamba2 layer, then the shared block; its launches."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models.hybrid import num_shared_invocations
+    from repro_torch.models.registry import get_model
+
+    n_inv = num_shared_invocations(dataclasses.replace(get_model("zamba2-7b").config, num_layers=layers))
+    return serve_phase("zamba2-7b", {
+        "ssd_scan": (ssd_scan_cuda, "prefill", layers),
+        "flash_attention": (flash_attention_cuda, "prefill", n_inv),
+        "decode_attention": (decode_attention_cuda, "tick", n_inv),
+    }, cut={"num_layers": 2, "hybrid_period": 2}, layers=layers).launches
+
+
 def moe_phase(moe_layers: int = MOE_LAYERS, mixtral_layers: int = MIXTRAL_LAYERS) -> dict[str, dict[str, int]]:
     """Phase 17: the MoE family on the card.  qwen3-moe-30b-a3b at full
     width cut to ``moe_layers`` of its 48 layers (128 experts top-8, random
@@ -1507,7 +1602,11 @@ def continuum_phase() -> dict[str, int]:
 
 
 WHISPER = {"requests": 8, "batch": 4, "prompt": 8, "ticks": 32, "max_len": 64}
-VLM = {"layers": 8, "requests": 4, "prompt": 128, "ticks": 31, "max_len": 512, "cut_prompt": 32}
+# phase 20 serves internvl2-76b at 2 of its 80 layers (8 before phase 25 (c)
+# served it whole on four cards: the cut rule, ``tools/cut_probe.py 20``),
+# and pins the cut's parameters at each depth it has served
+VLM = {"layers": 2, "requests": 4, "prompt": 128, "ticks": 31, "max_len": 512, "cut_prompt": 32}
+VLM_PARAMS = {2: 3_814_760_448, 8: 8_948_686_848}
 BF16_TOL = 5e-2  # atol = rtol of two bf16 runs of one model that round at other places
 
 
@@ -1675,10 +1774,11 @@ def weights_read_bound_ms(params: torch.nn.Module, cfg, slots: int, length: int)
     return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
 
 
-def internvl2_phase() -> dict[str, dict[str, int]]:
+def internvl2_phase(layers: int = VLM["layers"]) -> dict[str, dict[str, int]]:
     """Phase 20: internvl2-76b at full width (d 8192, 64 heads over 8 KV
-    heads of 128, d_ff 28,672, vocab 128,256, 256 patches) cut to 8 of its
-    80 layers (full depth is 141.1 GB in bf16).  The reference's serving
+    heads of 128, d_ff 28,672, vocab 128,256, 256 patches) cut to ``layers``
+    of its 80 (full depth is 141.1 GB in bf16; phase 25 (c) serves all 80 on
+    four cards).  The reference's serving
     path for a vlm, text-only through ``ServeEngine`` as phase 17 serves
     mixtral; then the multimodal path: 4 requests of 256 random patch
     embeddings and a 128-token prompt through ``prefill(patches=)`` at batch
@@ -1697,10 +1797,10 @@ def internvl2_phase() -> dict[str, dict[str, int]]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     V = VLM
-    arch, layers = "internvl2-76b", V["layers"]
+    arch = "internvl2-76b"
     api = get_model(arch)
     cfg = dataclasses.replace(api.config, num_layers=layers)
-    check(cfg.param_count() == 8_948_686_848, f"{arch} cut to {layers} layers: {cfg.param_count()} parameters")
+    check(cfg.param_count() == VLM_PARAMS[layers], f"{arch} cut to {layers} layers: {cfg.param_count()} parameters")
     out: dict[str, dict[str, int]] = {}
     served = serve_phase(arch, {"flash_attention": (flash_attention_cuda, "prefill", layers),
                                 "decode_attention": (decode_attention_cuda, "tick", layers)},
@@ -3547,7 +3647,8 @@ PREDICT = {"train": (4, 1024), "decode": (4, 2048)}
 #: card's ``torch.cuda.max_memory_allocated`` over the same step
 PEAK_BAND = (0.9, 1.1)
 #: the four-card plan for the sharded step: the layouts that do not fit one
-#: card, under serve-tp on (data 1, model 4)
+#: card, under serve-tp on (data 1, model 4); phase 25 (b) serves
+#: mixtral-8x7b on four cards, and 25 (c) deepseek-67b and internvl2-76b
 FOUR_CARDS = ("deepseek-67b", "internvl2-76b", "mixtral-8x7b")
 
 
@@ -4184,21 +4285,26 @@ def sharded_phase() -> dict[str, int]:
 #: phase 25: sharded serving under serve-tp on (data 1, model 4), a group of
 #: four ranks: (a) on the one card over gloo staged through the host, each
 #: model at full width cut to 2 layers in f32, the first four of the serving
-#: run's prompts cut to the shortest of them as one batch, then 8 greedy
-#: ticks; (b) on four cards over NCCL (``four_card_main``): mixtral-8x7b at 8
-#: layers in f32 and at all 32 in bf16, qwen2.5-3b at all 36 in f32, over
-#: the serving run's 8 prompts (cut to the shortest) and 32 ticks, and each
-#: model's ``decode_32k`` cell in bf16 (batch 128, a cache of 32,768
-#: positions drawn from a seed). Each ``max_len`` is cut so that the
-#: prompts and ticks fill several of qwen2.5-3b's four shares of the cache's
-#: sequence and leave the last empty: (a) 369 + 8 positions in shares of 128,
-#: (b) 142 + 32 in shares of 64, so the combine merges live shares and
-#: weighs an empty one nothing
+#: run's prompts cut to the shortest of them as one batch (internvl2-76b's
+#: behind 256 patches from a seed), then 8 greedy ticks; (b) on four cards
+#: over NCCL (``four_card_main``): mixtral-8x7b at 8 layers in f32 and at all
+#: 32 in bf16, qwen2.5-3b at all 36 in f32, over the serving run's 8 prompts
+#: (cut to the shortest) and 32 ticks, and each model's ``decode_32k`` cell
+#: in bf16 (batch 128, a cache of 32,768 positions drawn from a seed). Each
+#: ``max_len`` is cut so that the prompts and ticks fill several of
+#: qwen2.5-3b's four shares of the cache's sequence and leave the last
+#: empty: (a) 369 + 8 positions in shares of 128, (b) 142 + 32 in shares of
+#: 64, so the combine merges live shares and weighs an empty one nothing;
+#: internvl2-76b's cache holds its 256 patches too (a run's own ``max_len``)
 SERVE_SHARDED_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards": 1, "max_len": 512, "runs": [
     {"arch": "qwen2.5-3b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
      "full_tick": True},
     {"arch": "mixtral-8x7b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
      "full_tick": True},
+    {"arch": "deepseek-67b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
+     "full_tick": True},
+    {"arch": "internvl2-76b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
+     "full_tick": True, "patches": True, "max_len": 1024},
 ]}
 SERVE_SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
     {"arch": "mixtral-8x7b", "layers": 8, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True},
@@ -4208,6 +4314,36 @@ SERVE_SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "car
     {"arch": "qwen2.5-3b", "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
      "decode_32k": True},
 ]}
+#: phase 25 (c): the two models that fit no card (``FOUR_CARDS``), on four
+#: cards over NCCL (``four_card_main``, after 25 (b)): each (i) at 8 layers
+#: in f32 against one card's run of the same 8 layers, over the serving
+#: run's 8 prompts cut to the shortest (142 tokens; internvl2-76b's behind
+#: 256 patches) and 32 ticks; (ii) at full depth in bf16 (95 and 80 layers:
+#: 67 and 76 billion parameters, each rank drawing a module at a time) over
+#: the same prompts and ticks, with a tick at a full cache of ``max_len``;
+#: (iii) a full 32k cache at the batch that fits (``FIT_BATCH``); (iv) one
+#: prompt of 32,768 positions (internvl2-76b: 256 patches + 32,512 tokens)
+SERVE_FULL_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
+    run for arch, extra in (("deepseek-67b", {}), ("internvl2-76b", {"patches": True, "max_len": 512}))
+    for run in (
+        {"arch": arch, "layers": 8, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True, **extra},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 8, "ticks": 32, "against_one": False,
+         "full_tick": True, **extra},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
+         "decode_fit": True, **extra},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
+         "prefill_long": True, **extra},
+    )
+]}
+#: the cache's length in (iii) and the prompt's positions in (iv)
+LONG = 32768
+#: (iii)'s batch: the largest whose dry-run peak a card at a cache of
+#: ``LONG`` is at most ``FIT_LIMIT_BYTES``, 0.9 of the card's 80 GB (on meta:
+#: deepseek-67b 71.97 GB at 12, 75.16 at 13; internvl2-76b 70.18 at 13, 72.87
+#: at 14); ``fit_batch`` finds it again before (iii) runs, and phase 6 times
+#: the decode kernel at deepseek-67b's
+FIT_LIMIT_BYTES = 0.9 * 80e9
+FIT_BATCH = {"deepseek-67b": 12, "internvl2-76b": 13}
 #: a sharded step's logits against one device's unsharded run in f32: within
 #: ``atol + rtol * max|logit|`` of the step
 SERVE_SHARDED_TOL = {"atol": 1e-4, "rtol": 1e-4}
@@ -4254,30 +4390,66 @@ def serve_sharded_child() -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    def on_meta(batch: dict) -> dict:
+        return {k: v.to("meta") for k, v in batch.items()}
+
+    def patches(rng, n: int, cfg) -> torch.Tensor:
+        """The vlm's ``[n, P, d]`` patch embeddings, the same on every rank."""
+        x = rng.standard_normal((n, cfg.num_patches, cfg.d_model)) * 0.1
+        return torch.from_numpy(x.astype(np.float32)).to(dev, getattr(torch, cfg.dtype))
+
+    def counted_run(arch: str, cfg, suite, batch: dict, **kw):
+        """A cell of ``arch`` at ``suite``, its model drawn from the seed, run
+        once under the counter after its plan on meta: the cell, its output,
+        the run's seconds and a record of the counts, the peaks and the
+        launches."""
+        plan = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, batch=on_meta(batch))
+        _, planned = dryrun.count_cell(plan, scopes=False)
+        del plan
+        cell, build_s = sync_s(lambda: dryrun.build_cell(
+            arch, suite, mesh, pol, cfg=cfg, comm=comm, source=torch.Generator(device=dev).manual_seed(0),
+            batch=batch, **kw))
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        (out, counted), seconds = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+        return cell, out, seconds, {
+            "batch": suite.global_batch, "cache": suite.seq_len, "build_s": build_s,
+            "plan": plan_counts(planned), "counted": plan_counts(counted),
+            "plan_peak_bytes": planned.memory()["peak_bytes"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: w.launches for k, w in wrappers.items()}, "finite": bool(torch.isfinite(out[0]).all())}
+
     for run in job["runs"]:
         t_run = time.perf_counter()
         api = get_model(run["arch"])
         cfg = api.config if run["layers"] is None else dataclasses.replace(api.config, num_layers=run["layers"])
         if run["dtype"]:
             cfg = dataclasses.replace(cfg, dtype=run["dtype"])
+        max_len = run.get("max_len", job["max_len"])
         row: dict = {"arch": run["arch"], "layers": cfg.num_layers, "dtype": cfg.dtype}
         if run["prompts"]:
             n, T = run["prompts"], run["ticks"]
             prompts = serve_prompts(cfg.vocab)[:n]
             S = min(len(p) for p in prompts)
-            tokens = torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev)
-            pre = ShapeSuite("prefill", "prefill", job["max_len"], n)
-            dec = ShapeSuite("decode", "decode", job["max_len"], n)
+            batch = {"tokens": torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev)}
+            if run.get("patches"):
+                batch["patches"] = patches(np.random.default_rng(20), n, cfg)
+            extras = {k: v for k, v in batch.items() if k != "tokens"}
+            positions = S + (cfg.num_patches if extras else 0)
+            pre = ShapeSuite("prefill", "prefill", max_len, n)
+            dec = ShapeSuite("decode", "decode", max_len, n)
             spec = logits_sharding(mesh, cfg, n, pol)
-            row.update(batch=n, prompt=S, ticks=T)
+            row.update(batch=n, prompt=S, positions=positions, ticks=T, max_len=max_len)
             single_logits = torch.zeros(1 + T, n, cfg.vocab, device=on)
             single_tokens = torch.zeros(T, n, dtype=torch.int32, device=on)
             if run["against_one"]:
                 if rank == 0:  # one device's run of the whole model, the same weights
                     whole = api.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
                     with torch.no_grad():
-                        cache = api.init_cache(n, job["max_len"], cfg, device=dev)
-                        lg, cache = api.prefill(whole, tokens, cache, cfg)
+                        cache = api.init_cache(n, max_len, cfg, device=dev)
+                        lg, cache = api.prefill(whole, batch["tokens"], cache, cfg, **extras)
                         single_logits[0] = lg.to(on)
                         for t in range(T):
                             single_tokens[t] = lg.argmax(-1).to(torch.int32).to(on)
@@ -4288,15 +4460,17 @@ def serve_sharded_child() -> None:
                     torch.cuda.empty_cache()
                 dist.broadcast(single_logits, 0)
                 dist.broadcast(single_tokens, 0)
-            plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch={"tokens": tokens.to("meta")})
+            plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch=on_meta(batch))
             _, planned = dryrun.count_cell(plan, scopes=False)
             del plan
             gen = torch.Generator(device=dev).manual_seed(0)  # the model drawn a module at a time, sliced
             cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, comm=comm,
-                                                             source=gen, batch={"tokens": tokens}))
+                                                             source=gen, batch=batch))
             for w in wrappers.values():
                 w.launches = 0
             ((local, _), counted), prefill_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+            check(cell.cache["pos"] == positions, f"{run['arch']}: the cache's position {cell.cache['pos']} counts "
+                                                  f"the prompt's {positions} positions")
             row.update(build_s=build_s, prefill_s=prefill_s, prefill_plan=plan_counts(planned),
                        prefill_counted=plan_counts(counted),
                        seq_axes=list(cell.program.cache_seq_axes(cell.cache["kv"][0]["k"][0])),
@@ -4310,8 +4484,10 @@ def serve_sharded_child() -> None:
                     ref = single_logits[step].to(dev)
                     errs.append(float((whole_logits - ref).abs().max()))
                     bounds.append(SERVE_SHARDED_TOL["atol"] + SERVE_SHARDED_TOL["rtol"] * float(ref.abs().max()))
+                row["finite"] &= bool(torch.isfinite(whole_logits).all())
                 return whole_logits.argmax(-1).to(torch.int32)
 
+            row["finite"] = True
             tok = held(0, local)
             ticks = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tok},
                                       cache=cell)
@@ -4324,33 +4500,41 @@ def serve_sharded_child() -> None:
                        logits_bound=bounds, tokens=tokens_out, tick_ms=[1e3 * s for s in tick_s])
             if run["against_one"]:
                 row["tokens_equal"] = tokens_out == single_tokens.cpu().tolist()
-            del cell, ticks, local, single_logits
+            del cell, ticks, local, single_logits, batch, extras
             gc.collect()
             torch.cuda.empty_cache()
-        full = "decode_32k" if run.get("decode_32k") else ("full_tick" if run.get("full_tick") else None)
+        full = next((k for k in ("decode_32k", "decode_fit", "full_tick") if run.get(k)), None)
         if full:  # a tick at a full cache drawn from a seed, against the plan's counts and peak
-            suite = (SHAPES["decode_32k"] if full == "decode_32k"
-                     else ShapeSuite("decode", "decode", job["max_len"], run["prompts"]))
-            plan = dryrun.build_cell(run["arch"], suite, mesh, pol, cfg=cfg)
-            _, planned = dryrun.count_cell(plan, scopes=False)
-            del plan
+            suite = {"decode_32k": SHAPES["decode_32k"],
+                     "decode_fit": ShapeSuite("decode_32k", "decode", LONG, run.get("batch", 0)),
+                     "full_tick": ShapeSuite("decode", "decode", max_len, run["prompts"])}[full]
             token = torch.from_numpy(np.random.default_rng(25).integers(0, cfg.vocab, suite.global_batch)
                                      .astype(np.int32)).to(dev)
-            cell, build_s = sync_s(lambda: dryrun.build_cell(
-                run["arch"], suite, mesh, pol, cfg=cfg, comm=comm, source=torch.Generator(device=dev).manual_seed(0),
-                batch={"token": token}, cache=25))
+            cell, _, tick_s, row[full] = counted_run(run["arch"], cfg, suite, {"token": token}, cache=25)
+            row[full]["tick_ms"] = 1e3 * tick_s
+            if full == "decode_fit":  # the same tick again, uncounted, at the same position
+                times = []
+                for _ in range(3):
+                    cell.cache["pos"] = suite.seq_len - 1
+                    times.append(sync_s(cell.run)[1])
+                row[full]["uncounted_tick_ms"] = [1e3 * t for t in times]
+            del cell
             gc.collect()
-            torch.cuda.reset_peak_memory_stats()
-            for w in wrappers.values():
-                w.launches = 0
-            (out, counted), tick_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
-            row[full] = {"batch": suite.global_batch, "cache": suite.seq_len, "build_s": build_s, "tick_ms": 1e3 * tick_s,
-                         "plan": plan_counts(planned), "counted": plan_counts(counted),
-                         "plan_peak_bytes": planned.memory()["peak_bytes"],
-                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                         "launches": {k: w.launches for k, w in wrappers.items()},
-                         "finite": bool(torch.isfinite(out[0]).all())}
-            del cell, out
+            torch.cuda.empty_cache()
+        if run.get("prefill_long"):  # one prompt of LONG positions at full depth
+            rng = np.random.default_rng(32)
+            P = cfg.num_patches if run.get("patches") else 0
+            batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, LONG - P)).astype(np.int32)).to(dev)}
+            if P:
+                batch["patches"] = patches(rng, 1, cfg)
+            cell, _, counted_s, rec = counted_run(run["arch"], cfg, ShapeSuite("prefill_32k", "prefill", LONG, 1),
+                                                  batch)
+            check(cell.cache["pos"] == LONG, f"{run['arch']}: the long prompt fills the cache's {LONG} positions "
+                                             f"({cell.cache['pos']})")
+            rec.update(tokens=LONG - P, patches=P, counted_s=counted_s,
+                       prefill_s=sync_s(cell.run)[1])  # again, uncounted, into the same cache
+            row["prefill_long"] = rec
+            del cell, batch
             gc.collect()
             torch.cuda.empty_cache()
         row["seconds"] = time.perf_counter() - t_run
@@ -4369,13 +4553,14 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
     for i, run in enumerate(job["runs"]):
         rows = [r["runs"][i] for r in reports]
         name = f"{run['arch']} {rows[0]['layers']} layers {rows[0]['dtype']}"
+        L = rows[0]["layers"]
         for r, row in zip(reports, rows):
             tag = f"sharded serve {label} {name} rank {r['rank']}"
             if run["prompts"]:
                 check(row["prefill_counted"] == row["prefill_plan"],
                       f"{tag}: the prefill's arguments, FLOPs, kernel calls and exchanges == the dry-run's: "
                       f"{row['prefill_counted']} against {row['prefill_plan']}")
-                L, T = row["layers"], row["ticks"]
+                T = row["ticks"]
                 seq = bool(row["seq_axes"])
                 want = {"flash_attention": L, "decode_attention": 0 if seq else L * T,
                         "decode_attention_state": L * T if seq else 0}
@@ -4384,7 +4569,7 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                     if v:
                         by_path.setdefault(k, {})[f"sharded serve {label} {name} rank {r['rank']}"] = v
                 if run["against_one"] and seq:
-                    live = sum(rw["span"][0] < rw["prompt"] + T for rw in rows)
+                    live = sum(rw["span"][0] < rw["positions"] + T for rw in rows)
                     check(live >= 2, f"{tag}: the prompts and ticks fill {live} of the cache's {len(rows)} shares, "
                                      f"so the combine merges at least two")
                 if run["against_one"]:
@@ -4393,14 +4578,16 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                     check(not over, f"{tag}: every step's logits within {SERVE_SHARDED_TOL['atol']} + "
                                     f"{SERVE_SHARDED_TOL['rtol']}·max|logit| of one device's: {over}")
                     check(row["tokens_equal"], f"{tag}: the greedy tokens equal one device's")
+                check(row["finite"], f"{tag}: finite logits at every step")
                 ticks = row["tick_ms"]
                 print(f"{tag}: layout {row['layout']['attention']}, modules {row['layout']['modules']}, cache sequence "
-                      f"over {row['seq_axes']}; prefill {row['batch']} x {row['prompt']} in {row['prefill_s']:.3f} s "
-                      f"(built in {row['build_s']:.1f} s), {T} ticks: median {statistics.median(ticks):.2f} ms a tick "
+                      f"over {row['seq_axes']}; prefill {row['batch']} x {row['prompt']} ({row['positions']} "
+                      f"positions, a cache of {row['max_len']}) in {row['prefill_s']:.3f} s (built in "
+                      f"{row['build_s']:.1f} s), {T} ticks: median {statistics.median(ticks):.2f} ms a tick "
                       f"({row['batch'] * 1e3 / statistics.median(ticks):.1f} tokens/s), max logit err "
                       f"{max(row['logits_max_abs_err'] or [0.0]):.3g}; launches {row['launches']}; counts "
                       f"{row['prefill_counted']['collective_counts']} == the plan's", flush=True)
-            for full in ("full_tick", "decode_32k"):
+            for full in ("full_tick", "decode_32k", "decode_fit", "prefill_long"):
                 if full not in row:
                     continue
                 f = row[full]
@@ -4408,15 +4595,32 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                                                  f"dry-run's: {f['counted']} against {f['plan']}")
                 check(f["finite"], f"{tag} {full}: finite logits")
                 ratio = f["plan_peak_bytes"] / f["max_memory_allocated"]
-                if full == "decode_32k":
+                if full != "full_tick":
                     check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1], f"{tag} {full}: dry-run peak within {PEAK_BAND} of "
                                                                  f"max_memory_allocated ({ratio:.4f})")
+                long = full == "prefill_long"
+                decodes = f["launches"]["decode_attention"] + f["launches"]["decode_attention_state"]
+                check(f["launches"]["flash_attention"] == (L if long else 0) and decodes == (0 if long else L),
+                      f"{tag} {full}: launches {f['launches']}: one {'flash' if long else 'decode'} a layer")
+                if full in ("decode_fit", "prefill_long"):
+                    for k, v in f["launches"].items():
+                        if v:
+                            by_path.setdefault(k, {})[f"sharded serve {label} {name} {full} rank {r['rank']}"] = v
+                if full == "decode_fit":
+                    check(f["batch"] == FIT_BATCH[run["arch"]], f"{tag} {full}: batch {f['batch']} is FIT_BATCH's")
+                    check(f["plan_peak_bytes"] <= FIT_LIMIT_BYTES, f"{tag} {full}: the plan's peak fits "
+                                                                   f"{FIT_LIMIT_BYTES / 1e9:.0f} GB")
+                timing = (f"the prompt of {f['tokens']} tokens behind {f['patches']} patches in {f['prefill_s']:.3f} s "
+                          f"({f['counted_s']:.3f} s counted)" if long else f"the tick {f['tick_ms']:.1f} ms counted")
+                if "uncounted_tick_ms" in f:
+                    med = statistics.median(f["uncounted_tick_ms"])
+                    timing += f", {med:.2f} ms uncounted ({f['batch'] * 1e3 / med:.1f} tokens/s)"
                 print(f"{tag} {full} (batch {f['batch']}, cache {f['cache']}): arguments {f['counted']['arguments']:,} B, "
                       f"FLOPs {f['counted']['flops']:.6e}, exchanges {f['counted']['collective_counts']} "
                       f"{ {k: round(v / 1e6, 3) for k, v in f['counted']['collective_bytes'].items()} } MB == the "
                       f"dry-run's; peak {f['max_memory_allocated'] / 1e9:.3f} GB (dry-run {f['plan_peak_bytes'] / 1e9:.3f} GB,"
-                      f" ratio {ratio:.4f}); the tick {f['tick_ms']:.1f} ms; launches {f['launches']}; built in "
-                      f"{f['build_s']:.1f} s", flush=True)
+                      f" ratio {ratio:.4f}); {timing}; launches {f['launches']}; built in {f['build_s']:.1f} s",
+                      flush=True)
     return by_path
 
 
@@ -4429,12 +4633,57 @@ def serve_sharded_phase() -> dict[str, dict[str, int]]:
                                             name="phase25"), "one card")
 
 
+def fit_batch(arch: str) -> tuple[int, int, int]:
+    """Phase 25 (c) (iii)'s batch for ``arch`` on (data 1, model 4) under
+    serve-tp: the largest whose dry-run peak a card at a cache of ``LONG``
+    is at most ``FIT_LIMIT_BYTES``, found on meta (the peak grows by one
+    sequence's share of the cache a row); with its peak and the next
+    batch's."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 4), ("data", "model"))
+    peaks: dict[int, int] = {}
+
+    def peak(B: int) -> int:
+        if B not in peaks:
+            plan = dryrun.build_cell(arch, ShapeSuite("decode_32k", "decode", LONG, B), mesh,
+                                     dryrun.POLICIES["serve-tp"])
+            peaks[B] = dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
+        return peaks[B]
+
+    B = max(1, int((FIT_LIMIT_BYTES - peak(1)) // (peak(2) - peak(1))) + 1)
+    while B > 1 and peak(B) > FIT_LIMIT_BYTES:
+        B -= 1
+    while peak(B + 1) <= FIT_LIMIT_BYTES:
+        B += 1
+    return B, peak(B), peak(B + 1)
+
+
+def serve_full_phase() -> dict[str, dict[str, int]]:
+    """Phase 25 (c) on four cards: (iii)'s batches found on meta and
+    printed, then the four NCCL ranks of ``SERVE_FULL_FOUR_CARDS``."""
+    job = json.loads(json.dumps(SERVE_FULL_FOUR_CARDS))  # a copy, (iii)'s batches filled in
+    for run in job["runs"]:
+        if run.get("decode_fit"):
+            B, at, past = fit_batch(run["arch"])
+            print(f"phase 25 (c) {run['arch']}: a cache of {LONG} positions at batch {B}, the dry-run's peak "
+                  f"{at / 1e9:.3f} GB a card (batch {B + 1}: {past / 1e9:.3f} GB; at most "
+                  f"{FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
+            check(B == FIT_BATCH[run["arch"]], f"{run['arch']}: the batch that fits, {B}, is FIT_BATCH's")
+            run["batch"] = B
+    return serve_sharded_report(job, run_sharded(job, 1500, child="serve_sharded_child", name="phase25c"),
+                                "four cards")
+
+
 def four_card_main() -> int:
-    """Phases 24 (c) and 25 (b) alone, on a host of four cards: build the
-    kernels, run the four NCCL ranks of each, print the reports."""
+    """Phases 24 (c), 25 (b) and 25 (c) alone, on a host of four cards:
+    build the kernels, run the four NCCL ranks of each, print the reports,
+    then the attention kernels' launches on these paths (JSON)."""
     from repro_torch.kernels import _build
 
-    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b) need four")
+    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b)-(c) need four")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"four cards: {smi}", flush=True)
@@ -4447,7 +4696,25 @@ def four_card_main() -> int:
                                    run_sharded(SERVE_SHARDED_FOUR_CARDS, 1500, child="serve_sharded_child",
                                                name="phase25"), "four cards")
     print(f"phase 25 (b): {time.perf_counter() - t0:.1f} s; launches {serving}", flush=True)
+    t0 = time.perf_counter()
+    full = serve_full_phase()
+    print(f"phase 25 (c): {time.perf_counter() - t0:.1f} s; launches {full}", flush=True)
+    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, serving, full)}),
+          flush=True)
     return 0
+
+
+def four_card_kernels(*paths: dict[str, dict[str, int]]) -> list[dict]:
+    """The attention kernels' launches by path over the four-card phases
+    (the state variant under the decode kernel)."""
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for by_path in paths:
+        out["flash_attention"].update(by_path.get("flash_attention", {}))
+        out["decode_attention"].update(by_path.get("decode_attention", {}))
+        out["decode_attention"].update({f"{k} (state variant)": n for k, n in
+                                        by_path.get("decode_attention_state", {}).items()})
+    return [{"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "launches": sum(run.values()), "launches_by_path": run} for name, run in out.items()]
 
 
 def main() -> int:
@@ -4723,15 +4990,7 @@ def main() -> int:
     phase_done(9, "mamba2-780m served at full width")
 
     # 10. zamba2-7b served at full width: the hybrid family's serving path ----------
-    from repro_torch.models.hybrid import num_shared_invocations
-
-    zamba_cfg = dataclasses.replace(get_model("zamba2-7b").config, num_layers=ZAMBA_LAYERS)
-    n_inv = num_shared_invocations(zamba_cfg)
-    zamba_launches = serve_phase("zamba2-7b", {
-        "ssd_scan": (ssd_scan_cuda, "prefill", zamba_cfg.num_layers),
-        "flash_attention": (flash_attention_cuda, "prefill", n_inv),
-        "decode_attention": (decode_attention_cuda, "tick", n_inv),
-    }, cut={"num_layers": 2, "hybrid_period": 2}, layers=ZAMBA_LAYERS).launches  # the cut: one Mamba2 layer, then the shared block
+    zamba_launches = zamba_phase()
     phase_done(10, f"zamba2-7b served at full width, {ZAMBA_LAYERS} layers")
 
     # 11. the serving CLI on the card, as a user runs it: the reduced configs
@@ -4801,9 +5060,9 @@ def main() -> int:
     whisper_launches, whisper_cache = whisper_phase()
     phase_done(19, "whisper-base at full width and depth")
 
-    # 20. the vlm family: internvl2-76b at full width, 8 of its 80 layers
+    # 20. the vlm family: internvl2-76b at full width, VLM["layers"] of its 80
     vlm_launches = internvl2_phase()
-    phase_done(20, "internvl2-76b at full width, 8 layers")
+    phase_done(20, f"internvl2-76b at full width, {VLM['layers']} layers")
 
     # 21. sampling and the int8 KV cache on the card
     sampling_phase(whisper_cache)
@@ -4856,7 +5115,8 @@ def main() -> int:
     by_path: dict[str, dict[str, int]] = {}
     paths = [("qwen2.5-3b", qwen_launches), ("mamba2-780m", mamba_launches), ("zamba2-7b", zamba_launches),
              ("qwen3-moe-30b-a3b", moe_launches["qwen3-moe-30b-a3b"]),
-             ("mixtral-8x7b 8 layers", moe_launches["mixtral-8x7b"]), ("whisper-base", whisper_launches),
+             (f"mixtral-8x7b {MIXTRAL_LAYERS} layers", moe_launches["mixtral-8x7b"]),
+             ("whisper-base", whisper_launches),
              *vlm_launches.items()]
     paths += [(f"cli {arch}", run) for arch, run in cli_launches.items()]
     for path, run in paths:

@@ -146,7 +146,8 @@ def _draw_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int
     """Device ``rank``'s share of a cache of ``cache``'s global shapes filled
     with standard normal values from ``seed``: each layer's slice of each
     leaf drawn whole on ``device`` and cut, so the shares are those of one
-    whole cache and no device holds it whole."""
+    whole cache and no device holds it whole: each slice is copied into the
+    device's leaf, so a layer's whole draw is freed before the next."""
     from repro_torch.distributed.comm import take_local
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -155,12 +156,12 @@ def _draw_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int
         leaves = {}
         for name, leaf in slot.items():
             spec = specs[f"kv/{i}/{name}"]
-            layers = []
-            for _ in range(leaf.shape[0]):
+            mine = torch.empty(local_shape(tuple(leaf.shape), spec, mesh), dtype=leaf.dtype, device=device)
+            for layer in range(leaf.shape[0]):
                 whole = torch.randn(tuple(leaf.shape[1:]), generator=gen, device=device).to(leaf.dtype)
-                layers.append(take_local(whole, spec[1:], mesh, rank))
+                mine[layer] = take_local(whole, spec[1:], mesh, rank)
                 del whole
-            leaves[name] = torch.stack(layers)
+            leaves[name] = mine
         out["kv"].append(leaves)
     out["kv"] = tuple(out["kv"])
     return out

@@ -44,11 +44,13 @@ def torch_dtype(name: str) -> torch.dtype:
 def truncated_normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
                      generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], drawn in f32 on the generator's
-    device, times ``scale``, then cast and moved: the reference's
-    ``truncated_normal_init`` in distribution (not in its numbers)."""
+    device, times ``scale`` in place (one f32 draw held, not two: a card
+    drawing a model that fits no card holds its largest tensor whole), then
+    cast and moved: the reference's ``truncated_normal_init`` in
+    distribution (not in its numbers)."""
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * scale).to(device=device, dtype=dtype)
+    return x.mul_(scale).to(device=device, dtype=dtype)
 
 
 def param(t: torch.Tensor) -> nn.Parameter:

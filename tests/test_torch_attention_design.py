@@ -40,6 +40,21 @@ from repro_torch.kernels.flash_attention import attention_mask, flash_attention_
 TILE = 64  # query rows and keys per tile of the wgmma kernel
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _pinned_f32_arithmetic():
+    """The bounds below are a few f32 ulps wide, so the module runs its
+    plain f32 arithmetic on the test's own thread, with no intra-op thread
+    team (in a run of six pytest workers side by side the qwen case once
+    came out 7e-5 off; alone, at 1 to 8 threads, it never did), at full
+    f32 matmul precision, and restores both after."""
+    threads, precision = torch.get_num_threads(), torch.get_float32_matmul_precision()
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_num_threads(threads)
+    torch.set_float32_matmul_precision(precision)
+
+
 def _bf16(seed, shapes):
     """Numpy normals rounded to bf16 (torch), and the same values for JAX."""
     rng = np.random.default_rng(seed)

@@ -266,10 +266,14 @@ def test_trainer_resume_reproduces_the_straight_run(tmp_path):
 
 
 def test_trainer_flags_an_injected_straggler(tmp_path):
+    """Every step is a virtual 10 s on top of its measured time, and steps
+    9-11 take 5 s more: the detector's floor (5% of the mean, 0.5 s) then
+    sits far above the host's jitter of a few ms, and the window stands out
+    by 10 floors, as in the reference's own test of 1 s steps."""
     _, api, cfg, opt, data = _trainer_setup()
     trainer = Trainer(api, cfg, adamw.AdamWConfig(**opt), DataConfig(**data),
                       TrainerConfig(steps=14, checkpoint_every=100, checkpoint_dir=str(tmp_path), remat=False),
-                      step_delay_injector=lambda s: 5.0 if s in (9, 10, 11) else 0.0, device="cpu")
+                      step_delay_injector=lambda s: 10.0 + (5.0 if s in (9, 10, 11) else 0.0), device="cpu")
     flags = trainer.run().straggler_flags
     assert flags and all(9 <= s <= 11 for s in flags), flags  # the window, as the reference's own test
 

@@ -10,15 +10,16 @@ each test reads its part:
   vocabulary split), on (4, 2) and on (2, 4) under ``seqpar`` with the
   activation hint; the reduced qwen3-moe-30b-a3b's step on (8, 1) and (2,
   4) (the batch split: the whole batch's routing) and with 6 experts on (2,
-  4) (an ffn split); the reduced qwen2.5-3b served on (2, 4) under
-  ``serve-tp``; each rank-aware body alone; every slice gathered whole;
+  4) (an ffn split); the reduced qwen2.5-3b, deepseek-67b and
+  internvl2-76b (behind its patches) served on (2, 4) under ``serve-tp``;
+  each rank-aware body alone; every slice gathered whole;
   ``compressed_psum_pod`` on (pod 4, x 2); a save under (2, 4) restored
   under (4, 2); the MoE aux loss and a binding capacity under a batch split;
 * four ranks: the step on (1, 4), the batch not split, of the reduced
   qwen2.5-3b and qwen3-moe-30b-a3b (experts over model); the reduced
-  qwen2.5-3b and mixtral-8x7b served on (1, 4) (the cache's sequence split,
-  mixtral's ring-buffered window too); the decode combine with empty
-  shares; and the pipeline on four stages.
+  qwen2.5-3b, mixtral-8x7b, deepseek-67b and internvl2-76b served on (1, 4)
+  (the cache's sequence split, mixtral's ring-buffered window too); the
+  decode combine with empty shares; and the pipeline on four stages.
 
 The reference's side (``devices_indices_map``, ``compressed_psum_pod`` and
 ``pipeline_forward`` on 8 forced devices; its sharded train step,
@@ -62,9 +63,14 @@ MOE = "qwen3-moe-30b-a3b"
 MOE_EIGHT = [("moe-8x1", (8, 1), "baseline", False, MOE, None), ("moe-2x4", (2, 4), "baseline", True, MOE, None),
              ("moe-ffn-2x4", (2, 4), "baseline", False, MOE, {"num_experts": 6})]
 MOE_FOUR = [("moe-1x4", (1, 4), "baseline", False, MOE, None)]
-SERVE_EIGHT = [("serve-qwen-2x4", "qwen2.5-3b", (2, 4), "serve-tp")]
+SERVE_EIGHT = [("serve-qwen-2x4", "qwen2.5-3b", (2, 4), "serve-tp"),
+               ("serve-deepseek-2x4", "deepseek-67b", (2, 4), "serve-tp"),
+               ("serve-internvl2-2x4", "internvl2-76b", (2, 4), "serve-tp")]
 SERVE_FOUR = [("serve-qwen-1x4", "qwen2.5-3b", (1, 4), "serve-tp"),
-              ("serve-mixtral-1x4", "mixtral-8x7b", (1, 4), "serve-tp")]
+              ("serve-mixtral-1x4", "mixtral-8x7b", (1, 4), "serve-tp"),
+              ("serve-deepseek-1x4", "deepseek-67b", (1, 4), "serve-tp"),
+              ("serve-internvl2-1x4", "internvl2-76b", (1, 4), "serve-tp")]
+VLM_SERVE = [c[0] for c in SERVE_EIGHT + SERVE_FOUR if c[1] == "internvl2-76b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,7 +101,9 @@ def groups(reference, tmp_path_factory):
     served = {}
     for name, arch, _, _ in SERVE_EIGHT + SERVE_FOUR:
         prompt, _, ticks, _ = G.serve_single(arch)
-        served.update({f"{name}/w/{k}": p.detach().numpy() for k, p in G.reduced(arch)[2].named_parameters()})
+        _, cfg, model, _ = G.reduced(arch)
+        served.update({f"{name}/w/{k}": p.detach().numpy() for k, p in model.named_parameters()})
+        served.update({f"{name}/{k}": x.numpy() for k, x in G.serve_extras(cfg).items()})
         served[f"{name}/prompt"], served[f"{name}/tokens"] = prompt.numpy(), ticks.numpy()
     out = {}
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
@@ -311,12 +319,13 @@ def test_a_device_keeps_more_than_its_share_of_an_experts_capacity(groups):
 
 @pytest.mark.parametrize("name", [c[0] for c in SERVE_EIGHT + SERVE_FOUR])
 def test_sharded_serving_equals_one_device_and_the_references_jitted_steps(name, groups):
-    """A prefill of 4 prompts of 5 tokens and 4 greedy ticks under
-    ``serve-tp``: every rank's logits, in the layout of ``logits_sharding``
-    and gathered whole, within 1e-4 of one device's on the same weights
-    and tokens, and of the reference's ``jax.jit(prefill_fn / decode_fn,
-    in_shardings=...)`` on 8 CPU devices; a decode cell built from one
-    device's whole cache after the prefill gives the first tick's too."""
+    """A prefill of 4 prompts of 5 tokens (the vlm's behind 8 patches) and 4
+    greedy ticks under ``serve-tp``: every rank's logits, in the layout of
+    ``logits_sharding`` and gathered whole, within 1e-4 of one device's on
+    the same weights and tokens, and of the reference's
+    ``jax.jit(prefill_fn / decode_fn, in_shardings=...)`` on 8 CPU devices;
+    a decode cell built from one device's whole cache after the prefill
+    gives the first tick's too."""
     from repro_torch.distributed.comm import take_local
 
     ref = groups["serve"][f"serve/{name}/logits"]
@@ -341,6 +350,16 @@ def test_every_rank_counts_the_serving_plan(name, groups):
         assert json.loads(str(r["prefill_counted"])) == json.loads(str(r["prefill_plan"])), rank
         assert json.loads(str(r["decode_counted"])) == json.loads(str(r["decode_plan"])), rank
         assert json.loads(str(r["decode_counted"]))["collective_counts"]["all-reduce"] > 0, rank
+
+
+@pytest.mark.parametrize("name", VLM_SERVE)
+def test_the_vlms_patches_reach_the_sharded_prefill(name, groups):
+    """The reduced internvl2-76b's sharded prefill of the same prompts
+    without their patches moves every rank's logits far past the
+    tolerance that holds the patched prefill to one device's."""
+    for rank, r in enumerate(_case(groups, name)):
+        assert float(r["no_patches_diff"]) > 100 * G.TOL["loss"], (rank, float(r["no_patches_diff"]))
+        assert float(r["err_0"]) <= G.TOL["loss"], rank
 
 
 def test_the_decode_combine_weighs_an_empty_share_nothing(groups):

@@ -199,11 +199,24 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
 SERVE = {"batch": 4, "prompt": 5, "max_len": 32, "ticks": 4}
 
 
+def serve_extras(cfg) -> dict:
+    """The family's prefill inputs beside the prompt: the vlm's patches
+    ``[B, P, d]`` f32 (numpy's seed 3, scaled by 0.1), none for the others."""
+    import torch
+
+    if cfg.family != "vlm":
+        return {}
+    rng = np.random.default_rng(3)
+    return {"patches": torch.from_numpy((rng.standard_normal((SERVE["batch"], cfg.num_patches, cfg.d_model))
+                                         * 0.1).astype(np.float32))}
+
+
 def serve_single(arch: str):
     """One device's serving of a reduced config (:func:`reduced`), the whole
-    model with no program: the prompts (from numpy's seed 2), the logits of
-    the prefill and of each greedy tick ``[1 + ticks, B, V]``, the greedy
-    tokens ``[ticks, B]`` int32, and the whole cache after the prefill."""
+    model with no program: the prompts (from numpy's seed 2) behind the
+    family's extras (:func:`serve_extras`), the logits of the prefill and of
+    each greedy tick ``[1 + ticks, B, V]``, the greedy tokens ``[ticks, B]``
+    int32, and the whole cache after the prefill."""
     import copy
 
     import torch
@@ -213,7 +226,7 @@ def serve_single(arch: str):
                               .astype(np.int32))
     with torch.no_grad():
         cache = api.init_cache(SERVE["batch"], SERVE["max_len"], cfg, device="cpu")
-        logits, cache = api.prefill(whole, prompt, cache, cfg)
+        logits, cache = api.prefill(whole, prompt, cache, cfg, **serve_extras(cfg))
         prefilled = copy.deepcopy(cache)
         steps, tokens = [logits], []
         for _ in range(SERVE["ticks"]):
@@ -231,7 +244,9 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     against one device's prefill and ticks of the whole model in this
     process (:func:`serve_single`), on its greedy tokens; the prefill's and
     a full-cache tick's counts against the dry-run's plan of the same cells
-    on meta."""
+    on meta.  A vlm's prefill also runs without its patches
+    (``no_patches_diff``: how far its logits move), so that the patches are
+    seen to reach the model."""
     import torch
 
     from repro_torch.configs.shapes import ShapeSuite
@@ -246,14 +261,15 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     pol = dryrun.POLICIES[policy]
     B, T = SERVE["batch"], SERVE["ticks"]
     prompt, single, tokens, prefilled = serve_single(arch)
+    batch = {"tokens": prompt, **serve_extras(cfg)}
     pre = ShapeSuite("p", "prefill", SERVE["max_len"], B)
     dec = ShapeSuite("d", "decode", SERVE["max_len"], B)
     spec = logits_sharding(mesh, cfg, B, pol)
     # the sharded cells on the same weights (the source is cut in place: a copy)
     source = reduced(arch)[2]
-    plan = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, batch={"tokens": prompt})
+    plan = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, batch=batch)
     _, planned = dryrun.count_cell(plan, scopes=False)
-    cell = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=source, batch={"tokens": prompt})
+    cell = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=source, batch=batch)
     (local, _), counted = dryrun.count_cell(cell, scopes=False)
     out = {"prefill_plan": _counts(planned), "prefill_counted": _counts(counted),
            "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
@@ -274,6 +290,10 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     cut = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
                             batch={"token": tokens[0]}, cache=prefilled)
     out["whole_cache_err"] = float((comm.gather_whole(cut.run()[0], spec) - single[1]).abs().max())
+    if len(batch) > 1:  # the same prompt without the family's extras
+        bare = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
+                                 batch={"tokens": prompt})
+        out["no_patches_diff"] = float((comm.gather_whole(bare.run()[0], spec) - single[0]).abs().max())
     # a tick at a full cache drawn from a seed: its counts against the plan's
     plan = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg)
     _, planned = dryrun.count_cell(plan, scopes=False)

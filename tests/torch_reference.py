@@ -1330,9 +1330,12 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
     (``src/repro/launch/dryrun.py:113``), jitted with their ``in_shardings``
     and ``out_shardings`` on a mesh of the first data·model devices under
     ``serve-tp`` (TP-only parameters), on the port's reduced weights
-    (``<case>/<name>``): the prompts ``<case>/prompt`` into a zero cache of
-    ``max_len`` positions, then one tick for each token of ``<case>/tokens``
-    (the port's greedy tokens, teacher-forced); each step's logits."""
+    (``<case>/<name>``): the prompts ``<case>/prompt``, behind the family's
+    extras where the case has them (``<case>/patches``, cut by
+    ``batch_shardings`` as ``dryrun.py:116-121`` cuts them), into a zero
+    cache of ``max_len`` positions, then one tick for each token of
+    ``<case>/tokens`` (the port's greedy tokens, teacher-forced); each
+    step's logits."""
     import jax
     import jax.numpy as jnp
 
@@ -1346,6 +1349,7 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
             raise ValueError(f"no reference policy {policy!r} here")
         api, cfg, template, tree = _reduced_tree(arch, {}, _weights(inputs, f"{name}/w"))
         prompt = jnp.asarray(inputs[f"{name}/prompt"])
+        extras = {k: jnp.asarray(inputs[f"{name}/{k}"]) for k in ("patches",) if f"{name}/{k}" in inputs}
         B = prompt.shape[0]
         n = int(np.prod(shape))
         mesh = jax.make_mesh(tuple(shape), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,
@@ -1355,18 +1359,20 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
         csh = make_cache_shardings(mesh, cfg, jax.eval_shape(lambda: cache), pol)
         tsh = batch_shardings(mesh, cfg, {"tokens": jax.ShapeDtypeStruct(prompt.shape, prompt.dtype)}, pol)
         ksh = batch_shardings(mesh, cfg, {"token": jax.ShapeDtypeStruct((B,), jnp.int32)}, pol)
+        esh = batch_shardings(mesh, cfg, jax.eval_shape(lambda: extras), pol)
         lsh = logits_sharding(mesh, cfg, B, pol)
 
-        def prefill_fn(params, tokens, cache):
-            return api.module.prefill(params, cfg, tokens, cache)
+        def prefill_fn(params, tokens, cache, extra):
+            return api.module.prefill(params, cfg, tokens, cache, **extra)
 
         def decode_fn(params, token, cache):
             return api.module.decode_step(params, cfg, token, cache)
 
-        prefill = jax.jit(prefill_fn, in_shardings=(psh, tsh["tokens"], csh), out_shardings=(lsh, csh))
+        prefill = jax.jit(prefill_fn, in_shardings=(psh, tsh["tokens"], csh, esh), out_shardings=(lsh, csh))
         decode = jax.jit(decode_fn, in_shardings=(psh, ksh["token"], csh), out_shardings=(lsh, csh))
         p = jax.device_put(tree, psh)
-        logits, cache = prefill(p, jax.device_put(prompt, tsh["tokens"]), jax.device_put(cache, csh))
+        logits, cache = prefill(p, jax.device_put(prompt, tsh["tokens"]), jax.device_put(cache, csh),
+                                jax.device_put(extras, esh))
         steps = [np.asarray(logits)]
         for tok in inputs[f"{name}/tokens"]:
             logits, cache = decode(p, jax.device_put(jnp.asarray(tok), ksh["token"]), cache)

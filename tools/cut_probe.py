@@ -1,14 +1,17 @@
 """Time the cuts that ``chip_smoke.py`` makes to stay within its time limit,
 each before and after, on one card.
 
-    python3 tools/cut_probe.py
+    python3 tools/cut_probe.py [7 | 10 | 17 | 20 ...]
 
-The card-against-CPU checks of phases 7, 9 and 10 with the prompts (128,
-1000) and with ``chip_smoke.CPU_CUT_PROMPTS``, in the order before, after,
-after, before; then phase 17 with qwen3-moe-30b-a3b at 48 and mixtral-8x7b at
-8 layers, and at ``chip_smoke.MOE_LAYERS`` and ``MIXTRAL_LAYERS``.  Prints the
+With no argument, every cut.  7: the card-against-CPU checks of phases 7, 9
+and 10 with the prompts (128, 1000) and with ``chip_smoke.CPU_CUT_PROMPTS``,
+in the order before, after, after, before.  10: phase 10 with zamba2-7b at
+27 layers and at ``chip_smoke.ZAMBA_LAYERS``, in the same order.  17: phase
+17 with qwen3-moe-30b-a3b at 48 and mixtral-8x7b at 8 layers, and at
+``chip_smoke.MOE_LAYERS`` and ``MIXTRAL_LAYERS``.  20: phase 20 with
+internvl2-76b at 8 layers and at ``chip_smoke.VLM["layers"]``.  Prints the
 card's name and power limit, then one JSON line of seconds.  About seven
-minutes on an H100.
+minutes on an H100 for 7 and 17, two each for 10 and 20.
 """
 import dataclasses
 import gc
@@ -24,7 +27,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 
-def main() -> int:
+def timed(times: dict[str, list[float]], key: str, fn) -> None:
+    t0 = time.perf_counter()
+    fn()
+    times.setdefault(key, []).append(time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main(cuts: list[str]) -> int:
     from repro_torch.kernels import _build
     from repro_torch.models.registry import get_model
 
@@ -32,27 +43,29 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"cut probe: {smi}", flush=True)
     _build.build()
-    cuts = {"qwen2.5-3b": {"num_layers": 2}, "mamba2-780m": {"num_layers": 2},
-            "zamba2-7b": {"num_layers": 2, "hybrid_period": 2}}
     times: dict[str, list[float]] = {}
-    for order in ("before", "after", "after", "before"):
-        for arch, cut in cuts.items():
-            api = get_model(arch)
-            t0 = time.perf_counter()
-            chip_smoke._card_against_cpu(api, dataclasses.replace(api.config, **cut),
-                                         (128, 1000) if order == "before" else chip_smoke.CPU_CUT_PROMPTS, 4)
-            times.setdefault(f"{arch} card against CPU {order}", []).append(time.perf_counter() - t0)
-            gc.collect()
-            torch.cuda.empty_cache()
-    for moe, mixtral in ((48, 8), (chip_smoke.MOE_LAYERS, chip_smoke.MIXTRAL_LAYERS)):
-        t0 = time.perf_counter()
-        chip_smoke.moe_phase(moe, mixtral)
-        times[f"phase 17 at qwen3-moe {moe}, mixtral {mixtral} layers"] = [time.perf_counter() - t0]
-        gc.collect()
-        torch.cuda.empty_cache()
+    if "7" in cuts:
+        archs = {"qwen2.5-3b": {"num_layers": 2}, "mamba2-780m": {"num_layers": 2},
+                 "zamba2-7b": {"num_layers": 2, "hybrid_period": 2}}
+        for order in ("before", "after", "after", "before"):
+            for arch, cut in archs.items():
+                api = get_model(arch)
+                timed(times, f"{arch} card against CPU {order}", lambda: chip_smoke._card_against_cpu(
+                    api, dataclasses.replace(api.config, **cut),
+                    (128, 1000) if order == "before" else chip_smoke.CPU_CUT_PROMPTS, 4))
+    if "10" in cuts:
+        for layers in (27, chip_smoke.ZAMBA_LAYERS, chip_smoke.ZAMBA_LAYERS, 27):
+            timed(times, f"phase 10 at zamba2-7b {layers} layers", lambda: chip_smoke.zamba_phase(layers))
+    if "17" in cuts:
+        for moe, mixtral in ((48, 8), (chip_smoke.MOE_LAYERS, chip_smoke.MIXTRAL_LAYERS)):
+            timed(times, f"phase 17 at qwen3-moe {moe}, mixtral {mixtral} layers",
+                  lambda: chip_smoke.moe_phase(moe, mixtral))
+    if "20" in cuts:
+        for layers in (8, chip_smoke.VLM["layers"]):
+            timed(times, f"phase 20 at internvl2-76b {layers} layers", lambda: chip_smoke.internvl2_phase(layers))
     print(json.dumps({"cut_probe_s": times}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:] or ["7", "10", "17", "20"]))
