@@ -54,9 +54,13 @@ result line:
    2 kv heads of 128) at phase 25 (c)'s shapes in bf16: a causal prompt of
    32,768 positions (held on its last 256 query rows, against every key)
    and deepseek-67b's decode tick at ``FIT_BATCH`` against 32,768 keys,
+   timed; and gemma2-2b's heads on a card of (1, 4) (2 over 1 kv head of
+   256, softcap 50) at its ``FIT_BATCH`` against a local layer's 4096 keys
+   and a global layer's 32,768, the decode kernel and its state variant,
    timed;
-7. qwen2.5-3b at full width (36 layers, random bf16 weights from a seed)
-   served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
+7. qwen2.5-3b at full width cut to 12 of its 36 layers (``QWEN_LAYERS``;
+   random bf16 weights from a seed; phase 25 (b) serves it whole on four
+   cards) served by ``ServeEngine``: 8 requests through 4 slots, 32 new tokens
    each, every prefill layer through the flash kernel and every decode
    layer through the decode kernel; request 0 served alone must equal a
    manual greedy prefill + decode loop; a 2-layer cut of the same width is
@@ -74,13 +78,15 @@ result line:
    beside its plain version (no single PyTorch call computes it); the bf16
    kernels' registers and spills, their HGMMA count, and the device kernels
    one wrapper call runs, each one's time;
-9. mamba2-780m at full width (48 layers, random bf16 weights from a seed)
-   served as in phase 7, every prefill layer through the SSD kernel, with
-   the same checks and readings;
-10. zamba2-7b at full width cut to 12 of its 81 Mamba2 layers (2
-    invocations of one shared attention + MLP block, random bf16 weights
+9. mamba2-780m at full width cut to 12 of its 48 layers (``MAMBA_LAYERS``;
+   random bf16 weights from a seed; phase 25 (d) serves it whole on four
+   cards) served as in phase 7, every prefill layer through the SSD
+   kernel, with the same checks and readings;
+10. zamba2-7b at full width cut to 6 of its 81 Mamba2 layers (one
+    invocation of the shared attention + MLP block, random bf16 weights
     from a seed; the ROADMAP's cuts once the run passed 1000 s, then to
-    make room for phase 25 (c)'s paths) served
+    make room for phase 25's paths; 25 (d) serves it whole on four cards)
+    served
     as in phase 7: every prefill layer through the SSD kernel, every shared
     invocation through the flash kernel in prefill and the decode kernel in
     decode; the card-against-CPU cut is 2 layers with the shared block
@@ -162,10 +168,10 @@ result line:
     repro_torch topology generate large`` and ``topology calibrate small``
     with no ``--device``; and no ``BENCH_*.json`` of the repository changed;
 17. the MoE family, every earlier phase's model freed first:
-    qwen3-moe-30b-a3b at full width cut to 4 of its 48 layers
+    qwen3-moe-30b-a3b at full width cut to 2 of its 48 layers
     (``MOE_LAYERS``; 128 experts top-8, random bf16 weights and an f32 router
-    from a seed) served as in phase 7
-    (32 flash launches, 4 decode launches a tick, request 0 alone == the
+    from a seed; phase 25 (d) serves it whole on four cards) served as in
+    phase 7 (16 flash launches, 2 decode launches a tick, request 0 alone == the
     manual loop), a 2-layer f32 cut held against the CPU, the peak memory,
     the decode tick beside its bound, the profile and each MoE stage of one
     layer timed; mixtral-8x7b at full width cut to 2 of its 32 layers
@@ -255,14 +261,23 @@ result line:
     over the four, the decode kernel's state variant and the flash-decoding
     combine), mixtral-8x7b (its experts and kv heads split), deepseek-67b
     and internvl2-76b (its 256 patches from a seed, the same on every rank,
-    through the sharded prefill), each at full width cut to 2 layers in f32
+    through the sharded prefill), and the six remaining architectures:
+    mamba2-780m (its Mamba2 blocks computed whole, their states stored
+    split over the heads, every prefill layer through the SSD kernel),
+    zamba2-7b at 6 layers (one shared invocation), whisper-base at 2
+    encoder and 2 decoder layers behind 1500 frames from a seed (its cross
+    cache written in place at the rank's heads), gemma2-2b (softcap,
+    alternating windows), stablelm-1.6b and qwen3-moe-30b-a3b (the router
+    in f32), each at full width cut to 2 layers in f32
     (TF32 off), the first four of phase 7's prompts cut to the shortest of
     them as one batch, prefilled into a cache of 512 (internvl2-76b's
     1024), then 8 greedy ticks: every step's logits within 1e-4 +
     1e-4·max|logit| of one device's unsharded run on the same weights (drawn
     a module at a time from the seed on each rank), the greedy tokens equal,
-    one flash launch a layer in the prefill and one decode launch (the state
-    variant where the sequence is split) a layer a tick, and every rank's
+    each kernel's launches equal to the plan's kernel calls (the prefill's
+    and the ticks': for a decoder transformer one flash a layer a prefill
+    and one decode, the state variant where the sequence is split, a layer
+    a tick), and every rank's
     argument bytes, FLOPs, kernel calls and exchanges by kind == the dry-run's
     prefill cell, and a tick at a full cache drawn from a seed == its decode
     cell, exactly.  On a host of four cards (b), alone in ``four_card_main``
@@ -281,8 +296,15 @@ result line:
     at the batch that fits (``FIT_BATCH``: the dry-run's peak at most 72 GB
     a card, found on meta and printed first) and one prompt of 32,768
     positions at full depth: every count == the plan's, each peak within
-    ``PEAK_BAND``, the long prefill's seconds.  ``four_card_main`` ends with
-    the attention kernels' launches on its paths (JSON).
+    ``PEAK_BAND``, the long prefill's seconds.  Then (d), the six remaining
+    architectures (``SERVE_REMAINING_FOUR_CARDS``): each in f32 against one
+    card's run (mamba2-780m, whisper-base, gemma2-2b and stablelm-1.6b
+    whole, qwen3-moe-30b-a3b at 8 layers, zamba2-7b at 12), at full depth
+    in bf16 (48, 81, 6 + 6, 26, 24 and 48 layers) with a full-cache tick,
+    and a full 32k cache at ``FIT_BATCH`` (the largest batch up to 128
+    whose plan fits 72 GB a card): every count == the plan's, the peaks
+    within ``PEAK_BAND``, ms a tick.  ``four_card_main`` ends with the
+    kernels' launches on its paths (JSON).
 
 The last lines are the kernels' record (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Needs one
@@ -323,8 +345,10 @@ SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
 # at which the ROADMAP cuts this path's depth first (phases 6 and 8 still
 # hold its attention and SSD shapes against the plain versions); 12 since
 # phase 25 served deepseek-67b and internvl2-76b on one card too (the cut
-# rule, ``tools/cut_probe.py 10``: two shared invocations, 4 before)
-ZAMBA_LAYERS = 12
+# rule, ``tools/cut_probe.py 10``: two shared invocations, 4 before); 6
+# since phase 25 (a) served the six remaining architectures and 25 (d)
+# serves zamba2-7b whole on four cards (one shared invocation)
+ZAMBA_LAYERS = 6
 # the cut rule before phase 25 (sharded serving) came: the whole run took
 # 1183.3 s on a slow machine (H100 at 700 W), so phase 17 serves
 # qwen3-moe-30b-a3b at 4 of its 48 layers and mixtral-8x7b at 2 of its 32
@@ -332,8 +356,19 @@ ZAMBA_LAYERS = 12
 # serves mixtral whole on four cards), and the serving phases'
 # card-against-CPU checks (phases 7, 9, 10) run the 128-token prompt alone,
 # not the 1000-token one too; ``tools/cut_probe.py`` times each cut before
-# and after
-MOE_LAYERS = 4
+# and after; qwen3-moe-30b-a3b at 2 layers since phase 25 (d) serves it
+# whole on four cards and 25 (a) at 2 layers on one
+MOE_LAYERS = 2
+# mamba2-780m's serving depth in phase 9: 12 of its 48 layers since phase 25
+# (d) serves it whole on four cards and 25 (a) adds the six remaining
+# architectures on one card (the cut rule; ``tools/cut_probe.py 9``; phase 8
+# still holds its SSD shapes)
+MAMBA_LAYERS = 12
+# qwen2.5-3b's serving depth in phase 7: 12 of its 36 layers since phase 25
+# (a) added the six remaining architectures (phase 25 (b) serves it whole
+# on four cards; phase 6 holds its attention shapes; ``tools/cut_probe.py
+# 7d``)
+QWEN_LAYERS = 12
 MIXTRAL_LAYERS = 2
 CPU_CUT_PROMPTS = (128,)
 KEYS = ("durations", "cores", "data", "feasible", "release", "pred_matrix", "dtr",
@@ -972,6 +1007,105 @@ def attention_phase(prompt_lens: list[int]) -> dict:
     del q, k, v, valid
     print(f"phase 25 (c)'s attention shapes: {time.perf_counter() - t_long:.1f} s", flush=True)
 
+    # gemma2-2b's heads on a card of (data 1, model 4) (phase 25 (d): 2 query
+    # heads over 1 kv head of 256, softcap 50) at its FIT_BATCH, in bf16:
+    # a local layer's ring buffer of ``window`` keys and a global layer's
+    # LONG, through the decode kernel and its state variant (the output bit
+    # for bit the plain decode's, lse held as above); no PyTorch call takes
+    # a softcap, so no library time
+    from repro_torch.models.registry import get_model
+
+    t_gemma = time.perf_counter()
+    gemma = get_model("gemma2-2b").config
+    B, softcap = FIT_BATCH["gemma2-2b"], gemma.attn_softcap
+    for S in (gemma.window, LONG):
+        label = f"gemma2-2b decode {B} x {S} keys (H 2, Hkv 1, D 256, softcap {softcap:g} a card)"
+        q, k, v = normal((B, 2, 256), bf16), normal((B, 1, S, 256), bf16), normal((B, 1, S, 256), bf16)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        o = decode_attention_cuda(q, k, v, lengths, softcap=softcap)
+        err, err32 = compare("decode_attention", label, o, decode_attention_ref(q, k, v, lengths, softcap=softcap),
+                             decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap), bf16)
+        o_s, lse = decode_attention_state_cuda(q, k, v, lengths, softcap=softcap)
+        lse32 = decode_attention_state_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap)[1]
+        check(torch.equal(o_s, o), f"{label}: the state variant's output == decode_attention_cuda's, bit for bit")
+        lse_err = float(((lse - lse32).abs() / lse32.abs().clamp(min=1.0)).max())
+        check(lse_err <= 1e-5, f"state variant {label}: lse within 1e-5 of max(1, |lse|) ({lse_err})")
+        row = {"ms": cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=softcap), reps=20),
+               "plain_ms": cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, softcap=softcap), reps=5),
+               "state_ms": cuda_ms(lambda: decode_attention_state_cuda(q, k, v, lengths, softcap=softcap), reps=20),
+               "state_plain_ms": cuda_ms(lambda: decode_attention_state_ref(q, k, v, lengths, softcap=softcap),
+                                         reps=5),
+               "library_ms": None, "state_lse_max_rel_err": lse_err}
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, 2 * B * S, B * S)
+        w = work_mod.decode_attention_work(q, k, lengths, state=True)
+        row["state_bound_ms"], row["state_bound_by"] = roofline_ms(w.flops, w.bytes, bf16)
+        more["decode_attention"][label] = row
+        print(f"decode {label} bfloat16: max abs diff {err:.3g} (from f32 plain {err32:.3g}), state variant lse max "
+              f"rel err {lse_err:.3g}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}); state variant {row['state_ms']:.4f} ms, plain "
+              f"{row['state_plain_ms']:.4f} ms, bound {row['state_bound_ms']:.6f} ms ({row['state_bound_by']}); "
+              f"library: none (no PyTorch call takes a softcap)", flush=True)
+        del q, k, v, o, o_s, lse, lse32
+
+    # the card shares of phase 25 (d)'s families on (data 1, model 4), in
+    # bf16, at its prompts (8 of 142 tokens; whisper-base's encoder over
+    # 1500 frames) and its ticks (8 slots, 174 of a cache of 256 keys;
+    # whisper-base's cross-attention over 1500 frames), each held against
+    # its plain version and timed beside its bound and SDPA (none where a
+    # softcap applies)
+    share_flash = [  # (label, B, H, Hkv, Sq, Skv, D, options)
+        ("gemma2-2b share S=142 (H 2, Hkv 1, D 256, softcap 50)", 8, 2, 1, 142, 142, 256,
+         {"window": gemma.window, "softcap": softcap}),
+        ("stablelm-1.6b share S=142 (H 8, Hkv 8, D 64)", 8, 8, 8, 142, 142, 64, {}),
+        ("qwen3-moe share S=142 (H 8, Hkv 1, D 128)", 8, 8, 1, 142, 142, 128, {}),
+        ("zamba2-7b share S=142 (H 8, Hkv 8, D 112)", 8, 8, 8, 142, 142, 112, {}),
+        ("whisper-base share encoder S=1500 not causal (H 2, D 64)", 8, 2, 2, 1500, 1500, 64, {"causal": False}),
+        ("whisper-base share decoder S=142 (H 2, D 64)", 8, 2, 2, 142, 142, 64, {}),
+        ("whisper-base share cross Sq=142 Skv=1500 (H 2, D 64)", 8, 2, 2, 142, 1500, 64, {"causal": False}),
+    ]
+    for label, B, H, Hkv, Sq, Skv, D, kw in share_flash:
+        q, k, v = normal((B, H, Sq, D), bf16), normal((B, Hkv, Skv, D), bf16), normal((B, Hkv, Skv, D), bf16)
+        err, err32 = compare("flash_attention", label, flash_attention_cuda(q, k, v, **kw),
+                             flash_attention_ref(q, k, v, **kw),
+                             flash_attention_ref(q.float(), k.float(), v.float(), **kw), bf16)
+        causal = kw.get("causal", True)
+        pairs, keys = work_mod.attention_visible(Sq, Skv, causal=causal, window=kw.get("window"))
+        row = {"ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=20),
+               "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5),
+               "library_ms": None if "softcap" in kw else library(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True))}
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, B * H * pairs, B * Hkv * keys)
+        more["flash_attention"][label] = row
+        print(f"flash {label} bfloat16: max abs diff {err:.3g} (from f32 plain {err32:.3g}); kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})", flush=True)
+    share_decode = [  # (label, B, H, Hkv, S, D, keys a row, softcap)
+        ("gemma2-2b share tick, 174 of 256 keys (H 2, Hkv 1, D 256, softcap 50)", 8, 2, 1, 256, 256, 174, softcap),
+        ("stablelm-1.6b share tick, 174 of 256 keys (H 8, Hkv 8, D 64)", 8, 8, 8, 256, 64, 174, None),
+        ("qwen3-moe share tick, 174 of 256 keys (H 8, Hkv 1, D 128)", 8, 8, 1, 256, 128, 174, None),
+        ("zamba2-7b share tick, 174 of 256 keys (H 8, Hkv 8, D 112)", 8, 8, 8, 256, 112, 174, None),
+        ("whisper-base share self tick, 174 of 256 keys (H 2, D 64)", 8, 2, 2, 256, 64, 174, None),
+        ("whisper-base share cross tick, 1500 frames (H 2, D 64)", 8, 2, 2, 1500, 64, 1500, None),
+    ]
+    for label, B, H, Hkv, S, D, n, cap in share_decode:
+        q, k, v = normal((B, H, D), bf16), normal((B, Hkv, S, D), bf16), normal((B, Hkv, S, D), bf16)
+        lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+        err, err32 = compare("decode_attention", label, decode_attention_cuda(q, k, v, lengths, softcap=cap),
+                             decode_attention_ref(q, k, v, lengths, softcap=cap),
+                             decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=cap), bf16)
+        valid = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        row = {"ms": cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=cap), reps=20),
+               "plain_ms": cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, softcap=cap), reps=5),
+               "library_ms": None if cap else library(lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k, v, attn_mask=valid, enable_gqa=True))}
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, H * B * n, Hkv * B * n)
+        more["decode_attention"][label] = row
+        print(f"decode {label} bfloat16: max abs diff {err:.3g} (from f32 plain {err32:.3g}); kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})", flush=True)
+    del q, k, v
+    print(f"phase 25 (d)'s attention shapes: {time.perf_counter() - t_gemma:.1f} s", flush=True)
+
     # every head width the kernels take, at small shapes, held as above and
     # not timed
     for D in range(8, 257, 8):
@@ -1454,6 +1588,29 @@ def moe_stage_times(params, cfg, tokens: int) -> dict:
         f"dense capacity buffer (all {E} experts) and {out['routed_experts_bound_ms']:.4f} ms for the "
         f"{reached} experts these tokens reach (bytes)", flush=True)
     return out
+
+
+def qwen_phase(layers: int = QWEN_LAYERS) -> dict[str, int]:
+    """Phase 7: qwen2.5-3b at full width cut to ``layers`` served by the
+    engine (every prefill layer through the flash kernel, every decode
+    layer through the decode kernel), with its card-against-CPU cut of 2
+    layers; its launches."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    return serve_phase("qwen2.5-3b", {"flash_attention": (flash_attention_cuda, "prefill", layers),
+                                      "decode_attention": (decode_attention_cuda, "tick", layers)},
+                       cut={"num_layers": 2}, layers=layers).launches
+
+
+def mamba_phase(layers: int = MAMBA_LAYERS) -> dict[str, int]:
+    """Phase 9: mamba2-780m at full width cut to ``layers`` served by the
+    engine (every Mamba2 layer's prefill through the SSD kernel), with its
+    card-against-CPU cut of 2 layers; its launches."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    return serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill", layers)}, cut={"num_layers": 2},
+                       layers=layers).launches
 
 
 def zamba_phase(layers: int = ZAMBA_LAYERS) -> dict[str, int]:
@@ -4284,9 +4441,11 @@ def sharded_phase() -> dict[str, int]:
 
 #: phase 25: sharded serving under serve-tp on (data 1, model 4), a group of
 #: four ranks: (a) on the one card over gloo staged through the host, each
-#: model at full width cut to 2 layers in f32, the first four of the serving
-#: run's prompts cut to the shortest of them as one batch (internvl2-76b's
-#: behind 256 patches from a seed), then 8 greedy ticks; (b) on four cards
+#: model at full width cut to 2 layers in f32 (zamba2-7b to 6, one shared
+#: invocation; whisper-base to 2 + 2), the first four of the serving run's
+#: prompts cut to the shortest of them as one batch (internvl2-76b's behind
+#: 256 patches, whisper-base's behind 1500 frames, from a seed), then 8
+#: greedy ticks; (b) on four cards
 #: over NCCL (``four_card_main``): mixtral-8x7b at 8 layers in f32 and at all
 #: 32 in bf16, qwen2.5-3b at all 36 in f32, over the serving run's 8 prompts
 #: (cut to the shortest) and 32 ticks, and each model's ``decode_32k`` cell
@@ -4304,7 +4463,17 @@ SERVE_SHARDED_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards"
     {"arch": "deepseek-67b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
      "full_tick": True},
     {"arch": "internvl2-76b", "layers": 2, "dtype": "float32", "prompts": 4, "ticks": 8, "against_one": True,
-     "full_tick": True, "patches": True, "max_len": 1024},
+     "full_tick": True, "max_len": 1024},
+    # the six remaining architectures: whisper-base at 2 encoder and 2
+    # decoder layers behind 1500 frames, zamba2-7b at 6 (2 hold no shared
+    # invocation); mamba2-780m and zamba2-7b at 2 ticks: a Mamba2 block
+    # computes whole, so each step gathers its f32 weights through the host
+    # over gloo (130 MB a tick for mamba2-780m's 2 layers, 0.45-0.91 s;
+    # 1.9 GB for zamba2-7b's 6, 5.0 s)
+    *({"arch": arch, "layers": layers, "dtype": "float32", "prompts": 4, "ticks": ticks, "against_one": True,
+       "full_tick": True} for arch, layers, ticks in (
+        ("mamba2-780m", 2, 2), ("zamba2-7b", 6, 2), ("whisper-base", 2, 8), ("gemma2-2b", 2, 8),
+        ("stablelm-1.6b", 2, 8), ("qwen3-moe-30b-a3b", 2, 8))),
 ]}
 SERVE_SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
     {"arch": "mixtral-8x7b", "layers": 8, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True},
@@ -4324,7 +4493,7 @@ SERVE_SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "car
 #: (iii) a full 32k cache at the batch that fits (``FIT_BATCH``); (iv) one
 #: prompt of 32,768 positions (internvl2-76b: 256 patches + 32,512 tokens)
 SERVE_FULL_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
-    run for arch, extra in (("deepseek-67b", {}), ("internvl2-76b", {"patches": True, "max_len": 512}))
+    run for arch, extra in (("deepseek-67b", {}), ("internvl2-76b", {"max_len": 512}))
     for run in (
         {"arch": arch, "layers": 8, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True, **extra},
         {"arch": arch, "layers": None, "dtype": None, "prompts": 8, "ticks": 32, "against_one": False,
@@ -4343,7 +4512,36 @@ LONG = 32768
 #: at 14); ``fit_batch`` finds it again before (iii) runs, and phase 6 times
 #: the decode kernel at deepseek-67b's
 FIT_LIMIT_BYTES = 0.9 * 80e9
-FIT_BATCH = {"deepseek-67b": 12, "internvl2-76b": 13}
+FIT_BATCH = {"deepseek-67b": 12, "internvl2-76b": 13,
+             # phase 25 (d): up to decode_32k's 128 (on meta: stablelm-1.6b
+             # 71.70 GB at 44, 73.31 at 45; qwen3-moe-30b-a3b 71.70 at 70, 72.50
+             # at 71; zamba2-7b 70.99 at 43, 72.56 at 44; mamba2-780m 3.66,
+             # whisper-base 13.63 and gemma2-2b 64.22 at 128)
+             "mamba2-780m": 128, "whisper-base": 128, "stablelm-1.6b": 44, "gemma2-2b": 128,
+             "qwen3-moe-30b-a3b": 70, "zamba2-7b": 43}
+#: phase 25 (d): the six remaining architectures on four cards over NCCL
+#: (``four_card_main``, after 25 (c)), each (i) in f32 against one card's
+#: run of the same model: at full depth where the f32 weights fit one card
+#: beside the run (mamba2-780m, whisper-base, gemma2-2b, stablelm-1.6b),
+#: qwen3-moe-30b-a3b at 8 layers (the router f32, TF32 off) and zamba2-7b at
+#: ``ZAMBA_FOUR_LAYERS``, over the serving run's 8 prompts cut to the
+#: shortest (142 tokens; whisper-base's behind 1500 frames) and 32 ticks;
+#: (ii) at full depth in bf16 (48, 81, 6 + 6, 26, 24 and 48 layers), each
+#: rank drawing a module at a time, over the same prompts and ticks, with a
+#: tick at a full cache of ``max_len``; (iii) a full 32k cache at the batch
+#: that fits (``FIT_BATCH``)
+ZAMBA_FOUR_LAYERS = 12  # two shared invocations
+SERVE_REMAINING_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
+    run for arch, layers in (("mamba2-780m", None), ("zamba2-7b", ZAMBA_FOUR_LAYERS), ("whisper-base", None),
+                             ("gemma2-2b", None), ("stablelm-1.6b", None), ("qwen3-moe-30b-a3b", 8))
+    for run in (
+        {"arch": arch, "layers": layers, "dtype": "float32", "prompts": 8, "ticks": 32, "against_one": True},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 8, "ticks": 32, "against_one": False,
+         "full_tick": True},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
+         "decode_fit": True},
+    )
+]}
 #: a sharded step's logits against one device's unsharded run in f32: within
 #: ``atol + rtol * max|logit|`` of the step
 SERVE_SHARDED_TOL = {"atol": 1e-4, "rtol": 1e-4}
@@ -4362,6 +4560,7 @@ def serve_sharded_child() -> None:
     from repro_torch.distributed.sharding import logits_sharding
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_state_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import get_model
@@ -4380,7 +4579,7 @@ def serve_sharded_child() -> None:
     comm = DistComm(mesh, rank, job["backend"], staged=job["staged"])
     pol = dryrun.POLICIES["serve-tp"]
     wrappers = {"flash_attention": flash_attention_cuda, "decode_attention": decode_attention_cuda,
-                "decode_attention_state": decode_attention_state_cuda}
+                "decode_attention_state": decode_attention_state_cuda, "ssd_scan": ssd_scan_cuda}
     report: dict = {"rank": rank, "card": card, "backend": job["backend"], "runs": []}
 
     def sync_s(fn):
@@ -4393,10 +4592,16 @@ def serve_sharded_child() -> None:
     def on_meta(batch: dict) -> dict:
         return {k: v.to("meta") for k, v in batch.items()}
 
-    def patches(rng, n: int, cfg) -> torch.Tensor:
-        """The vlm's ``[n, P, d]`` patch embeddings, the same on every rank."""
-        x = rng.standard_normal((n, cfg.num_patches, cfg.d_model)) * 0.1
-        return torch.from_numpy(x.astype(np.float32)).to(dev, getattr(torch, cfg.dtype))
+    def extras(rng, n: int, cfg) -> dict:
+        """The family's prefill inputs beside the prompt, the same on every
+        rank: the vlm's ``[n, P, d]`` patch embeddings, the
+        encoder-decoder's ``[n, F, d]`` frames."""
+        name, rows = {"vlm": ("patches", cfg.num_patches), "encdec": ("frames", cfg.enc_frames)}.get(
+            cfg.family, (None, 0))
+        if name is None:
+            return {}
+        x = rng.standard_normal((n, rows, cfg.d_model)) * 0.1
+        return {name: torch.from_numpy(x.astype(np.float32)).to(dev, getattr(torch, cfg.dtype))}
 
     def counted_run(arch: str, cfg, suite, batch: dict, **kw):
         """A cell of ``arch`` at ``suite``, its model drawn from the seed, run
@@ -4424,20 +4629,21 @@ def serve_sharded_child() -> None:
     for run in job["runs"]:
         t_run = time.perf_counter()
         api = get_model(run["arch"])
-        cfg = api.config if run["layers"] is None else dataclasses.replace(api.config, num_layers=run["layers"])
+        cfg = api.config
+        if run["layers"] is not None:  # an encoder-decoder cut as deep on both sides
+            cut = {"enc_layers": run["layers"]} if cfg.family == "encdec" else {}
+            cfg = dataclasses.replace(cfg, num_layers=run["layers"], **cut)
         if run["dtype"]:
             cfg = dataclasses.replace(cfg, dtype=run["dtype"])
         max_len = run.get("max_len", job["max_len"])
-        row: dict = {"arch": run["arch"], "layers": cfg.num_layers, "dtype": cfg.dtype}
+        row: dict = {"arch": run["arch"], "family": cfg.family, "layers": cfg.num_layers, "dtype": cfg.dtype}
         if run["prompts"]:
             n, T = run["prompts"], run["ticks"]
             prompts = serve_prompts(cfg.vocab)[:n]
             S = min(len(p) for p in prompts)
-            batch = {"tokens": torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev)}
-            if run.get("patches"):
-                batch["patches"] = patches(np.random.default_rng(20), n, cfg)
-            extras = {k: v for k, v in batch.items() if k != "tokens"}
-            positions = S + (cfg.num_patches if extras else 0)
+            extra = extras(np.random.default_rng(20), n, cfg)
+            batch = {"tokens": torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev), **extra}
+            positions = S + (cfg.num_patches if cfg.family == "vlm" else 0)
             pre = ShapeSuite("prefill", "prefill", max_len, n)
             dec = ShapeSuite("decode", "decode", max_len, n)
             spec = logits_sharding(mesh, cfg, n, pol)
@@ -4449,7 +4655,7 @@ def serve_sharded_child() -> None:
                     whole = api.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
                     with torch.no_grad():
                         cache = api.init_cache(n, max_len, cfg, device=dev)
-                        lg, cache = api.prefill(whole, batch["tokens"], cache, cfg, **extras)
+                        lg, cache = api.prefill(whole, batch["tokens"], cache, cfg, **extra)
                         single_logits[0] = lg.to(on)
                         for t in range(T):
                             single_tokens[t] = lg.argmax(-1).to(torch.int32).to(on)
@@ -4462,6 +4668,9 @@ def serve_sharded_child() -> None:
                 dist.broadcast(single_tokens, 0)
             plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch=on_meta(batch))
             _, planned = dryrun.count_cell(plan, scopes=False)
+            plan = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg,
+                                     batch={"token": torch.zeros(n, dtype=torch.int32, device="meta")})
+            row["tick_plan_kernels"] = plan_counts(dryrun.count_cell(plan, scopes=False)[1])["kernels"]
             del plan
             gen = torch.Generator(device=dev).manual_seed(0)  # the model drawn a module at a time, sliced
             cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, comm=comm,
@@ -4471,10 +4680,11 @@ def serve_sharded_child() -> None:
             ((local, _), counted), prefill_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
             check(cell.cache["pos"] == positions, f"{run['arch']}: the cache's position {cell.cache['pos']} counts "
                                                   f"the prompt's {positions} positions")
+            kv = dryrun.kv_cache_of(cell.cache)  # the first attention's keys; None for an SSM
             row.update(build_s=build_s, prefill_s=prefill_s, prefill_plan=plan_counts(planned),
                        prefill_counted=plan_counts(counted),
-                       seq_axes=list(cell.program.cache_seq_axes(cell.cache["kv"][0]["k"][0])),
-                       span=list(cell.program.cache_span(cell.cache["kv"][0]["k"][0])),
+                       seq_axes=[] if kv is None else list(cell.program.cache_seq_axes(kv)),
+                       span=None if kv is None else list(cell.program.cache_span(kv)),
                        layout=dryrun.layout(cell.program))
             errs, bounds, tokens_out, tick_s = [], [], [], []
 
@@ -4500,7 +4710,7 @@ def serve_sharded_child() -> None:
                        logits_bound=bounds, tokens=tokens_out, tick_ms=[1e3 * s for s in tick_s])
             if run["against_one"]:
                 row["tokens_equal"] = tokens_out == single_tokens.cpu().tolist()
-            del cell, ticks, local, single_logits, batch, extras
+            del cell, ticks, local, single_logits, batch, extra
             gc.collect()
             torch.cuda.empty_cache()
         full = next((k for k in ("decode_32k", "decode_fit", "full_tick") if run.get(k)), None)
@@ -4523,10 +4733,9 @@ def serve_sharded_child() -> None:
             torch.cuda.empty_cache()
         if run.get("prefill_long"):  # one prompt of LONG positions at full depth
             rng = np.random.default_rng(32)
-            P = cfg.num_patches if run.get("patches") else 0
+            P = cfg.num_patches if cfg.family == "vlm" else 0
             batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, LONG - P)).astype(np.int32)).to(dev)}
-            if P:
-                batch["patches"] = patches(rng, 1, cfg)
+            batch.update(extras(rng, 1, cfg))
             cell, _, counted_s, rec = counted_run(run["arch"], cfg, ShapeSuite("prefill_32k", "prefill", LONG, 1),
                                                   batch)
             check(cell.cache["pos"] == LONG, f"{run['arch']}: the long prompt fills the cache's {LONG} positions "
@@ -4545,15 +4754,33 @@ def serve_sharded_child() -> None:
     dist.destroy_process_group()
 
 
+def plan_calls(kernels: dict) -> dict[str, int]:
+    """A plan's kernel calls by wrapper (the counter records the decode
+    kernel's state variant under ``decode_attention``)."""
+    return {name: kernels.get(name, {}).get("calls", 0) for name in ("flash_attention", "decode_attention",
+                                                                      "ssd_scan")}
+
+
+def launched(launches: dict) -> dict[str, int]:
+    """A run's launches in :func:`plan_calls`'s terms."""
+    return {"flash_attention": launches["flash_attention"],
+            "decode_attention": launches["decode_attention"] + launches["decode_attention_state"],
+            "ssd_scan": launches["ssd_scan"]}
+
+
 def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, dict[str, int]]:
     """Phase 25's checks on the ranks' reports, printed (the reports first,
-    whole); returns each kernel's launches by path."""
+    whole); returns each kernel's launches by path.  Each kernel's launches
+    are held against the plan's own kernel calls (the prefill's, plus the
+    ticks times a tick's); a decoder transformer's plan makes one flash call
+    a layer a prefill and one decode call a layer a tick."""
     print(json.dumps({f"sharded_serve_{label}": reports}), flush=True)
     by_path: dict[str, dict[str, int]] = {}
     for i, run in enumerate(job["runs"]):
         rows = [r["runs"][i] for r in reports]
         name = f"{run['arch']} {rows[0]['layers']} layers {rows[0]['dtype']}"
         L = rows[0]["layers"]
+        decoder = rows[0]["family"] in ("dense", "moe", "vlm")
         for r, row in zip(reports, rows):
             tag = f"sharded serve {label} {name} rank {r['rank']}"
             if run["prompts"]:
@@ -4562,9 +4789,17 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                       f"{row['prefill_counted']} against {row['prefill_plan']}")
                 T = row["ticks"]
                 seq = bool(row["seq_axes"])
-                want = {"flash_attention": L, "decode_attention": 0 if seq else L * T,
-                        "decode_attention_state": L * T if seq else 0}
-                check(row["launches"] == want, f"{tag}: launches {row['launches']}, expected {want}")
+                prefill, tick = plan_calls(row["prefill_plan"]["kernels"]), plan_calls(row["tick_plan_kernels"])
+                if decoder:
+                    check(prefill["flash_attention"] == L and tick["decode_attention"] == L,
+                          f"{tag}: the plan calls flash once a layer a prefill and decode once a layer a tick: "
+                          f"{prefill}, {tick}")
+                decodes = prefill["decode_attention"] + T * tick["decode_attention"]
+                want = {"flash_attention": prefill["flash_attention"] + T * tick["flash_attention"],
+                        "decode_attention": 0 if seq else decodes, "decode_attention_state": decodes if seq else 0,
+                        "ssd_scan": prefill["ssd_scan"] + T * tick["ssd_scan"]}
+                check(row["launches"] == want and sum(want.values()) > 0,
+                      f"{tag}: launches {row['launches']}, expected the plan's {want}")
                 for k, v in row["launches"].items():
                     if v:
                         by_path.setdefault(k, {})[f"sharded serve {label} {name} rank {r['rank']}"] = v
@@ -4599,9 +4834,13 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                     check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1], f"{tag} {full}: dry-run peak within {PEAK_BAND} of "
                                                                  f"max_memory_allocated ({ratio:.4f})")
                 long = full == "prefill_long"
-                decodes = f["launches"]["decode_attention"] + f["launches"]["decode_attention_state"]
-                check(f["launches"]["flash_attention"] == (L if long else 0) and decodes == (0 if long else L),
-                      f"{tag} {full}: launches {f['launches']}: one {'flash' if long else 'decode'} a layer")
+                calls = plan_calls(f["plan"]["kernels"])
+                check(launched(f["launches"]) == calls,
+                      f"{tag} {full}: launches {f['launches']} == the plan's kernel calls {calls}")
+                if decoder:
+                    check(calls["flash_attention"] == (L if long else 0) and calls["decode_attention"] == (0 if long
+                                                                                                         else L),
+                          f"{tag} {full}: one {'flash' if long else 'decode'} call a layer in the plan: {calls}")
                 if full in ("decode_fit", "prefill_long"):
                     for k, v in f["launches"].items():
                         if v:
@@ -4633,17 +4872,19 @@ def serve_sharded_phase() -> dict[str, dict[str, int]]:
                                             name="phase25"), "one card")
 
 
-def fit_batch(arch: str) -> tuple[int, int, int]:
-    """Phase 25 (c) (iii)'s batch for ``arch`` on (data 1, model 4) under
-    serve-tp: the largest whose dry-run peak a card at a cache of ``LONG``
-    is at most ``FIT_LIMIT_BYTES``, found on meta (the peak grows by one
-    sequence's share of the cache a row); with its peak and the next
-    batch's."""
-    from repro_torch.configs.shapes import ShapeSuite
+def fit_batch(arch: str) -> tuple[int, int, int | None]:
+    """The batch of phase 25 (c) (iii) and (d) (iii) for ``arch`` on (data
+    1, model 4) under serve-tp: the largest, up to ``decode_32k``'s 128,
+    whose dry-run peak a card at a cache of ``LONG`` is at most
+    ``FIT_LIMIT_BYTES``, found on meta (the peak grows by one sequence's
+    share of the cache a row); with its peak and the next batch's (None at
+    the suite's batch)."""
+    from repro_torch.configs.shapes import SHAPES, ShapeSuite
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((1, 4), ("data", "model"))
+    cap = SHAPES["decode_32k"].global_batch
     peaks: dict[int, int] = {}
 
     def peak(B: int) -> int:
@@ -4653,37 +4894,53 @@ def fit_batch(arch: str) -> tuple[int, int, int]:
             peaks[B] = dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
         return peaks[B]
 
-    B = max(1, int((FIT_LIMIT_BYTES - peak(1)) // (peak(2) - peak(1))) + 1)
+    grows = max(1, peak(2) - peak(1))
+    B = min(cap, max(1, int((FIT_LIMIT_BYTES - peak(1)) // grows) + 1))
     while B > 1 and peak(B) > FIT_LIMIT_BYTES:
         B -= 1
-    while peak(B + 1) <= FIT_LIMIT_BYTES:
+    while B < cap and peak(B + 1) <= FIT_LIMIT_BYTES:
         B += 1
-    return B, peak(B), peak(B + 1)
+    return B, peak(B), peak(B + 1) if B < cap else None
+
+
+def fit_batches(job: dict, label: str) -> dict:
+    """A copy of ``job`` with each ``decode_fit`` run's batch found on meta
+    (:func:`fit_batch`), printed and held to ``FIT_BATCH``."""
+    job = json.loads(json.dumps(job))
+    for run in job["runs"]:
+        if run.get("decode_fit"):
+            B, at, past = fit_batch(run["arch"])
+            nxt = "the suite's batch" if past is None else f"batch {B + 1}: {past / 1e9:.3f} GB"
+            print(f"{label} {run['arch']}: a cache of {LONG} positions at batch {B}, the dry-run's peak "
+                  f"{at / 1e9:.3f} GB a card ({nxt}; at most {FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
+            check(B == FIT_BATCH[run["arch"]], f"{run['arch']}: the batch that fits, {B}, is FIT_BATCH's")
+            run["batch"] = B
+    return job
 
 
 def serve_full_phase() -> dict[str, dict[str, int]]:
     """Phase 25 (c) on four cards: (iii)'s batches found on meta and
     printed, then the four NCCL ranks of ``SERVE_FULL_FOUR_CARDS``."""
-    job = json.loads(json.dumps(SERVE_FULL_FOUR_CARDS))  # a copy, (iii)'s batches filled in
-    for run in job["runs"]:
-        if run.get("decode_fit"):
-            B, at, past = fit_batch(run["arch"])
-            print(f"phase 25 (c) {run['arch']}: a cache of {LONG} positions at batch {B}, the dry-run's peak "
-                  f"{at / 1e9:.3f} GB a card (batch {B + 1}: {past / 1e9:.3f} GB; at most "
-                  f"{FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
-            check(B == FIT_BATCH[run["arch"]], f"{run['arch']}: the batch that fits, {B}, is FIT_BATCH's")
-            run["batch"] = B
+    job = fit_batches(SERVE_FULL_FOUR_CARDS, "phase 25 (c)")
     return serve_sharded_report(job, run_sharded(job, 1500, child="serve_sharded_child", name="phase25c"),
                                 "four cards")
 
 
+def serve_remaining_phase() -> dict[str, dict[str, int]]:
+    """Phase 25 (d) on four cards: (iii)'s batches found on meta and
+    printed, then the four NCCL ranks of ``SERVE_REMAINING_FOUR_CARDS``."""
+    job = fit_batches(SERVE_REMAINING_FOUR_CARDS, "phase 25 (d)")
+    return serve_sharded_report(job, run_sharded(job, 1500, child="serve_sharded_child", name="phase25d"),
+                                "four cards")
+
+
 def four_card_main() -> int:
-    """Phases 24 (c), 25 (b) and 25 (c) alone, on a host of four cards:
-    build the kernels, run the four NCCL ranks of each, print the reports,
-    then the attention kernels' launches on these paths (JSON)."""
+    """Phases 24 (c) and 25 (b)-(d) alone, on a host of four cards: build
+    the kernels, run the four NCCL ranks of each, print the reports, then
+    the kernels' launches on these paths (JSON)."""
     from repro_torch.kernels import _build
 
-    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b)-(c) need four")
+    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b)-(d) need four")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"four cards: {smi}", flush=True)
@@ -4699,18 +4956,21 @@ def four_card_main() -> int:
     t0 = time.perf_counter()
     full = serve_full_phase()
     print(f"phase 25 (c): {time.perf_counter() - t0:.1f} s; launches {full}", flush=True)
-    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, serving, full)}),
-          flush=True)
+    t0 = time.perf_counter()
+    remaining = serve_remaining_phase()
+    print(f"phase 25 (d): {time.perf_counter() - t0:.1f} s; launches {remaining}", flush=True)
+    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, serving, full,
+                                                              remaining)}), flush=True)
     return 0
 
 
 def four_card_kernels(*paths: dict[str, dict[str, int]]) -> list[dict]:
-    """The attention kernels' launches by path over the four-card phases
-    (the state variant under the decode kernel)."""
-    out = {"flash_attention": {}, "decode_attention": {}}
+    """The kernels' launches by path over the four-card phases (the state
+    variant under the decode kernel)."""
+    out = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
     for by_path in paths:
-        out["flash_attention"].update(by_path.get("flash_attention", {}))
-        out["decode_attention"].update(by_path.get("decode_attention", {}))
+        for name in out:
+            out[name].update(by_path.get(name, {}))
         out["decode_attention"].update({f"{k} (state variant)": n for k, n in
                                         by_path.get("decode_attention_state", {}).items()})
     return [{"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -4971,23 +5231,16 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    def layers(arch: str) -> int:
-        return get_model(arch).config.num_layers
-
-    qwen_launches = serve_phase("qwen2.5-3b", {
-        "flash_attention": (flash_attention_cuda, "prefill", layers("qwen2.5-3b")),
-        "decode_attention": (decode_attention_cuda, "tick", layers("qwen2.5-3b"))},
-        cut={"num_layers": 2}).launches
-    phase_done(7, "qwen2.5-3b served at full width")
+    qwen_launches = qwen_phase()
+    phase_done(7, f"qwen2.5-3b served at full width, {QWEN_LAYERS} layers")
 
     # 8. the SSD kernel against its plain version ------------------------------------
     ssd = ssd_phase([len(p) for p in serve_prompts(get_model("mamba2-780m").config.vocab)])
     phase_done(8, "SSD kernel against its plain version")
 
     # 9. mamba2-780m served at full width: the ssm family's serving path -------------
-    mamba_launches = serve_phase("mamba2-780m", {"ssd_scan": (ssd_scan_cuda, "prefill", layers("mamba2-780m"))},
-                                 cut={"num_layers": 2}).launches
-    phase_done(9, "mamba2-780m served at full width")
+    mamba_launches = mamba_phase()
+    phase_done(9, f"mamba2-780m served at full width, {MAMBA_LAYERS} layers")
 
     # 10. zamba2-7b served at full width: the hybrid family's serving path ----------
     zamba_launches = zamba_phase()
@@ -5129,6 +5382,7 @@ def main() -> int:
     by_path["decode_attention"].update(serving_by_path.get("decode_attention", {}))
     by_path["decode_attention"].update({f"{k} (state variant)": n for k, n in
                                         serving_by_path.get("decode_attention_state", {}).items()})
+    by_path["ssd_scan"].update(serving_by_path.get("ssd_scan", {}))
 
     kernels = [{
         "name": "population_makespan",

@@ -47,6 +47,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import time
 import traceback
 from collections.abc import Callable, Mapping
@@ -141,30 +142,68 @@ def activation_spec(mesh: Mesh, policy: ShardingPolicy) -> tuple | None:
     return (dp if len(dp) > 1 else dp[0], tp if len(tp) > 1 else (tp[0] if tp else None), None)
 
 
-def _draw_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int, seed: int,
-                device: torch.device) -> dict:
-    """Device ``rank``'s share of a cache of ``cache``'s global shapes filled
-    with standard normal values from ``seed``: each layer's slice of each
-    leaf drawn whole on ``device`` and cut, so the shares are those of one
-    whole cache and no device holds it whole: each slice is copied into the
-    device's leaf, so a layer's whole draw is freed before the next."""
-    from repro_torch.distributed.comm import take_local
+#: a drawn cache layer whose f32 draw is larger than this is drawn a batch
+#: row at a time: drawn whole, a layer of zamba2-7b's shared cache at
+#: ``decode_32k``'s fitting batch is 20 GB in f32 beside the device's share
+#: of the cache; every layer of the transformers' cells served before is
+#: at most this, so their draws are unchanged
+DRAW_WHOLE_BYTES = 2**32
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    out = {"kv": [], "pos": cache["pos"]}
-    for i, slot in enumerate(cache["kv"]):
-        leaves = {}
-        for name, leaf in slot.items():
-            spec = specs[f"kv/{i}/{name}"]
-            mine = torch.empty(local_shape(tuple(leaf.shape), spec, mesh), dtype=leaf.dtype, device=device)
-            for layer in range(leaf.shape[0]):
-                whole = torch.randn(tuple(leaf.shape[1:]), generator=gen, device=device).to(leaf.dtype)
-                mine[layer] = take_local(whole, spec[1:], mesh, rank)
-                del whole
-            leaves[name] = mine
-        out["kv"].append(leaves)
-    out["kv"] = tuple(out["kv"])
-    return out
+
+def _draw_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int, seed: int,
+                device: torch.device, prefix: str = "", gen: torch.Generator | None = None):
+    """Device ``rank``'s share of a cache of ``cache``'s global shapes filled
+    with standard normal values from ``seed``: every leaf (``kv/<slot>/{k,
+    v}``, ``layers/{ssm, conv}``, ``shared_kv/{k, v}``, ``self_*``,
+    ``cross_*``, each ``[layers, ...]``) in the order of
+    ``sharding.cache_leaves``, each layer's slice drawn whole on ``device``
+    (a batch row at a time past ``DRAW_WHOLE_BYTES``) and cut, so the shares
+    are those of one whole cache and no device holds it whole: each slice is
+    copied into the device's leaf, so a draw is freed before the next.  The
+    position is kept."""
+    from repro_torch.distributed.comm import local_slices, take_local
+
+    gen = gen or torch.Generator(device=device).manual_seed(seed)
+    if isinstance(cache, Mapping):
+        return {k: _draw_cache(v, specs, mesh, rank, seed, device, f"{prefix}{k}/", gen) for k, v in cache.items()}
+    if isinstance(cache, (tuple, list)):
+        return type(cache)(_draw_cache(v, specs, mesh, rank, seed, device, f"{prefix}{i}/", gen)
+                           for i, v in enumerate(cache))
+    if not isinstance(cache, torch.Tensor):
+        return cache
+    spec = specs[prefix[:-1]]
+    mine = torch.empty(local_shape(tuple(cache.shape), spec, mesh), dtype=cache.dtype, device=device)
+    layer_shape = tuple(cache.shape[1:])
+    by_rows = 4 * math.prod(layer_shape) > DRAW_WHOLE_BYTES
+    rows = local_slices(layer_shape, spec[1:], mesh, rank)[0]  # this device's batch rows
+    for layer in range(cache.shape[0]):
+        if not by_rows:
+            whole = torch.randn(layer_shape, generator=gen, device=device).to(cache.dtype)
+            mine[layer] = take_local(whole, spec[1:], mesh, rank)
+            del whole
+            continue
+        for b in range(layer_shape[0]):
+            whole = torch.randn(layer_shape[1:], generator=gen, device=device).to(cache.dtype)
+            if rows.start <= b < rows.stop:
+                mine[layer, b - rows.start] = take_local(whole, spec[2:], mesh, rank)
+            del whole
+    return mine
+
+
+def kv_cache_of(cache: Mapping) -> torch.Tensor | None:
+    """The first layer's KV cache ``[B, Hkv, S, D]`` of a family's first
+    attention (``kv/0/k``, ``shared_kv/k`` or ``self_k``), or None where the
+    cache holds no keys (an SSM, a hybrid too shallow for a shared
+    invocation)."""
+    if "kv" in cache:
+        leaf = cache["kv"][0]["k"]
+    elif "shared_kv" in cache:
+        leaf = cache["shared_kv"]["k"]
+    elif "self_k" in cache:
+        leaf = cache["self_k"]
+    else:
+        return None
+    return leaf[0] if leaf.shape[0] else None
 
 
 def _cut_cache(cache: Mapping, specs: Mapping[str, Spec], mesh: Mesh, rank: int, device: torch.device,

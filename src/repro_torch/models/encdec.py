@@ -11,14 +11,17 @@ Every attention goes through the kernel wrappers: the encoder's
 self-attention through ``flash_attention_cuda(causal=False)`` at Sq = Skv =
 frames, the decoder's self-attention causal, its cross-attention
 non-causal with the prompt's rows against the frames' keys (Sq != Skv); a
-decode tick runs the self-attention and the cross-attention (``lengths`` =
-frames, every key visible) through ``decode_attention_cuda``.
+decode tick runs the self-attention and the cross-attention (every frame
+visible) through ``decode_attention_cuda``, or, where a program splits a
+cache's sequence over devices, its state variant over the device's share
+and the shares' combine (``layers.decode_cache``).
 
 The reference scans stacked layers; here the blocks are ``nn.ModuleList``s
 (``enc_blocks[i]``, ``dec_blocks[i]``) and the scan a Python loop.  The
 cache is ``{"self_k", "self_v": [layers, B, Hkv, max_len, D], "cross_k",
-"cross_v": [layers, B, Hkv, frames, D], "pos": int}``; prefill writes the
-self caches in place and replaces the cross caches, as the reference does.
+"cross_v": [layers, B, Hkv, frames, D], "pos": int}``; prefill writes
+both in place (the reference returns new cross caches), so that a program
+knows every leaf it splits by its storage.
 
 Departure: the reference reads ``pos_dec[pos]`` with JAX's clamping gather,
 so a decode step at ``pos >= dec_positions`` silently reuses the last
@@ -31,7 +34,6 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import program as D
-from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -179,22 +181,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             frames: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
-    """Encode ``frames``, run the decoder prompt ``tokens [B, S]``, write its
-    self-attention keys and values into the cache in place and set the
-    cross-attention caches to the encoder's keys and values.  Returns
-    (last-position logits [B, V] f32, the cache at position S)."""
+    """Encode ``frames``, run the decoder prompt ``tokens [B, S]``, and write
+    its self-attention keys and values and the encoder's cross-attention
+    keys and values into the cache in place (each cut to this device's
+    share where a program splits a cache's sequence).  The frames fill the
+    cross cache.  Returns (last-position logits [B, V] f32, the cache at
+    position S)."""
     if frames is None:
         raise ValueError("encdec prefill needs frames")
+    held = D.cache_span(cache["cross_k"][0])[1]
+    if frames.shape[1] != held:
+        raise ValueError(f"{frames.shape[1]} frames do not fill the cross-attention cache of {held}")
     enc = encode(params, cfg, frames)
     S = tokens.shape[1]
     x, layers = _decoder(params, cfg, tokens, enc)
-    for i, (kc, vc, _, _) in enumerate(layers):
-        L.write_prompt_kv(cache["self_k"][i], kc)
-        L.write_prompt_kv(cache["self_v"][i], vc)
-    dtype = cache["cross_k"].dtype
+    for i, kvs in enumerate(layers):
+        for name, t in zip(("self_k", "self_v", "cross_k", "cross_v"), kvs):
+            L.write_prompt_kv(cache[name][i], t)
     logits = L.unembed(params.embed, x[:, -1:], cfg)[:, 0]
-    return logits, {**cache, "cross_k": torch.stack([ck for _, _, ck, _ in layers]).to(dtype),
-                    "cross_v": torch.stack([cv for _, _, _, cv in layers]).to(dtype), "pos": S}
+    return logits, {**cache, "pos": S}
 
 
 def decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor,
@@ -209,7 +214,7 @@ def decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor,
     B = token.shape[0]
     x = L.embed(params.embed, token[:, None], cfg) + D.weight(params.pos_dec)[pos][None, None]
     posb = torch.full((B,), pos, device=x.device)
-    frames = torch.full((B,), cache["cross_k"].shape[3], dtype=torch.int32, device=x.device)
+    frames = torch.full((B,), cache["cross_k"].shape[3], dtype=torch.int32, device=x.device)  # its share: all seen
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     for i, p in enumerate(params.dec_blocks):
         h, _, _ = L.attention_decode(p.self_attn, L.rmsnorm(p.ln_self, x, cfg.norm_eps), cfg,
@@ -217,8 +222,7 @@ def decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor,
         x = x + h
         xin = D.enter(L.rmsnorm(p.ln_cross, x, cfg.norm_eps), p.cross_attn)
         q = L.linear(p.cross_attn.q, xin).reshape(B, H, hd)
-        ck, cv = D.kv_select(cache["cross_k"][i], cache["cross_v"][i], H)
-        o = decode_attention_cuda(q, ck, cv, frames)
+        o = L.decode_cache(q, cache["cross_k"][i], cache["cross_v"][i], frames)
         x = x + D.exit(L.linear(p.cross_attn.o, o.reshape(B, 1, H * hd)), p.cross_attn)
         x = x + L.mlp(p.mlp, L.rmsnorm(p.ln_mlp, x, cfg.norm_eps), cfg)
     x = L.rmsnorm(params.ln_final, x, cfg.norm_eps)

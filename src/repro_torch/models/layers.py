@@ -306,15 +306,25 @@ def attention_decode(
         lengths = torch.clamp(posb + 1, max=S).to(torch.int32)
     else:  # the keys of this device's share
         lengths = torch.clamp(torch.clamp(posb + 1, max=S_all) - first, 0, S).to(torch.int32)
-    q1 = D.decode_query(q[:, 0].contiguous(), k_cache)
-    ka, va = D.kv_select(k_cache, v_cache, q1.shape[1])
-    if S_all == S:
-        o = decode_attention_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap)
-    else:  # every share's attention combined by the softmax states
-        o, lse = decode_attention_state_cuda(q1, ka, va, lengths, softcap=cfg.attn_softcap)
-        o = D.decode_combine(o, lse, k_cache)
+    o = decode_cache(q[:, 0].contiguous(), k_cache, v_cache, lengths, softcap=cfg.attn_softcap)
     o = o.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
     return D.exit(linear(p.o, o), p), k_cache, v_cache
+
+
+def decode_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                 softcap: float | None = None) -> torch.Tensor:
+    """This device's query heads ``q [B, H, D]`` (one token) against a
+    layer's cache ``[B, Hkv, S, D]``, ``lengths [B]`` of its keys visible:
+    the decode kernel, or, where a program splits the cache's sequence over
+    devices, the heads gathered where the same axes split them, the state
+    variant over this device's share and every share combined by its
+    softmax state."""
+    q1 = D.decode_query(q, k_cache)
+    ka, va = D.kv_select(k_cache, v_cache, q1.shape[1])
+    if D.cache_span(k_cache)[1] == k_cache.shape[2]:
+        return decode_attention_cuda(q1, ka, va, lengths, softcap=softcap)
+    o, lse = decode_attention_state_cuda(q1, ka, va, lengths, softcap=softcap)
+    return D.decode_combine(o, lse, k_cache)
 
 
 # -----------------------------------------------------------------------------

@@ -10,15 +10,19 @@ each test reads its part:
   vocabulary split), on (4, 2) and on (2, 4) under ``seqpar`` with the
   activation hint; the reduced qwen3-moe-30b-a3b's step on (8, 1) and (2,
   4) (the batch split: the whole batch's routing) and with 6 experts on (2,
-  4) (an ffn split); the reduced qwen2.5-3b, deepseek-67b and
-  internvl2-76b (behind its patches) served on (2, 4) under ``serve-tp``;
+  4) (an ffn split); the reduced qwen2.5-3b, deepseek-67b,
+  internvl2-76b (behind its patches), zamba2-7b, whisper-base (behind its
+  frames) and qwen3-moe-30b-a3b served on (2, 4) under ``serve-tp``, and
+  whisper-base and zamba2-7b on (1, 8) (attention whole on every device,
+  every cache split over its sequence);
   each rank-aware body alone; every slice gathered whole;
   ``compressed_psum_pod`` on (pod 4, x 2); a save under (2, 4) restored
   under (4, 2); the MoE aux loss and a binding capacity under a batch split;
 * four ranks: the step on (1, 4), the batch not split, of the reduced
-  qwen2.5-3b and qwen3-moe-30b-a3b (experts over model); the reduced
-  qwen2.5-3b, mixtral-8x7b, deepseek-67b and internvl2-76b served on (1, 4)
-  (the cache's sequence split, mixtral's ring-buffered window too); the
+  qwen2.5-3b and qwen3-moe-30b-a3b (experts over model); every reduced
+  architecture served on (1, 4) (the caches' sequence split where the kv
+  heads do not divide, mixtral's and gemma2's ring-buffered windows too,
+  mamba2-780m's states stored split over their heads); the
   decode combine with empty shares; and the pipeline on four stages.
 
 The reference's side (``devices_indices_map``, ``compressed_psum_pod`` and
@@ -65,11 +69,26 @@ MOE_EIGHT = [("moe-8x1", (8, 1), "baseline", False, MOE, None), ("moe-2x4", (2, 
 MOE_FOUR = [("moe-1x4", (1, 4), "baseline", False, MOE, None)]
 SERVE_EIGHT = [("serve-qwen-2x4", "qwen2.5-3b", (2, 4), "serve-tp"),
                ("serve-deepseek-2x4", "deepseek-67b", (2, 4), "serve-tp"),
-               ("serve-internvl2-2x4", "internvl2-76b", (2, 4), "serve-tp")]
+               ("serve-internvl2-2x4", "internvl2-76b", (2, 4), "serve-tp"),
+               # the hybrid's states split over the batch, whisper's frames, the
+               # MoE routing of the whole batch while serving
+               ("serve-zamba2-2x4", "zamba2-7b", (2, 4), "serve-tp"),
+               ("serve-whisper-2x4", "whisper-base", (2, 4), "serve-tp"),
+               ("serve-qwen3-moe-2x4", "qwen3-moe-30b-a3b", (2, 4), "serve-tp"),
+               # 4 query and kv heads on 8: attention whole on every device, the
+               # self, cross and shared caches split over their sequence
+               ("serve-whisper-1x8", "whisper-base", (1, 8), "serve-tp"),
+               ("serve-zamba2-1x8", "zamba2-7b", (1, 8), "serve-tp")]
 SERVE_FOUR = [("serve-qwen-1x4", "qwen2.5-3b", (1, 4), "serve-tp"),
               ("serve-mixtral-1x4", "mixtral-8x7b", (1, 4), "serve-tp"),
               ("serve-deepseek-1x4", "deepseek-67b", (1, 4), "serve-tp"),
-              ("serve-internvl2-1x4", "internvl2-76b", (1, 4), "serve-tp")]
+              ("serve-internvl2-1x4", "internvl2-76b", (1, 4), "serve-tp"),
+              ("serve-mamba2-1x4", "mamba2-780m", (1, 4), "serve-tp"),
+              ("serve-zamba2-1x4", "zamba2-7b", (1, 4), "serve-tp"),
+              ("serve-whisper-1x4", "whisper-base", (1, 4), "serve-tp"),
+              ("serve-gemma2-1x4", "gemma2-2b", (1, 4), "serve-tp"),
+              ("serve-stablelm-1x4", "stablelm-1.6b", (1, 4), "serve-tp"),
+              ("serve-qwen3-moe-1x4", "qwen3-moe-30b-a3b", (1, 4), "serve-tp")]
 VLM_SERVE = [c[0] for c in SERVE_EIGHT + SERVE_FOUR if c[1] == "internvl2-76b"]
 
 
@@ -350,6 +369,37 @@ def test_every_rank_counts_the_serving_plan(name, groups):
         assert json.loads(str(r["prefill_counted"])) == json.loads(str(r["prefill_plan"])), rank
         assert json.loads(str(r["decode_counted"])) == json.loads(str(r["decode_plan"])), rank
         assert json.loads(str(r["decode_counted"]))["collective_counts"]["all-reduce"] > 0, rank
+
+
+def test_the_cross_cache_split_over_devices_equals_one_device(groups):
+    """The reduced whisper-base on (1, 8): its 4 heads do not divide 8, so
+    attention runs whole on every device while the cross cache splits its
+    16 frames 2 a rank; the prefill writes each rank's share of the
+    encoder's keys in place, every tick combines the shares' attention, and
+    every step's logits stay within 1e-4 of one device's, as does a tick
+    from one device's whole cache cut to the shares."""
+    frames = G.reduced("whisper-base")[1].enc_frames
+    for rank, r in enumerate(_case(groups, "serve-whisper-1x8")):
+        assert [int(x) for x in r["cross_span"]] == [rank * frames // 8, frames], rank
+        assert json.loads(str(r["seq_axes"])) == ["model"]
+        assert max(float(r[f"err_{i}"]) for i in range(1 + G.SERVE["ticks"])) <= G.TOL["loss"], rank
+        assert float(r["whole_cache_err"]) <= G.TOL["loss"], (rank, float(r["whole_cache_err"]))
+    for rank, r in enumerate(_case(groups, "serve-whisper-2x4")):  # heads split: every frame a rank
+        assert [int(x) for x in r["cross_span"]] == [0, frames], rank
+
+
+def test_the_ssm_state_is_stored_split_and_computed_whole(groups):
+    """The reduced mamba2-780m on (1, 4): each rank stores a quarter of every
+    layer's SSM state heads ``[L, B, H / 4, P, N]``, gathers them to compute
+    the Mamba2 block whole, and every step's logits equal one device's
+    within 1e-4; the model holds no attention cache."""
+    cfg = G.reduced("mamba2-780m")[1]
+    for rank, r in enumerate(_case(groups, "serve-mamba2-1x4")):
+        assert [int(x) for x in r["ssm_shape"]] == [cfg.num_layers, G.SERVE["batch"], cfg.ssm_heads // 4, cfg.ssm_headdim,
+                                                    cfg.ssm_state], rank
+        assert json.loads(str(r["seq_axes"])) == [] and r["cache_span"].size == 0
+        assert json.loads(str(r["layout"]))["modules"].get("whole"), rank
+        assert max(float(r[f"err_{i}"]) for i in range(1 + G.SERVE["ticks"])) <= G.TOL["loss"], rank
 
 
 @pytest.mark.parametrize("name", VLM_SERVE)

@@ -312,3 +312,33 @@ def test_meta_takes_no_other_branch(arch, kind):
     assert meta.memory()["argument_bytes"] == cpu.memory()["argument_bytes"]
     if kind == "train":
         assert meta.memory()["peak_bytes"] == cpu.memory()["peak_bytes"]
+
+
+@pytest.mark.parametrize("whole_bytes", [dryrun.DRAW_WHOLE_BYTES, 0], ids=["layers-whole", "batch-rows"])
+def test_a_drawn_cache_is_every_devices_share_of_one_whole_cache(whole_bytes, monkeypatch):
+    """A cache drawn from a seed on (2, 2), its kv heads over model and its
+    batch over data: every device's leaves are its slices of one whole
+    cache drawn in the same order, a layer at a time or, past
+    ``DRAW_WHOLE_BYTES``, a batch row at a time; the position is kept."""
+    from repro_torch.distributed.comm import local_slices
+
+    monkeypatch.setattr(dryrun, "DRAW_WHOLE_BYTES", whole_bytes)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    shape = (3, 4, 2, 6, 5)
+    cache = {"layers": {"k": torch.zeros(shape), "v": torch.zeros(shape)}, "pos": 0}
+    specs = {"layers/k": (None, "data", "model", None, None), "layers/v": (None, "data", "model", None, None),
+             "pos": ()}
+    g = torch.Generator().manual_seed(7)
+    whole = {name: torch.empty(shape) for name in ("k", "v")}
+    for t in whole.values():
+        for layer in range(shape[0]):
+            if whole_bytes:
+                t[layer] = torch.randn(shape[1:], generator=g)
+            else:
+                for b in range(shape[1]):
+                    t[layer, b] = torch.randn(shape[2:], generator=g)
+    for rank in range(4):
+        out = dryrun._draw_cache(cache, specs, mesh, rank, 7, torch.device("cpu"))
+        assert out["pos"] == 0
+        for name, t in whole.items():
+            assert torch.equal(out["layers"][name], t[local_slices(shape, specs[f"layers/{name}"], mesh, rank)])

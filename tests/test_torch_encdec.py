@@ -223,6 +223,59 @@ def test_prefill_needs_frames():
         api.prefill(params, torch.zeros(1, 3, dtype=torch.int32), api.init_cache(1, 8, cfg, device="cpu"), cfg)
 
 
+def test_prefill_refuses_frames_that_do_not_fill_the_cross_cache():
+    """The prefill writes the encoder's keys into the cross cache in place,
+    and a tick attends to every cached frame, so fewer frames than the cache
+    holds would leave zero keys in the softmax: refused."""
+    api = get_model(ARCH)
+    cfg = api.reduced
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    _, frames = _frames(cfg, 1)
+    with pytest.raises(ValueError, match="do not fill the cross-attention cache"):
+        api.prefill(params, torch.zeros(1, 3, dtype=torch.int32), api.init_cache(1, 8, cfg, device="cpu"), cfg,
+                    frames=frames[:, :-1])
+
+
+#: sha256 of the reduced whisper-base's prefill (4 prompts of 5 tokens behind
+#: frames of numpy's seed 3, a cache of 32), three greedy ticks' logits and
+#: the caches after them, with no program installed, recorded before the
+#: prefill came to write the cross caches in place and the tick to read them
+#: through ``layers.decode_cache``
+NO_PROGRAM_SERVING_BITS = {
+    "bfloat16": "aeec0302e569a789b8fc8bb39daa53165f2aebda166a25f12483d7e77bdf368f",
+    "float32": "66c29e5771d0b68e0945bffadb68435e65687225c4ca6f12fbc21a85b4d5e27d",
+}
+
+
+@pytest.mark.parametrize("dtype", list(NO_PROGRAM_SERVING_BITS))
+def test_serving_with_no_program_keeps_its_bits(dtype):
+    import hashlib
+
+    api = get_model(ARCH)
+    cfg = dataclasses.replace(api.reduced, dtype=dtype)
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    frames = torch.from_numpy((np.random.default_rng(3).standard_normal((4, cfg.enc_frames, cfg.d_model)) * 0.1)
+                              .astype(np.float32)).to(L.torch_dtype(dtype))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (4, 5)).astype(np.int32))
+    h = hashlib.sha256()
+
+    def put(t):
+        t = t.detach().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.uint8)).numpy().tobytes())
+
+    with torch.no_grad():
+        logits, cache = api.prefill(params, tokens, api.init_cache(4, 32, cfg, device="cpu"), cfg, frames=frames)
+        put(logits)
+        for _ in range(3):
+            logits, cache = api.decode_step(params, logits.argmax(-1).to(torch.int32), cache, cfg)
+            put(logits)
+    for name in ("self_k", "self_v", "cross_k", "cross_v"):
+        h.update(name.encode())
+        put(cache[name])
+    h.update(str(cache["pos"]).encode())
+    assert h.hexdigest() == NO_PROGRAM_SERVING_BITS[dtype]
+
+
 def test_decode_past_the_learned_positions_raises_where_the_reference_clamps():
     """A fault of the reference (ROADMAP Queue C): at ``pos ==
     dec_positions`` its ``pos_dec[pos]`` gathers with JAX's clamp, so the

@@ -200,15 +200,17 @@ SERVE = {"batch": 4, "prompt": 5, "max_len": 32, "ticks": 4}
 
 
 def serve_extras(cfg) -> dict:
-    """The family's prefill inputs beside the prompt: the vlm's patches
-    ``[B, P, d]`` f32 (numpy's seed 3, scaled by 0.1), none for the others."""
+    """The family's prefill inputs beside the prompt, f32 from numpy's seed
+    3, scaled by 0.1: the vlm's patches ``[B, P, d]``, the encoder-decoder's
+    frames ``[B, F, d]``; none for the others."""
     import torch
 
-    if cfg.family != "vlm":
+    rows = {"vlm": ("patches", cfg.num_patches), "encdec": ("frames", cfg.enc_frames)}.get(cfg.family)
+    if rows is None:
         return {}
     rng = np.random.default_rng(3)
-    return {"patches": torch.from_numpy((rng.standard_normal((SERVE["batch"], cfg.num_patches, cfg.d_model))
-                                         * 0.1).astype(np.float32))}
+    name, n = rows
+    return {name: torch.from_numpy((rng.standard_normal((SERVE["batch"], n, cfg.d_model)) * 0.1).astype(np.float32))}
 
 
 def serve_single(arch: str):
@@ -244,9 +246,11 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     against one device's prefill and ticks of the whole model in this
     process (:func:`serve_single`), on its greedy tokens; the prefill's and
     a full-cache tick's counts against the dry-run's plan of the same cells
-    on meta.  A vlm's prefill also runs without its patches
-    (``no_patches_diff``: how far its logits move), so that the patches are
-    seen to reach the model."""
+    on meta; the first attention's cache span (none for an SSM), the
+    encoder-decoder's cross cache span and the SSM states' stored shape.  A
+    vlm's prefill also runs without its patches (``no_patches_diff``: how
+    far its logits move), so that the patches are seen to reach the
+    model."""
     import torch
 
     from repro_torch.configs.shapes import ShapeSuite
@@ -271,11 +275,16 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     _, planned = dryrun.count_cell(plan, scopes=False)
     cell = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=source, batch=batch)
     (local, _), counted = dryrun.count_cell(cell, scopes=False)
+    kv = dryrun.kv_cache_of(cell.cache)  # the first attention's keys; None for an SSM
     out = {"prefill_plan": _counts(planned), "prefill_counted": _counts(counted),
            "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
-           "seq_axes": json.dumps(list(cell.program.cache_seq_axes(cell.cache["kv"][0]["k"][0]))),
-           "cache_span": np.array(cell.program.cache_span(cell.cache["kv"][0]["k"][0])),
+           "seq_axes": json.dumps([] if kv is None else list(cell.program.cache_seq_axes(kv))),
+           "cache_span": np.array([] if kv is None else cell.program.cache_span(kv)),
            "logits_spec": json.dumps(spec)}
+    if cfg.family == "encdec":  # the cross cache's span of the frames
+        out["cross_span"] = np.array(cell.program.cache_span(cell.cache["cross_k"][0]))
+    if "layers" in cell.cache:  # the Mamba2 states' stored shape
+        out["ssm_shape"] = np.array(cell.cache["layers"]["ssm"].shape)
     got = [local]
     ticks = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tokens[0]}, cache=cell)
     for t in range(T):
@@ -290,7 +299,7 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     cut = dryrun.build_cell(arch, dec, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
                             batch={"token": tokens[0]}, cache=prefilled)
     out["whole_cache_err"] = float((comm.gather_whole(cut.run()[0], spec) - single[1]).abs().max())
-    if len(batch) > 1:  # the same prompt without the family's extras
+    if cfg.family == "vlm":  # the same prompt without its patches
         bare = dryrun.build_cell(arch, pre, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch)[2],
                                  batch={"tokens": prompt})
         out["no_patches_diff"] = float((comm.gather_whole(bare.run()[0], spec) - single[0]).abs().max())

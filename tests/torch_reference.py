@@ -1222,18 +1222,32 @@ def _path_keys(path) -> list[str]:
     return [str(getattr(k, "key", getattr(k, "idx", None))) for k in path]
 
 
+def _stacked(keys: list[str]) -> tuple[str, str] | None:
+    """(the port's name before the layer index, the path after it) of a
+    stacked reference leaf's keys (``blocks/<slot>/...`` of a transformer,
+    ``blocks/...`` of the ssm and hybrid families, ``enc_blocks/...``,
+    ``dec_blocks/...``), or None for a leaf of its own."""
+    if keys[0] not in ("blocks", "enc_blocks", "dec_blocks"):
+        return None
+    n = 2 if keys[1].isdigit() else 1  # a transformer's window slot
+    return ".".join(keys[:n]), ".".join(keys[n:])
+
+
 def tree_from_named(named: dict, template):
-    """A transformer's reference parameter tree shaped as ``template`` from
-    the port's named arrays: ``blocks.<slot>.<group>.<path>`` stacked on the
-    leading group axis of the slot's leaf, every other name its leaf."""
+    """A reference parameter tree shaped as ``template`` from the port's
+    named arrays: ``blocks.<slot>.<group>.<path>`` (a transformer),
+    ``blocks.<layer>.<path>`` (ssm, hybrid), ``enc_blocks.<layer>.<path>``
+    and ``dec_blocks.<layer>.<path>`` (encdec) stacked on the leading axis
+    of the reference's leaf, every other name its leaf."""
     import jax
     import jax.numpy as jnp
 
     def leaf(path, like):
         keys = _path_keys(path)
-        if keys[0] == "blocks":
-            rest = ".".join(keys[2:])
-            parts = [named[f"blocks.{keys[1]}.{g}.{rest}"] for g in range(like.shape[0])]
+        stacked = _stacked(keys)
+        if stacked:
+            head, rest = stacked
+            parts = [named[f"{head}.{g}.{rest}"] for g in range(like.shape[0])]
             return jnp.asarray(np.stack(parts)).astype(like.dtype)
         return jnp.asarray(named[".".join(keys)]).astype(like.dtype)
 
@@ -1247,8 +1261,10 @@ def named_from_tree(tree) -> dict[str, np.ndarray]:
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         keys, a = _path_keys(path), np.asarray(leaf)
-        if keys[0] == "blocks":
-            out.update({f"blocks.{keys[1]}.{g}.{'.'.join(keys[2:])}": a[g] for g in range(a.shape[0])})
+        stacked = _stacked(keys)
+        if stacked:
+            head, rest = stacked
+            out.update({f"{head}.{g}.{rest}": a[g] for g in range(a.shape[0])})
         else:
             out[".".join(keys)] = a
     return out
@@ -1331,7 +1347,7 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
     and ``out_shardings`` on a mesh of the first data·model devices under
     ``serve-tp`` (TP-only parameters), on the port's reduced weights
     (``<case>/<name>``): the prompts ``<case>/prompt``, behind the family's
-    extras where the case has them (``<case>/patches``, cut by
+    extras where the case has them (``<case>/patches``, ``<case>/frames``, cut by
     ``batch_shardings`` as ``dryrun.py:116-121`` cuts them), into a zero
     cache of ``max_len`` positions, then one tick for each token of
     ``<case>/tokens`` (the port's greedy tokens, teacher-forced); each
@@ -1349,7 +1365,7 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
             raise ValueError(f"no reference policy {policy!r} here")
         api, cfg, template, tree = _reduced_tree(arch, {}, _weights(inputs, f"{name}/w"))
         prompt = jnp.asarray(inputs[f"{name}/prompt"])
-        extras = {k: jnp.asarray(inputs[f"{name}/{k}"]) for k in ("patches",) if f"{name}/{k}" in inputs}
+        extras = {k: jnp.asarray(inputs[f"{name}/{k}"]) for k in ("patches", "frames") if f"{name}/{k}" in inputs}
         B = prompt.shape[0]
         n = int(np.prod(shape))
         mesh = jax.make_mesh(tuple(shape), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,

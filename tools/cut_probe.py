@@ -1,17 +1,22 @@
 """Time the cuts that ``chip_smoke.py`` makes to stay within its time limit,
 each before and after, on one card.
 
-    python3 tools/cut_probe.py [7 | 10 | 17 | 20 ...]
+    python3 tools/cut_probe.py [7 | 7d | 9 | 10 | 17 | 20 ...]
 
 With no argument, every cut.  7: the card-against-CPU checks of phases 7, 9
 and 10 with the prompts (128, 1000) and with ``chip_smoke.CPU_CUT_PROMPTS``,
-in the order before, after, after, before.  10: phase 10 with zamba2-7b at
-27 layers and at ``chip_smoke.ZAMBA_LAYERS``, in the same order.  17: phase
-17 with qwen3-moe-30b-a3b at 48 and mixtral-8x7b at 8 layers, and at
-``chip_smoke.MOE_LAYERS`` and ``MIXTRAL_LAYERS``.  20: phase 20 with
+in the order before, after, after, before.  7d: phase 7 with qwen2.5-3b
+at 36 layers and at ``chip_smoke.QWEN_LAYERS``, in the same order.  9:
+phase 9 with mamba2-780m at
+48 layers and at ``chip_smoke.MAMBA_LAYERS``, in the same order.  10:
+phase 10 with zamba2-7b at
+12 layers (its depth before phase 25 (d) served it whole on four cards)
+and at ``chip_smoke.ZAMBA_LAYERS``, in the same order.  17: phase 17 with
+qwen3-moe-30b-a3b at 4 layers (likewise) and at ``chip_smoke.MOE_LAYERS``,
+mixtral-8x7b at ``MIXTRAL_LAYERS``, in the same order.  20: phase 20 with
 internvl2-76b at 8 layers and at ``chip_smoke.VLM["layers"]``.  Prints the
 card's name and power limit, then one JSON line of seconds.  About seven
-minutes on an H100 for 7 and 17, two each for 10 and 20.
+minutes on an H100 for 7, three for 7d and 17, two each for 9, 10 and 20.
 """
 import dataclasses
 import gc
@@ -53,11 +58,18 @@ def main(cuts: list[str]) -> int:
                 timed(times, f"{arch} card against CPU {order}", lambda: chip_smoke._card_against_cpu(
                     api, dataclasses.replace(api.config, **cut),
                     (128, 1000) if order == "before" else chip_smoke.CPU_CUT_PROMPTS, 4))
+    if "7d" in cuts:
+        for layers in (36, chip_smoke.QWEN_LAYERS, chip_smoke.QWEN_LAYERS, 36):
+            timed(times, f"phase 7 at qwen2.5-3b {layers} layers", lambda: chip_smoke.qwen_phase(layers))
+    if "9" in cuts:
+        for layers in (48, chip_smoke.MAMBA_LAYERS, chip_smoke.MAMBA_LAYERS, 48):
+            timed(times, f"phase 9 at mamba2-780m {layers} layers", lambda: chip_smoke.mamba_phase(layers))
     if "10" in cuts:
-        for layers in (27, chip_smoke.ZAMBA_LAYERS, chip_smoke.ZAMBA_LAYERS, 27):
+        for layers in (12, chip_smoke.ZAMBA_LAYERS, chip_smoke.ZAMBA_LAYERS, 12):
             timed(times, f"phase 10 at zamba2-7b {layers} layers", lambda: chip_smoke.zamba_phase(layers))
     if "17" in cuts:
-        for moe, mixtral in ((48, 8), (chip_smoke.MOE_LAYERS, chip_smoke.MIXTRAL_LAYERS)):
+        for moe in (4, chip_smoke.MOE_LAYERS, chip_smoke.MOE_LAYERS, 4):
+            mixtral = chip_smoke.MIXTRAL_LAYERS
             timed(times, f"phase 17 at qwen3-moe {moe}, mixtral {mixtral} layers",
                   lambda: chip_smoke.moe_phase(moe, mixtral))
     if "20" in cuts:
@@ -68,4 +80,4 @@ def main(cuts: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["7", "10", "17", "20"]))
+    sys.exit(main(sys.argv[1:] or ["7", "7d", "9", "10", "17", "20"]))
