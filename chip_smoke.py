@@ -23,7 +23,8 @@ result line:
    kernel's makespan;
 4. ``ga_sweep`` over eight such instances (seeds 0-7) through the batched
    kernel, with the same checks;
-5. the same GA through the plain version, and a ``torch.profiler`` pass
+5. the same GA through the plain version (``GA_PLAIN``: 10 of its 60
+   generations), and a ``torch.profiler`` pass
    over the kernel GA that splits its wall time into device kernel time by
    kernel name and the rest;
 6. the flash and decode attention kernels against their plain versions on
@@ -213,8 +214,8 @@ result line:
     step 1, ms a step against the bound 6·N·tokens (8·N·tokens beside
     it, with the remat forward), one step at
     ``microbatches=2``, a profiled step's idle share, the peak memory and
-    ``evaluate`` on 2 batches; both cut to 2 layers in f32, card against
-    CPU (loss, every gradient, one AdamW step); the ``Trainer`` at the
+    ``evaluate`` on 2 batches; both cut to ``TRAIN_CPU_LAYERS`` (1) in f32,
+    card against CPU (loss, every gradient, one AdamW step); the ``Trainer`` at the
     reduced qwen2.5-3b, straight against checkpointed and resumed, in the
     default and the deterministic mode; the training CLI with no
     ``--device`` for every reduced config the token stream can train (and
@@ -236,23 +237,41 @@ result line:
 24. the sharded training step on real exchanges
     (``distributed/comm.py::DistComm``): four child processes share the
     card in a gloo group (each exchange staged through the host), each a
-    device of (data 2, model 2) and then of (data 1, model 4) under
-    ``baseline``; qwen2.5-3b at full width cut to 2 layers in f32 (TF32
+    device of (data 2, model 2) under ``baseline`` ((data 1, model 4) too
+    until the families below came; four cards run both); qwen2.5-3b at
+    full width cut to 2 layers in f32 (TF32
     off), batch 4 x 1024, two AdamW steps against the unsharded step on the
     card (losses within 1e-4, the parameters gathered whole within atol
     2e-4, rtol 2e-3); every rank's argument bytes, FLOPs, kernel calls and
     exchanges by kind == the dry-run's cell of the same cut and mesh on
-    meta, exactly; 2 flash launches a layer a step on every rank; the (2, 2)
-    state (parameters and AdamW's) saved after step 2 and restored under
-    (1, 4) bit for bit, its step 3 within 1e-4 of the (2, 2) run's;
+    meta, exactly; 2 flash launches a layer a step on every rank;
     ``compressed_psum_pod`` over the four ranks, card == host bit for bit
     and within the reference's bound; ``pipeline_forward`` of 8 blocks in 4
-    stages x 4 microbatches of 1 x 1024 against the blocks in sequence.  On a
-    host of four cards (c): the same over NCCL, a card a rank, at full depth
-    in bf16: the exchanges and FLOPs against the dry-run's, the peak within
+    stages x 4 microbatches of 1 x 1024 against the blocks in sequence.
+    Then (a) the five other trainable families of the one card
+    (``SHARDED_FAMILIES_ONE_CARD``): mamba2-780m, zamba2-7b at 6 layers,
+    whisper-base at 2 + 2 behind 1500 frames, gemma2-2b and stablelm-1.6b,
+    each at full width in f32 (2 layers unless named), batch 4 x 512, on
+    (data 2, model 2) under ``seqpar`` for two AdamW steps against one
+    device's unsharded steps: both steps' gradients, the parameters after
+    each step, every count == the plan's, each kernel's launches (flash,
+    SSD) == the plan's calls, the peak beside the plan's.  On a host of four
+    cards (c): the qwen2.5-3b step over NCCL, a card a rank, at full depth
+    in bf16 on (2, 2) and (1, 4), the (2, 2) state (parameters and AdamW's)
+    saved after step 2 and restored under (1, 4) bit for bit, its step 3
+    against the (2, 2) run's: the exchanges and FLOPs against the
+    dry-run's, the peak within
     ``PEAK_BAND`` of ``max_memory_allocated``, ms a step, NCCL's kernel
-    time by collective, the loss against one card's bf16 step; alone:
-    ``python3 -c "import chip_smoke; chip_smoke.four_card_main()"``;
+    time by collective, the loss against one card's bf16 step; and (d)
+    (``SHARDED_FAMILIES_FOUR_CARDS``) the six families over NCCL on (2, 2)
+    under ``seqpar``: in f32 at the one card's depths (internvl2-76b at 1
+    layer behind 256 patches) held as (a), then at full depth in bf16 at 4
+    x 1024 (internvl2-76b at ``FIT_LAYERS``, found on meta): ms a step,
+    tokens/s a card, 6·N·tokens at 989 TFLOP/s, a profiled step's idle
+    share and NCCL time, the peak beside the plan's, the loss against
+    one card's where one card holds the model; alone: ``python3 -c "import
+    chip_smoke; chip_smoke.four_card_main()"``, or (d) by itself
+    ``chip_smoke.sharded_families_phase()`` after ``_build.build()``;
 25. sharded serving on real exchanges (``launch/dryrun.py::build_cell(...,
     comm=)``: a prefill cell and a decode cell that carries its cache):
     four child processes share the card in a gloo group (staged through the
@@ -338,6 +357,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense, tensor cores
 GA = {"pop_size": 64, "generations": 60}
+#: phase 5's GA through the plain version, a yardstick of the path's wall:
+#: 10 of GA's 60 generations since phase 24 (a) took the five other
+#: trainable families (the run took 1056.1 s of phases on an H100 80GB HBM3
+#: at 700 W before this cut; ``tools/cut_probe.py 5``)
+GA_PLAIN = {"pop_size": 64, "generations": 10}
 SWEEP_SEEDS = range(8)
 SERVE = {"requests": 8, "slots": 4, "max_len": 2048, "new_tokens": 32}
 # zamba2-7b's serving depth in phase 10: 81 layers took 118-139 s; with
@@ -1308,7 +1332,7 @@ def _card_against_cpu(api, cut, prompts: tuple[int, ...], ticks: int) -> None:
     tol = 1e-3 if cut.dtype == "float32" else 5e-2
     t0 = time.perf_counter()
     on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
-    on_gpu = api.init(torch.Generator().manual_seed(1), cut, device="cuda")
+    on_gpu = load_like(on_cpu, cut, "cuda")  # the same weights, drawn once on the host
     worst, agree, total = 0.0, 0, 0
     for n in prompts:
         toks = np.random.default_rng(n).integers(0, cut.vocab, n).astype(np.int32)
@@ -2023,8 +2047,9 @@ def internvl2_phase(layers: int = VLM["layers"]) -> dict[str, dict[str, int]]:
     # one layer at full width in f32, on the card and on the CPU
     t0 = time.perf_counter()
     cut = dataclasses.replace(cfg, num_layers=1, dtype="float32")
-    on_cpu = api.init(torch.Generator().manual_seed(1), cut, device="cpu")
-    on_gpu = load_like(on_cpu, cut, "cuda")
+    # drawn on the card and copied to the host: 3 billion draws on the host took 28.8 s
+    on_gpu = api.init(torch.Generator(device="cuda").manual_seed(1), cut, device="cuda")
+    on_cpu = load_like(on_gpu, cut, "cpu")
     made_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     n = V["cut_prompt"]
@@ -3232,6 +3257,11 @@ def shard_topology_phase(sweep_problems) -> tuple[dict[str, int], dict]:
 #: the training runs at full width and depth: batch 4 × 1024 tokens, the
 #: training CLI's AdamW settings, 5 steps, then 2 held-out batches
 TRAIN = {"batch": 4, "seq": 1024, "steps": 5, "eval_batches": 2}
+#: the depth of phase 22's f32 cuts held against the CPU: 1 since phase 24
+#: (a) took the five other trainable families (2 before, when the run took
+#: 873.82 s of phases on an H100 80GB HBM3 at 700 W; ``tools/cut_probe.py
+#: 22``)
+TRAIN_CPU_LAYERS = 1
 
 
 def train_attention_bound_ms(q: torch.Tensor, k: torch.Tensor, pairs: int, kv_rows: int) -> tuple[float, str]:
@@ -3770,8 +3800,7 @@ def training_phase() -> tuple[dict[str, dict[str, int]], dict]:
     part("qwen2.5-3b at full width")
     mamba_launches, mamba = train_full_width("mamba2-780m")
     part("mamba2-780m at full width")
-    cut = {"qwen2.5-3b": train_card_against_cpu("qwen2.5-3b", 2),
-           "mamba2-780m": train_card_against_cpu("mamba2-780m", 2)}
+    cut = {arch: train_card_against_cpu(arch, TRAIN_CPU_LAYERS) for arch in ("qwen2.5-3b", "mamba2-780m")}
     part("the f32 cuts against the CPU")
     trainer_launches, trainer = trainer_phase()
     part("the Trainer")
@@ -3996,14 +4025,18 @@ def dryrun_phase() -> dict:
 #: CUDA tensor (``writev ... Bad address`` on torch 2.11), so ``DistComm``
 #: copies each exchange's tensors through the host (``staged=True``, named
 #: here, never a fallback).
+#: ``meshes``: the state after the first one's step 2 is saved and restored
+#: under the second.  The one card ran (1, 4) too until phase 24 (a) took
+#: the five other trainable families (the run then took 873.82 s of phases
+#: on an H100 80GB HBM3 at 700 W); four cards run both, the restore between
+#: them included
 SHARDED_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards": 1, "arch": "qwen2.5-3b",
                     "layers": 2, "dtype": "float32", "batch": 4, "seq": 1024, "pipe_layers": 8,
-                    "pipe_micro": 4}
+                    "pipe_micro": 4, "meshes": [[2, 2]]}
 #: phase 24 (c): a process a card over NCCL, full width and depth in bf16
 SHARDED_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "arch": "qwen2.5-3b",
                       "layers": None, "dtype": None, "batch": 4, "seq": 1024, "pipe_layers": None,
-                      "pipe_micro": 4}
-SHARDED_MESHES = ((2, 2), (1, 4))
+                      "pipe_micro": 4, "meshes": [[2, 2], [1, 4]]}
 #: the reference's tolerance for a sharded step against one device's
 #: (tests/test_distributed.py:142), held in f32 with TF32 off.  AdamW's
 #: first move of an element is lr·g/(|g| + eps): where the first gradient
@@ -4120,7 +4153,8 @@ def sharded_child() -> None:
 
     saved_whole = None
     manager = CheckpointManager(out_dir / "ck", keep=1, async_save=True)
-    for shape in SHARDED_MESHES:
+    meshes = [tuple(m) for m in job["meshes"]]
+    for shape in meshes:
         mesh = make_mesh(shape, ("data", "model"))
         name = f"({shape[0]}, {shape[1]})"
         comm = DistComm(mesh, rank, job["backend"], staged=job["staged"])
@@ -4163,7 +4197,7 @@ def sharded_child() -> None:
             return float(done[0][2]["loss"])
 
         named = dict(cell.params.named_parameters())
-        if shape == SHARDED_MESHES[0]:  # the state after step 2, saved whole; device 0 writes it in the background
+        if shape == meshes[0] and len(meshes) > 1:  # the state after step 2, saved whole; device 0 writes it
             tree = {"params": named, "m": opt["m"], "v": opt["v"], "step": opt["step"]}
             sh = {"params": {k: comm.sharding(specs[k]) for k in named},
                   "m": {k: comm.sharding(specs[k]) for k in named},
@@ -4173,7 +4207,7 @@ def sharded_child() -> None:
             row["save_gather_s"] = time.perf_counter() - t0
             del tree, sh
         whole = cell.program.whole(cell.params, dst=0)
-        if shape == SHARDED_MESHES[0]:
+        if shape == meshes[0]:
             saved_whole = {k: t.to("cpu", copy=True) for k, t in whole.items()} if rank == 0 else None
             whole = saved_whole  # no copy left on the card while the unsharded steps run
             if rank == 0:  # while device 0 writes; the others wait in step 3's exchanges
@@ -4211,9 +4245,10 @@ def sharded_child() -> None:
                        worst_params=sorted(errs.items(), key=lambda kv: -kv[1])[:3], **grads_row)
             row["single_losses"] = single["losses"]
         del m_whole
-        if shape == SHARDED_MESHES[0]:
-            row["losses"].append(step3())
-            lap(f"{name} compared, step 3")
+        if shape == meshes[0]:
+            if len(meshes) > 1:  # step 3, against the restored state's
+                row["losses"].append(step3())
+                lap(f"{name} compared, step 3")
         else:  # the (2, 2) state restored under this layout, and its step 3
             t0 = time.perf_counter()
             manager.wait()  # until device 0 has written the (2, 2) state
@@ -4343,7 +4378,8 @@ def sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, int]
     print(json.dumps({f"sharded_{label}": reports}), flush=True)
     layers = job["layers"] or 36
     by_path = {}
-    for shape in SHARDED_MESHES:
+    meshes = [tuple(m) for m in job["meshes"]]
+    for shape in meshes:
         name = f"({shape[0]}, {shape[1]})"
         for r in reports:
             row = r[name]
@@ -4395,18 +4431,20 @@ def sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, int]
               f"them outside AdamW's eps regime (0 < |g1| < {EPS_REGIME}: {row0['eps_regime_elements']} elements, max abs "
               f"err {row0['eps_regime_max_abs_err']:.3e}, held within {EPS_REGIME_ATOL}); largest "
               f"{row0['worst_params']}", flush=True)
-    two, four = (f"({a}, {b})" for a, b in SHARDED_MESHES)
-    r0 = reports[0][four]
-    check(r0["restore_bit_for_bit"], f"sharded {label}: the {two} state restored under {four} bit for bit")
-    for r in reports:
-        a, b = r[four]["restored_step3_loss"], reports[0][two]["losses"][2]
-        tol = SHARDED_TOL["loss"] if job["backend"] == "gloo" else FOUR_CARD_LOSS_RTOL * abs(b)
-        check(r[four]["restored_step"] == 2 and r[four]["restored_from_step"] == 2 and abs(a - b) <= tol,
-              f"sharded {label} rank {r['rank']}: step 3 from the restored state {a} against {two}'s {b}")
-    print(f"sharded {label}: {two} state after step 2 gathered in {reports[0][two]['save_gather_s']:.1f} s and written "
-          f"by rank 0 in the background (waited {max(r[four]['save_wait_s'] for r in reports):.1f} s more), restored "
-          f"under {four} in {max(r[four]['restore_s'] for r in reports):.1f} s, bit for bit; step 3 "
-          f"{[r[four]['restored_step3_loss'] for r in reports]} against {reports[0][two]['losses'][2]}", flush=True)
+    if len(meshes) > 1:
+        two, four = (f"({a}, {b})" for a, b in meshes[:2])
+        r0 = reports[0][four]
+        check(r0["restore_bit_for_bit"], f"sharded {label}: the {two} state restored under {four} bit for bit")
+        for r in reports:
+            a, b = r[four]["restored_step3_loss"], reports[0][two]["losses"][2]
+            tol = SHARDED_TOL["loss"] if job["backend"] == "gloo" else FOUR_CARD_LOSS_RTOL * abs(b)
+            check(r[four]["restored_step"] == 2 and r[four]["restored_from_step"] == 2 and abs(a - b) <= tol,
+                  f"sharded {label} rank {r['rank']}: step 3 from the restored state {a} against {two}'s {b}")
+        print(f"sharded {label}: {two} state after step 2 gathered in {reports[0][two]['save_gather_s']:.1f} s and "
+              f"written by rank 0 in the background (waited {max(r[four]['save_wait_s'] for r in reports):.1f} s "
+              f"more), restored under {four} in {max(r[four]['restore_s'] for r in reports):.1f} s, bit for bit; "
+              f"step 3 {[r[four]['restored_step3_loss'] for r in reports]} against {reports[0][two]['losses'][2]}",
+              flush=True)
     if job["backend"] == "gloo":
         check(all(r["psum_bit_for_bit"] for r in reports),
               f"sharded {label}: compressed_psum_pod on the card == on the host, bit for bit")
@@ -4426,17 +4464,392 @@ def sharded_report(job: dict, reports: list[dict], label: str) -> dict[str, int]
     return by_path
 
 
-def sharded_phase() -> dict[str, int]:
-    """Phase 24 (a)-(b) on the one card; (c) where the host has four."""
+#: phase 24 (a), the families beside qwen2.5-3b: four gloo ranks on the one
+#: card, staged through the host, each model at full width in f32 (TF32 off)
+#: cut in depth (zamba2-7b to ``ZAMBA_LAYERS``, one shared invocation;
+#: whisper-base to 2 + 2 behind 1500 frames from a seed), on (2, 2) under
+#: seqpar for two AdamW steps against one device's unsharded steps on rank
+#: 0: every count and each kernel's launches against the plan's, the peak
+#: beside the plan's; both steps' gradients (from AdamW's m) within
+#: ``GRAD_TOL``; the parameters after step 1 within ``SHARDED_TOL`` outside
+#: AdamW's eps regime and within ``EPS_REGIME_ATOL`` in it (the rule is
+#: derived for AdamW's first move); after step 2 within ``EPS_REGIME_ATOL``:
+#: at full width a second move on a gradient near zero, or on a first
+#: moment that nearly cancels, turns a difference that ``GRAD_TOL`` holds
+#: into one past ``SHARDED_TOL`` (gemma2-2b: 4.09e-4 where g1 -1.06e-07 and
+#: g2 -8.3e-08; stablelm-1.6b: 3.01e-4 where g1 -8.76e-07 and g2 1.21e-06).
+#: internvl2-76b runs on four cards only: at 2 layers it is 15 GB of f32
+#: weights, staged through the host on every step here
+FAMILIES = ("mamba2-780m", "zamba2-7b", "whisper-base", "gemma2-2b", "stablelm-1.6b")
+FAMILY_LAYERS = {"mamba2-780m": 2, "zamba2-7b": ZAMBA_LAYERS, "whisper-base": 2, "gemma2-2b": 2,
+                 "stablelm-1.6b": 2, "internvl2-76b": 1}
+SHARDED_FAMILIES_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "cards": 1, "mesh": [2, 2],
+                             "policy": "seqpar", "runs": [
+    {"arch": arch, "layers": FAMILY_LAYERS[arch], "dtype": "float32", "batch": 4, "seq": 512, "against_one": True}
+    for arch in FAMILIES]}
+#: phase 24 (d), four cards over NCCL (``four_card_main``, or
+#: ``sharded_families_phase()`` alone), (2, 2) under seqpar: (i) the six in
+#: f32 at the one card's depths (internvl2-76b at 1 layer behind 256
+#: patches) against one card's unsharded steps, held as (a); (ii) each at
+#: full depth in bf16 at 4 x 1024 (internvl2-76b at ``FIT_LAYERS``, the
+#: deepest whose plan fits ``TRAIN_FIT_LIMIT_BYTES`` a card, found on meta), the
+#: loss against one card's bf16 steps where one card holds the model and
+#: AdamW's state, with step 2 timed and step 3 profiled
+FIT_LAYERS = {"internvl2-76b": 24}
+#: a training step's plan under-reads the card more than a decode tick's:
+#: internvl2-76b at 28 layers, planned at 70.42 GB a card (within 72 GB),
+#: ran out of memory on an H100 80GB HBM3 with 73.25 GB allocated in its
+#: first step on four cards; so its depth is found against 80% of the card
+TRAIN_FIT_LIMIT_BYTES = 64e9
+SHARDED_FAMILIES_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "mesh": [2, 2],
+                               "policy": "seqpar", "runs": [
+    *({"arch": arch, "layers": FAMILY_LAYERS[arch], "dtype": "float32", "batch": 4, "seq": 512, "against_one": True}
+      for arch in (*FAMILIES, "internvl2-76b")),
+    *({"arch": arch, "layers": FIT_LAYERS.get(arch), "dtype": None, "batch": 4, "seq": 1024, "against_one": False,
+       "profile": True} for arch in (*FAMILIES, "internvl2-76b"))]}
+#: one card holds a model's bf16 step where its weights, gradients and AdamW's
+#: two f32 moments (12 bytes a parameter) fit this many bytes
+ONE_CARD_STATE_BYTES = 60e9
+
+
+def sharded_family_child() -> None:
+    """One rank of phase 24 (a) or (d) (``SHARDED_CHILD`` in the
+    environment: its rank, the group's runs and the directory it reports
+    to)."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.comm import DistComm, take_local
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grad_fn
+
+    job = json.loads(os.environ["SHARDED_CHILD"])
+    rank, world, out_dir = job["rank"], job["world"], Path(job["dir"])
+    torch.set_num_threads(2)
+    card = rank % job["cards"]
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(job["backend"], init_method=f"file://{out_dir / 'store'}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=900))
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"))
+    comm = DistComm(mesh, rank, job["backend"], staged=job["staged"])
+    pol = dryrun.POLICIES[job["policy"]]
+    wrappers = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    report: dict = {"rank": rank, "card": card, "backend": job["backend"], "staged": job["staged"], "runs": []}
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for run in job["runs"]:
+        t_run = time.perf_counter()
+        api = get_model(run["arch"])
+        cfg = api.config
+        if run["layers"] is not None:  # an encoder-decoder cut as deep on both sides
+            cut = {"enc_layers": run["layers"]} if cfg.family == "encdec" else {}
+            cfg = dataclasses.replace(cfg, num_layers=run["layers"], **cut)
+        if run["dtype"]:
+            cfg = dataclasses.replace(cfg, dtype=run["dtype"])
+        B, S = run["batch"], run["seq"]
+        rng = np.random.default_rng(24)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
+        name, rows = {"vlm": ("patches", cfg.num_patches), "encdec": ("frames", cfg.enc_frames)}.get(
+            cfg.family, (None, 0))
+        if name is not None:  # the family's inputs beside the tokens, the same on every rank
+            x = rng.standard_normal((B, rows, cfg.d_model)) * 0.1
+            batch[name] = torch.from_numpy(x.astype(np.float32)).to(dev, getattr(torch, cfg.dtype))
+        suite = ShapeSuite(f"train_{B}x{S}", "train", S, B)
+        n_params = cfg.param_count()
+        row: dict = {"arch": run["arch"], "family": cfg.family, "layers": cfg.num_layers,
+                     "enc_layers": cfg.enc_layers if cfg.family == "encdec" else None, "dtype": cfg.dtype,
+                     "batch": B, "seq": S, "extras": {k: list(v.shape) for k, v in batch.items() if k != "tokens"},
+                     "params": n_params}
+        plan = dryrun.build_cell(run["arch"], suite, mesh, pol, cfg=cfg, opt_cfg=opt_cfg,
+                                 batch={k: v.to("meta") for k, v in batch.items()})
+        _, planned = dryrun.count_cell(plan, scopes=False)
+        del plan
+        gen = torch.Generator(device=dev).manual_seed(0)  # the model drawn a module at a time, sliced
+        cell, row["build_s"] = sync_s(lambda: dryrun.build_cell(run["arch"], suite, mesh, pol, cfg=cfg, comm=comm,
+                                                                source=gen, batch=batch, opt_cfg=opt_cfg))
+        free()
+        for w in wrappers.values():
+            w.launches = 0
+        row["allocated_before_step1"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ((_, opt, m1), counted), row["step1_s"] = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+        row["step1_max_memory_allocated"] = torch.cuda.max_memory_allocated()  # counted: Python's collector off
+        row["launches"] = {k: w.launches for k, w in wrappers.items()}
+        specs = cell.program.specs
+        held = run["against_one"]
+
+        def mine(tensors: dict) -> dict:
+            """This rank's slices, copied to the host (a step updates the live ones in place)."""
+            return {k: tensors[k].detach().to("cpu", copy=True) for k in specs} if held else {}
+
+        m1_sh, p1_sh = mine(opt["m"]), mine(dict(cell.params.named_parameters()))  # after step 1
+        torch.cuda.reset_peak_memory_stats()
+        (_, opt, m2), ms2 = sync_s(cell.run)
+        row.update(step2_ms=1e3 * ms2, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   plan_peak_bytes=planned.memory()["peak_bytes"], counted=plan_counts(counted),
+                   plan=plan_counts(planned), layout=dryrun.layout(cell.program),
+                   losses=[float(m1["loss"]), float(m2["loss"])],
+                   grad_norms=[float(m1["grad_norm"]), float(m2["grad_norm"])])
+        m2_sh, p2_sh = mine(opt["m"]), mine(dict(cell.params.named_parameters()))
+        if run.get("profile"):  # step 3, where the exchanges are NCCL's kernels on the card
+            row["profile"] = device_time_breakdown(cell.run, classify=sharded_kernel_class)
+        del cell, opt
+        free()
+        holds = n_params * 12 <= ONE_CARD_STATE_BYTES
+        row["one_card_holds"] = holds
+
+        def against_one() -> None:
+            """One device's two steps of the whole model on this rank's card
+            (the same weights; each step's two halves, so that its gradients
+            are seen whole), each of this rank's slices held against its
+            share of them: both steps' gradients (the sharded run's from
+            AdamW's m), the parameters after each step."""
+            one = L.trainable(api.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev))
+            state = adamw.init(opt_cfg, one)
+            grad_fn = make_grad_fn(api, cfg, remat=True)
+            single, g_one, p_one, tops = [], [], [], []
+            for _ in range(2):
+                grads, metrics = grad_fn(one, batch)
+                single.append(float(metrics["loss"]))
+                if held:  # this rank's share of the step's gradient, and each tensor's largest
+                    g_one.append({k: take_local(g, specs[k], mesh, rank).cpu() for k, g in grads.items()})
+                    tops.append({k: float(g.abs().max()) for k, g in grads.items()})
+                one, state, _ = adamw.update(opt_cfg, grads, state, one)
+                del grads
+                if held:
+                    p_one.append({k: take_local(p.detach(), specs[k], mesh, rank).cpu()
+                                  for k, p in one.named_parameters()})
+            row["single_losses"] = single
+            del one, state
+            free()
+            if not held:
+                return
+            b1 = opt_cfg.beta1
+            clip = [min(1.0, opt_cfg.grad_clip / (x + 1e-9)) for x in row["grad_norms"]]
+            # the sharded run's gradients from AdamW's m: g1 = m1 / ((1 - b1)·clip1), g2 = (m2 - b1·m1) /
+            # ((1 - b1)·clip2)
+            g_sh = [{k: m1_sh[k] / ((1 - b1) * clip[0]) for k in specs},
+                    {k: (m2_sh[k] - b1 * m1_sh[k]) / ((1 - b1) * clip[1]) for k in specs}]
+            tiny_of = {}
+            for n in (1, 2):
+                worst, over = 0.0, []
+                for k, ref in g_one[n - 1].items():
+                    ref = ref.to(dev)
+                    err, top = float((g_sh[n - 1][k].to(dev) - ref).abs().max()), tops[n - 1][k]
+                    worst = max(worst, err / top if top else err)
+                    if err > GRAD_TOL["atol"] + GRAD_TOL["rel"] * top:
+                        over.append([k, err, top])
+                    if n == 1:
+                        tiny_of[k] = (ref != 0) & (ref.abs() < EPS_REGIME)
+                row[f"grads{n}"] = {"max_rel_err": worst, "over_tolerance": over}
+            for n, got_of in ((1, p1_sh), (2, p2_sh)):
+                errs, n_over, outside, regime, regime_err = {}, 0, 0, 0, 0.0
+                for k, ref in p_one[n - 1].items():
+                    ref = ref.to(dev).float()
+                    d = (got_of[k].to(dev).float() - ref).abs()
+                    bad = d > SHARDED_TOL["atol"] + SHARDED_TOL["rtol"] * ref.abs()
+                    tiny = tiny_of[k]
+                    errs[k] = float(d.max())
+                    n_over += int(bad.sum())
+                    outside += int((bad & ~tiny).sum())
+                    regime += int(tiny.sum())
+                    if tiny.any():
+                        regime_err = max(regime_err, float(d[tiny].max()))
+                row[f"params{n}"] = {"max_abs_err": max(errs.values()), "over_tolerance": n_over,
+                                     "over_tolerance_outside_eps_regime": outside, "eps_regime_elements": regime,
+                                     "eps_regime_max_abs_err": regime_err,
+                                     "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3]}
+
+        # one device's steps: on every rank against its own slices (on one
+        # card two ranks at a time, so that two whole models are held at
+        # once), or on rank 0 alone for a bf16 loss
+        turns = world // 2 if held and job["cards"] == 1 else 1
+        for turn in range(turns):
+            if (held and (turns == 1 or rank // 2 == turn)) or (not held and holds and rank == 0):
+                against_one()
+                free()
+            dist.barrier()
+        del m1_sh, p1_sh, m2_sh, p2_sh
+        free()
+        dist.barrier()
+        row["seconds"] = time.perf_counter() - t_run
+        report["runs"].append(row)
+        (out_dir / f"rank_{rank}.json").write_text(json.dumps(report))  # what is done so far, if a later run fails
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_family_report(job: dict, reports: list[dict], label: str) -> dict[str, dict[str, int]]:
+    """Phase 24 (a) / (d)'s checks on the ranks' reports, printed (the
+    reports first, whole); returns each kernel's launches by path."""
+    print(json.dumps({f"sharded_families_{label}": reports}), flush=True)
+    by_path: dict[str, dict[str, int]] = {"flash_attention": {}, "ssd_scan": {}}
+    mesh = tuple(job["mesh"])
+    n_cards = job["cards"]
+    for i, run in enumerate(job["runs"]):
+        rows = [r["runs"][i] for r in reports]
+        row0 = rows[0]
+        depth = f"{row0['layers']} + {row0['enc_layers']}" if row0["enc_layers"] else f"{row0['layers']}"
+        tag = f"sharded {label} {run['arch']} {depth} layers {row0['dtype']} {mesh} {job['policy']}"
+        calls = plan_calls(row0["plan"]["kernels"])
+        for r, row in zip(reports, rows):
+            check(row["counted"] == row["plan"], f"{tag} rank {r['rank']}: arguments, FLOPs, kernel calls and "
+                                                 f"exchanges == the dry-run's: {row['counted']} against {row['plan']}")
+            for kernel, n in row["launches"].items():
+                check(n == calls[kernel], f"{tag} rank {r['rank']}: {n} {kernel} launches in step 1, the plan's "
+                                          f"{calls[kernel]}")
+                if n:
+                    by_path[kernel][f"{tag} rank {r['rank']}"] = n
+            check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]), f"{tag}: finite losses and norms")
+        ratios = [row["plan_peak_bytes"] / row["max_memory_allocated"] for row in rows]
+        tokens = row0["batch"] * row0["seq"]
+        bound_ms = 1e3 * 6 * row0["params"] * tokens / (BF16_OPS_PER_S * n_cards)  # a card's share at bf16's peak
+        step_ms = max(row["step2_ms"] for row in rows)
+        print(f"{tag}: {row0['params']:,} parameters, batch {row0['batch']} x {row0['seq']} {row0['extras'] or ''}; "
+              f"layout {row0['layout']['attention']} {row0['layout']['modules']} sequence parallel "
+              f"{row0['layout']['sequence_parallel']}; counts == the dry-run's (exchanges "
+              f"{row0['counted']['collective_counts']}, "
+              f"{ {k: round(v / 1e9, 6) for k, v in row0['counted']['collective_bytes'].items()} } GB); launches "
+              f"{row0['launches']} == the plan's calls; losses {row0['losses']}; step 2 {step_ms:.1f} ms "
+              f"({tokens / step_ms * 1e3 / n_cards:.1f} tokens/s a card; 6·N·tokens at 989 TFLOP/s {bound_ms:.3f} ms); "
+              f"peak {max(row['max_memory_allocated'] for row in rows) / 1e9:.3f} GB (dry-run "
+              f"{row0['plan_peak_bytes'] / 1e9:.3f} GB, ratios {[round(x, 4) for x in ratios]}; the counted step 1 "
+              f"{max(row['step1_max_memory_allocated'] for row in rows) / 1e9:.3f} GB); built "
+              f"{row0['build_s']:.1f} s, step 1 {row0['step1_s']:.1f} s, run {max(row['seconds'] for row in rows):.1f} s",
+              flush=True)
+        for row in rows:
+            if row.get("profile"):
+                prof = row["profile"]
+                nccl = sum(v["ms"] for k, v in (prof.get("by_class") or {}).items() if k.startswith("nccl"))
+                print(f"{tag}: profiled step 3 {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms, "
+                      f"idle {prof['device_idle_share']:.4f}, NCCL {nccl:.1f} ms; by class "
+                      f"{json.dumps(prof.get('by_class'))}", flush=True)
+                break
+        if run["against_one"]:
+            single = row0["single_losses"]
+            for r, row in zip(reports, rows):
+                d = [abs(a - b) for a, b in zip(row["losses"], single)]
+                check(max(d) <= SHARDED_TOL["loss"], f"{tag} rank {r['rank']}: losses {row['losses']} against one "
+                                                     f"device's {single}")
+            grads = {n: {"max_rel_err": max(row[f"grads{n}"]["max_rel_err"] for row in rows),
+                         "over_tolerance": [x for row in rows for x in row[f"grads{n}"]["over_tolerance"]]}
+                     for n in (1, 2)}
+            params = {n: {"max_abs_err": max(row[f"params{n}"]["max_abs_err"] for row in rows),
+                          **{k: sum(row[f"params{n}"][k] for row in rows) for k in (
+                              "over_tolerance", "over_tolerance_outside_eps_regime", "eps_regime_elements")},
+                          "eps_regime_max_abs_err": max(row[f"params{n}"]["eps_regime_max_abs_err"] for row in rows),
+                          "worst": sorted((w for row in rows for w in row[f"params{n}"]["worst"]),
+                                          key=lambda kv: -kv[1])[:3]}
+                      for n in (1, 2)}
+            for n, which in ((1, "first"), (2, "second")):
+                check(not grads[n]["over_tolerance"], f"{tag}: {which} gradients within {GRAD_TOL['atol']} + "
+                                                      f"{GRAD_TOL['rel']}·max|g| of one device's: "
+                                                      f"{grads[n]['over_tolerance']}")
+            p1, p2 = params[1], params[2]
+            check(p1["over_tolerance_outside_eps_regime"] == 0 and p1["eps_regime_max_abs_err"] <= EPS_REGIME_ATOL,
+                  f"{tag}: parameters after step 1 within atol {SHARDED_TOL['atol']}, rtol {SHARDED_TOL['rtol']} "
+                  f"outside AdamW's eps regime, within {EPS_REGIME_ATOL} in it: {p1}")
+            check(p2["max_abs_err"] <= EPS_REGIME_ATOL, f"{tag}: parameters after step 2 within {EPS_REGIME_ATOL}: {p2}")
+            print(f"{tag}: one device's losses {single}; each rank's slices against it: gradients max err "
+                  f"{grads[1]['max_rel_err']:.3e} (step 1), {grads[2]['max_rel_err']:.3e} (step 2) of each tensor's "
+                  f"largest; parameters after step 1 max abs err {p1['max_abs_err']:.3e}, {p1['over_tolerance']} "
+                  f"elements over atol + rtol, all in AdamW's eps regime ({p1['eps_regime_elements']} elements "
+                  f"summed over the ranks' slices, max {p1['eps_regime_max_abs_err']:.3e}); after step 2 max abs err "
+                  f"{p2['max_abs_err']:.3e}, {p2['over_tolerance']} over atol + rtol, "
+                  f"{p2['over_tolerance_outside_eps_regime']} of them outside the first step's eps regime; largest "
+                  f"{p2['worst']}", flush=True)
+        elif row0["one_card_holds"]:
+            single = row0["single_losses"]
+            for r, row in zip(reports, rows):
+                for a, b in zip(row["losses"], single):
+                    check(abs(a - b) <= FOUR_CARD_LOSS_RTOL * abs(b), f"{tag} rank {r['rank']}: loss {a} against "
+                                                                      f"one card's {b}")
+            print(f"{tag}: losses within {FOUR_CARD_LOSS_RTOL} of one card's bf16 {single}", flush=True)
+        else:
+            print(f"{tag}: one card does not hold its bf16 step ({row0['params'] * 12 / 1e9:.1f} GB of weights, "
+                  f"gradients and moments): no one-card loss", flush=True)
+    return by_path
+
+
+def fit_layers(arch: str, mesh_shape, policy: str, batch: int, seq: int) -> tuple[int, int, int | None]:
+    """The deepest cut of ``arch`` in bf16 whose training step's dry-run peak
+    a card (AdamW's f32 moments included) at ``batch`` x ``seq`` on
+    ``mesh_shape`` under ``policy`` is at most ``TRAIN_FIT_LIMIT_BYTES``,
+    found on meta; with its peak and the next depth's (None at full
+    depth)."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+
+    cfg = get_model(arch).config
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"))
+
+    def peak(n: int) -> int:
+        plan = dryrun.build_cell(arch, ShapeSuite("train", "train", seq, batch), mesh, dryrun.POLICIES[policy],
+                                 cfg=dataclasses.replace(cfg, num_layers=n),
+                                 opt_cfg=adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant"))
+        return dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
+
+    return largest_fit(peak, cfg.num_layers, TRAIN_FIT_LIMIT_BYTES)
+
+
+def sharded_phase() -> dict[str, dict[str, int]]:
+    """Phase 24 (a)-(b) on the one card; (c) where the host has four.
+    Returns each kernel's launches by path."""
     print(f"phase 24: exchanges {SHARDED_ONE_CARD['backend']}, staged through the host: {SHARDED_ONE_CARD['staged']}",
           flush=True)
-    by_path = sharded_report(SHARDED_ONE_CARD, run_sharded(SHARDED_ONE_CARD, 600), "one card")
+    by_path = {"flash_attention": sharded_report(SHARDED_ONE_CARD, run_sharded(SHARDED_ONE_CARD, 600), "one card")}
+    families = sharded_family_report(
+        SHARDED_FAMILIES_ONE_CARD, run_sharded(SHARDED_FAMILIES_ONE_CARD, 900, child="sharded_family_child",
+                                               name="phase24a"), "one card")
+    for name, run in families.items():
+        by_path.setdefault(name, {}).update(run)
     if torch.cuda.device_count() >= 4:
-        by_path.update(sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1200), "four cards"))
+        by_path["flash_attention"].update(sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1200),
+                                                         "four cards"))
     else:
-        print("phase 24 (c): one card here; the four-card run is `python3 -c \"import chip_smoke; "
+        print("phase 24 (c), (d): one card here; the four-card run is `python3 -c \"import chip_smoke; "
               "chip_smoke.four_card_main()\"` on a host of four", flush=True)
     return by_path
+
+
+def sharded_families_phase() -> dict[str, dict[str, int]]:
+    """Phase 24 (d) on four cards: internvl2-76b's depth found on meta and
+    printed, then the four NCCL ranks of ``SHARDED_FAMILIES_FOUR_CARDS``."""
+    job = SHARDED_FAMILIES_FOUR_CARDS
+    for arch, want in FIT_LAYERS.items():
+        n, at, past = fit_layers(arch, job["mesh"], job["policy"], 4, 1024)
+        nxt = "full depth" if past is None else f"{n + 1} layers: {past / 1e9:.3f} GB"
+        print(f"phase 24 (d) {arch}: {n} layers fit, the dry-run's peak {at / 1e9:.3f} GB a card ({nxt}; at most "
+              f"{TRAIN_FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
+        check(n == want, f"{arch}: the depth that fits, {n}, is FIT_LAYERS's")
+    return sharded_family_report(job, run_sharded(job, 2400, child="sharded_family_child", name="phase24d"),
+                                 "four cards")
 
 
 #: phase 25: sharded serving under serve-tp on (data 1, model 4), a group of
@@ -4884,23 +5297,33 @@ def fit_batch(arch: str) -> tuple[int, int, int | None]:
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((1, 4), ("data", "model"))
-    cap = SHAPES["decode_32k"].global_batch
-    peaks: dict[int, int] = {}
 
     def peak(B: int) -> int:
-        if B not in peaks:
-            plan = dryrun.build_cell(arch, ShapeSuite("decode_32k", "decode", LONG, B), mesh,
-                                     dryrun.POLICIES["serve-tp"])
-            peaks[B] = dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
-        return peaks[B]
+        plan = dryrun.build_cell(arch, ShapeSuite("decode_32k", "decode", LONG, B), mesh, dryrun.POLICIES["serve-tp"])
+        return dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
 
-    grows = max(1, peak(2) - peak(1))
-    B = min(cap, max(1, int((FIT_LIMIT_BYTES - peak(1)) // grows) + 1))
-    while B > 1 and peak(B) > FIT_LIMIT_BYTES:
-        B -= 1
-    while B < cap and peak(B + 1) <= FIT_LIMIT_BYTES:
-        B += 1
-    return B, peak(B), peak(B + 1) if B < cap else None
+    return largest_fit(peak, SHAPES["decode_32k"].global_batch)
+
+
+def largest_fit(peak, cap: int, limit: float = FIT_LIMIT_BYTES) -> tuple[int, int, int | None]:
+    """The largest n in 1..``cap`` whose ``peak(n)`` (a dry-run's peak a
+    card, growing with n) is at most ``limit``: a guess from the growth of
+    one step, then a walk; with its peak and the next one's (None at
+    ``cap``)."""
+    peaks: dict[int, int] = {}
+
+    def at(n: int) -> int:
+        if n not in peaks:
+            peaks[n] = peak(n)
+        return peaks[n]
+
+    grows = max(1, at(2) - at(1))
+    n = min(cap, max(1, int((limit - at(1)) // grows) + 1))
+    while n > 1 and at(n) > limit:
+        n -= 1
+    while n < cap and at(n + 1) <= limit:
+        n += 1
+    return n, at(n), at(n + 1) if n < cap else None
 
 
 def fit_batches(job: dict, label: str) -> dict:
@@ -4935,12 +5358,13 @@ def serve_remaining_phase() -> dict[str, dict[str, int]]:
 
 
 def four_card_main() -> int:
-    """Phases 24 (c) and 25 (b)-(d) alone, on a host of four cards: build
+    """Phases 24 (c)-(d) and 25 (b)-(d) alone, on a host of four cards: build
     the kernels, run the four NCCL ranks of each, print the reports, then
     the kernels' launches on these paths (JSON)."""
     from repro_torch.kernels import _build
 
-    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c) and 25 (b)-(d) need four")
+    check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c)-(d) and 25 (b)-(d) need "
+                                          f"four")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"four cards: {smi}", flush=True)
@@ -4948,6 +5372,9 @@ def four_card_main() -> int:
     t0 = time.perf_counter()
     by_path = sharded_report(SHARDED_FOUR_CARDS, run_sharded(SHARDED_FOUR_CARDS, 1500), "four cards")
     print(f"phase 24 (c): {time.perf_counter() - t0:.1f} s; flash launches {by_path}", flush=True)
+    t0 = time.perf_counter()
+    families = sharded_families_phase()
+    print(f"phase 24 (d): {time.perf_counter() - t0:.1f} s; launches {families}", flush=True)
     t0 = time.perf_counter()
     serving = serve_sharded_report(SERVE_SHARDED_FOUR_CARDS,
                                    run_sharded(SERVE_SHARDED_FOUR_CARDS, 1500, child="serve_sharded_child",
@@ -4959,7 +5386,7 @@ def four_card_main() -> int:
     t0 = time.perf_counter()
     remaining = serve_remaining_phase()
     print(f"phase 25 (d): {time.perf_counter() - t0:.1f} s; launches {remaining}", flush=True)
-    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, serving, full,
+    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, families, serving, full,
                                                               remaining)}), flush=True)
     return 0
 
@@ -5203,10 +5630,10 @@ def main() -> int:
 
     # 5. the same GA through the plain version, as a yardstick of the path
     t0 = time.perf_counter()
-    plain_res = ga(table9_main, backend="torch", device="cuda", seed=0, **GA)
+    plain_res = ga(table9_main, backend="torch", device="cuda", seed=0, **GA_PLAIN)
     torch.cuda.synchronize()
-    print(f"ga 500x500 through the plain version: {time.perf_counter() - t0:.3f} s wall, "
-          f"makespan {plain_res.schedule.makespan:.4f}", flush=True)
+    print(f"ga 500x500 pop={GA_PLAIN['pop_size']} gens={GA_PLAIN['generations']} through the plain version: "
+          f"{time.perf_counter() - t0:.3f} s wall, makespan {plain_res.schedule.makespan:.4f}", flush=True)
 
     # where the GA's time goes: its kernels on the device against the wall
     t0 = time.perf_counter()
@@ -5377,7 +5804,8 @@ def main() -> int:
             by_path.setdefault(name, {})[path] = n
     for name, run in train_by_path.items():
         by_path[name].update(run)
-    by_path["flash_attention"].update(sharded_by_path)
+    for name, run in sharded_by_path.items():
+        by_path[name].update(run)
     by_path["flash_attention"].update(serving_by_path.get("flash_attention", {}))
     by_path["decode_attention"].update(serving_by_path.get("decode_attention", {}))
     by_path["decode_attention"].update({f"{k} (state variant)": n for k, n in

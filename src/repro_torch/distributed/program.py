@@ -234,10 +234,14 @@ class WeightPlan:
     """How a parameter goes from its stored slice to its compute layout:
     the axes gathered per dimension, and which of them its gradient is
     reduced over (the rest are sliced: every device there computed the same
-    gradient)."""
+    gradient).  ``whole_axes``: the sequence-parallel axes over which every
+    device computed the parameter's whole gradient, because it is consumed
+    on the whole sequence; its gradient is neither reduce-scattered nor
+    all-reduced over them."""
 
     gathers: tuple[tuple[int, tuple[str, ...]], ...]  # (dim, axes), in order
     reduce_axes: frozenset
+    whole_axes: frozenset = frozenset()
 
 
 def _kept(entry, batch_axes: tuple[str, ...]) -> tuple[str, ...]:
@@ -426,10 +430,17 @@ class Program:
                 self.modules[id(m)] = plan
                 owner[name] = plan
         self.attention = attn
+        whole_seq = set(getattr(params, "whole_sequence", ()))
         for pname, p in params.named_parameters():
             mod = pname.rsplit(".", 1)[0]
             plan = owner.get(mod) or owner.get(mod.rsplit(".", 1)[0] if "." in mod else "")
             spec = self.specs[pname]
+            # consumed on the whole sequence: a module computed whole (its
+            # input's sequence gathered), the router of a MoE that does not
+            # route a device's own share, a parameter the model names
+            whole = frozenset(self._sp_axes) if (
+                pname in whole_seq or (plan is not None and plan.kind == "whole")
+                or (pname.endswith("router.w") and plan is not None and plan.moe_mode == "ffn")) else frozenset()
             if pname.endswith("embed.tok"):
                 kept = {0: self.embed_axes} if self.embed_axes else {}
             elif pname.endswith("embed.unembed"):
@@ -444,7 +455,7 @@ class Program:
                     gathers.append((dim, extra))
             self.weights[pname] = WeightPlan(
                 tuple(gathers), frozenset(a for _, axes in gathers for a in axes
-                                          if a in self.batch_axes or a in self._sp_axes))
+                                          if a in self.batch_axes or (a in self._sp_axes and a not in whole)), whole)
 
     def local_config(self) -> ModelConfig:
         """The config the model's code computes with: the attention's local
@@ -538,6 +549,8 @@ class Program:
                     g = comm.reduce_scatter(g, dim, red)
                 if rest:
                     g = self._own(g, dim, rest)
+                    if plan.whole_axes & set(rest):  # a copy: the whole gradient freed, as a reduce-scatter frees it
+                        g = g.contiguous()
             return g
 
         return _exchange(w, fwd, bwd)
@@ -895,7 +908,7 @@ class Program:
         for k, g in grads.items():
             plan = self.weights.get(id(named[k]))
             stored = {a for e in self.specs[k] for a in axes_of(e)}
-            reduced = plan.reduce_axes if plan else frozenset()
+            reduced = plan.reduce_axes | plan.whole_axes if plan else frozenset()
             axes = tuple(a for a in self.batch_axes + self.sp_axes
                          if a not in stored and a not in reduced)
             out[k] = self.comm.all_reduce(g, axes) if axes else g

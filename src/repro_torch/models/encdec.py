@@ -110,7 +110,10 @@ def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
 
 def _cross_kv(p: L.Attention, enc: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention's keys and values of the encoder states, ``[B,
-    Hkv, F, D]`` each."""
+    Hkv, F, D]`` each.  The states enter the attention's plan as its
+    query's input does: a device's heads give them a partial gradient,
+    summed over the attention's tensor-parallel axes."""
+    enc = D.enter(enc, p)
     B, F, _ = enc.shape
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     k = D.kv_heads(L.linear(p.k, enc)).reshape(B, F, hkv, hd)

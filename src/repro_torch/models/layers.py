@@ -336,7 +336,10 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = D.enter(x, p)
     if p.gate is not None:
         return D.exit(linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x)), p)
-    return D.exit(linear(p.down, F.gelu(linear(p.up, x), approximate="tanh")), p)
+    # the output bias after the exit: added once to the devices' summed
+    # partial products, not once a device
+    y = D.exit(F.gelu(linear(p.up, x), approximate="tanh") @ D.weight(p.down.w), p)
+    return y + D.weight(p.down.b)
 
 
 def embed(p: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -23,6 +23,10 @@ from repro_torch.models.config import ModelConfig
 class VLM(T.Transformer):
     """The transformer's parameters and ``patch_pos [num_patches, d]``."""
 
+    #: the parameters consumed on the whole sequence, before a program
+    #: splits the residual stream (``distributed/program.py``): the prefix
+    whole_sequence = ("patch_pos",)
+
     def __init__(self, cfg: ModelConfig, device: torch.device | str):
         super().__init__(cfg, device)
         self.patch_pos = L.param(torch.empty(cfg.num_patches, cfg.d_model,

@@ -147,6 +147,7 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
     mesh = make_mesh(shape, ("data", "model"))
     comm = DistComm(mesh, rank, "gloo")
     api, cfg, whole, tokens = reduced(arch, overrides)
+    batch = {"tokens": tokens, **extras(cfg, tokens.shape[0])}
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
     one = L.trainable(copy.deepcopy(whole))
     state = adamw.init(opt_cfg, one)
@@ -154,13 +155,13 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
     suite = ShapeSuite("x", "train", tokens.shape[1], tokens.shape[0])
     pol = dryrun.POLICIES[policy]
     cell = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, comm=comm, source=whole,
-                             batch={"tokens": tokens}, opt_cfg=opt_cfg, remat=remat)
-    plan = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, opt_cfg=opt_cfg, remat=remat)
+                             batch=batch, opt_cfg=opt_cfg, remat=remat)
+    plan = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, batch=batch, opt_cfg=opt_cfg, remat=remat)
     _, planned = dryrun.count_cell(plan, scopes=False)
     losses, single_losses, norms, single_norms = [], [], [], []
-    grad_err, grads_close = 0.0, True
+    grad_err, grads_close, grad_worst = 0.0, True, ""
     for i in range(steps):
-        _, state, m1 = single(one, state, {"tokens": tokens})
+        _, state, m1 = single(one, state, batch)
         if i == 0:
             (_, opt, m2), counted = dryrun.count_cell(cell, scopes=False)
             # AdamW's m after step 1 is (1 - beta1) * clip * g: the first gradients
@@ -168,7 +169,9 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
             for k, t in opt["m"].items():
                 g = cell.program.comm.gather_whole(t, cell.program.specs[k]) / ((1 - opt_cfg.beta1) * scale[1])
                 ref = state["m"][k] / ((1 - opt_cfg.beta1) * scale[0])
-                grad_err = max(grad_err, float((g - ref).abs().max()))
+                err = float((g - ref).abs().max())
+                if err > grad_err:
+                    grad_err, grad_worst = err, k
                 grads_close &= bool(torch.allclose(g, ref, atol=TOL["atol"], rtol=TOL["rtol"]))
         else:
             _, _, m2 = cell.run()
@@ -186,6 +189,7 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
         "losses": np.array(losses), "single_losses": np.array(single_losses),
         "norms": np.array(norms), "single_norms": np.array(single_norms),
         "param_max_err": max(errs), "params_close": close, "grad_max_err": grad_err, "grads_close": grads_close,
+        "grad_worst": grad_worst,
         **{f"whole/{k}": t.numpy() for k, t in got.items()},
         "plan": _counts(planned), "counted": _counts(counted),
         "layout": json.dumps(dryrun.layout(cell.program), sort_keys=True),
@@ -199,24 +203,24 @@ def train_case(rank: int, shape: tuple[int, int], policy: str, remat: bool, step
 SERVE = {"batch": 4, "prompt": 5, "max_len": 32, "ticks": 4}
 
 
-def serve_extras(cfg) -> dict:
-    """The family's prefill inputs beside the prompt, f32 from numpy's seed
-    3, scaled by 0.1: the vlm's patches ``[B, P, d]``, the encoder-decoder's
-    frames ``[B, F, d]``; none for the others."""
+def extras(cfg, rows: int) -> dict:
+    """The family's inputs beside the tokens for a batch of ``rows``, f32
+    from numpy's seed 3, scaled by 0.1: the vlm's patches ``[B, P, d]``, the
+    encoder-decoder's frames ``[B, F, d]``; none for the others."""
     import torch
 
-    rows = {"vlm": ("patches", cfg.num_patches), "encdec": ("frames", cfg.enc_frames)}.get(cfg.family)
-    if rows is None:
+    what = {"vlm": ("patches", cfg.num_patches), "encdec": ("frames", cfg.enc_frames)}.get(cfg.family)
+    if what is None:
         return {}
     rng = np.random.default_rng(3)
-    name, n = rows
-    return {name: torch.from_numpy((rng.standard_normal((SERVE["batch"], n, cfg.d_model)) * 0.1).astype(np.float32))}
+    name, n = what
+    return {name: torch.from_numpy((rng.standard_normal((rows, n, cfg.d_model)) * 0.1).astype(np.float32))}
 
 
 def serve_single(arch: str):
     """One device's serving of a reduced config (:func:`reduced`), the whole
     model with no program: the prompts (from numpy's seed 2) behind the
-    family's extras (:func:`serve_extras`), the logits of the prefill and of
+    family's extras (:func:`extras`), the logits of the prefill and of
     each greedy tick ``[1 + ticks, B, V]``, the greedy tokens ``[ticks, B]``
     int32, and the whole cache after the prefill."""
     import copy
@@ -228,7 +232,7 @@ def serve_single(arch: str):
                               .astype(np.int32))
     with torch.no_grad():
         cache = api.init_cache(SERVE["batch"], SERVE["max_len"], cfg, device="cpu")
-        logits, cache = api.prefill(whole, prompt, cache, cfg, **serve_extras(cfg))
+        logits, cache = api.prefill(whole, prompt, cache, cfg, **extras(cfg, SERVE["batch"]))
         prefilled = copy.deepcopy(cache)
         steps, tokens = [logits], []
         for _ in range(SERVE["ticks"]):
@@ -265,7 +269,7 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     pol = dryrun.POLICIES[policy]
     B, T = SERVE["batch"], SERVE["ticks"]
     prompt, single, tokens, prefilled = serve_single(arch)
-    batch = {"tokens": prompt, **serve_extras(cfg)}
+    batch = {"tokens": prompt, **extras(cfg, SERVE["batch"])}
     pre = ShapeSuite("p", "prefill", SERVE["max_len"], B)
     dec = ShapeSuite("d", "decode", SERVE["max_len"], B)
     spec = logits_sharding(mesh, cfg, B, pol)
@@ -597,7 +601,12 @@ def job_four(rank: int, world: int, params: dict, tmp: Path) -> dict:
     return out
 
 
-JOBS = {"eight": job_eight, "four": job_four}
+def job_cases(rank: int, world: int, params: dict, tmp: Path) -> dict:
+    """The train and serving cases of ``params`` alone."""
+    return _cases(rank, params)
+
+
+JOBS = {"eight": job_eight, "four": job_four, "cases": job_cases}
 
 
 if __name__ == "__main__":

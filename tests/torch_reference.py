@@ -1298,8 +1298,10 @@ def job_sharded_steps(params: dict, inputs: dict) -> dict:
     ``jax.jit(step, in_shardings=...)`` on a mesh of the first data·model
     devices under ``ShardingPolicy`` (``seqpar`` with the residual stream's
     hint, as the reference's dry-run sets it), from the weights ``qwen/<name>``
-    (qwen2.5-3b) or ``<case>/<name>``; its losses and parameters by port
-    name."""
+    (qwen2.5-3b) or ``<case>/<name>``, behind the case's frames or patches
+    where it has them (``extra/<case>/frames``, ``extra/<case>/patches``,
+    cut by ``batch_shardings`` as the reference's dry-run cuts them); its
+    losses and parameters by port name."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -1310,11 +1312,13 @@ def job_sharded_steps(params: dict, inputs: dict) -> dict:
     from repro.optim import adamw
     from repro.train.train_step import make_train_step
 
-    batch = {"tokens": jnp.asarray(inputs["qwen_tokens"])}
+    tokens = jnp.asarray(inputs["qwen_tokens"])
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
     out = {}
     for case in params["train_cases"]:
         name, shape, policy, remat = case[:4]
+        batch = {"tokens": tokens, **{k: jnp.asarray(inputs[f"extra/{name}/{k}"]) for k in ("frames", "patches")
+                                      if f"extra/{name}/{k}" in inputs}}
         arch, overrides = (case[4], case[5] or {}) if len(case) > 4 else ("qwen2.5-3b", {})
         prefix = "qwen" if len(case) == 4 else name
         api, cfg, template, tree = _reduced_tree(arch, overrides, _weights(inputs, prefix))

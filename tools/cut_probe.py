@@ -1,7 +1,7 @@
 """Time the cuts that ``chip_smoke.py`` makes to stay within its time limit,
 each before and after, on one card.
 
-    python3 tools/cut_probe.py [7 | 7d | 9 | 10 | 17 | 20 ...]
+    python3 tools/cut_probe.py [5 | 7 | 7d | 9 | 10 | 17 | 20 | 22 | 24 ...]
 
 With no argument, every cut.  7: the card-against-CPU checks of phases 7, 9
 and 10 with the prompts (128, 1000) and with ``chip_smoke.CPU_CUT_PROMPTS``,
@@ -14,9 +14,16 @@ phase 10 with zamba2-7b at
 and at ``chip_smoke.ZAMBA_LAYERS``, in the same order.  17: phase 17 with
 qwen3-moe-30b-a3b at 4 layers (likewise) and at ``chip_smoke.MOE_LAYERS``,
 mixtral-8x7b at ``MIXTRAL_LAYERS``, in the same order.  20: phase 20 with
-internvl2-76b at 8 layers and at ``chip_smoke.VLM["layers"]``.  Prints the
+internvl2-76b at 8 layers and at ``chip_smoke.VLM["layers"]``.  5: phase
+5's GA through the plain version at ``chip_smoke.GA``'s generations and at
+``chip_smoke.GA_PLAIN``'s, in the order before, after, after, before.  22: phase
+22's f32 cuts against the CPU at 2 layers and at
+``chip_smoke.TRAIN_CPU_LAYERS``, in the order before, after, after, before.
+24: phase 24's qwen2.5-3b on one card on (2, 2) and (1, 4), then on
+``chip_smoke.SHARDED_ONE_CARD["meshes"]``.  Prints the
 card's name and power limit, then one JSON line of seconds.  About seven
-minutes on an H100 for 7, three for 7d and 17, two each for 9, 10 and 20.
+minutes on an H100 for 7, three for 7d and 17, two each for 9, 10 and 20,
+four for 22, five for 24 and two for 5.
 """
 import dataclasses
 import gc
@@ -72,6 +79,23 @@ def main(cuts: list[str]) -> int:
             mixtral = chip_smoke.MIXTRAL_LAYERS
             timed(times, f"phase 17 at qwen3-moe {moe}, mixtral {mixtral} layers",
                   lambda: chip_smoke.moe_phase(moe, mixtral))
+    if "5" in cuts:  # phase 5's GA through the plain version at GA's generations and at GA_PLAIN's
+        from repro_torch.core import build_problem, ga, synthetic_system, synthetic_workload
+
+        table9 = build_problem(synthetic_system(500, seed=500), synthetic_workload(500, seed=500))
+        for opts in (chip_smoke.GA, chip_smoke.GA_PLAIN, chip_smoke.GA_PLAIN, chip_smoke.GA):
+            timed(times, f"phase 5 plain GA at {opts['generations']} generations",
+                  lambda: ga(table9, backend="torch", device="cuda", seed=0, **opts))
+    if "24" in cuts:  # qwen2.5-3b's one-card sharded step on (2, 2) and (1, 4), then on (2, 2) alone
+        job = chip_smoke.SHARDED_ONE_CARD
+        for meshes in ([[2, 2], [1, 4]], job["meshes"]):
+            timed(times, f"phase 24 qwen2.5-3b on {meshes}", lambda: chip_smoke.sharded_report(
+                {**job, "meshes": meshes}, chip_smoke.run_sharded({**job, "meshes": meshes}, 600), "one card"))
+    if "22" in cuts:
+        for layers in (2, chip_smoke.TRAIN_CPU_LAYERS, chip_smoke.TRAIN_CPU_LAYERS, 2):
+            for arch in ("qwen2.5-3b", "mamba2-780m"):
+                timed(times, f"phase 22 {arch} card against CPU at {layers} layers",
+                      lambda: chip_smoke.train_card_against_cpu(arch, layers))
     if "20" in cuts:
         for layers in (8, chip_smoke.VLM["layers"]):
             timed(times, f"phase 20 at internvl2-76b {layers} layers", lambda: chip_smoke.internvl2_phase(layers))
@@ -80,4 +104,4 @@ def main(cuts: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["7", "7d", "9", "10", "17", "20"]))
+    sys.exit(main(sys.argv[1:] or ["5", "7", "7d", "9", "10", "17", "20", "22", "24"]))
