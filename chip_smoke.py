@@ -322,7 +322,26 @@ result line:
     in bf16 (48, 81, 6 + 6, 26, 24 and 48 layers) with a full-cache tick,
     and a full 32k cache at ``FIT_BATCH`` (the largest batch up to 128
     whose plan fits 72 GB a card): every count == the plan's, the peaks
-    within ``PEAK_BAND``, ms a tick.  ``four_card_main`` ends with the
+    within ``PEAK_BAND``, ms a tick.
+26. the ``long_500k`` cell on four cards only (``four_card_main`` after
+    25 (d), or alone: ``python3 -c "import chip_smoke;
+    chip_smoke.long_context_phase()"``): a batch of one against a cache of
+    524,288 positions under ``serve-tp`` on (data 1, model 4), every cache
+    split by its kv heads, for mamba2-780m, zamba2-7b, gemma2-2b and
+    mixtral-8x7b (``LONG_CONTEXT_FOUR_CARDS``).  First the decode kernel on
+    card 0 at a card's share of the two long caches it reads (gemma2-2b's
+    global layers, zamba2-7b's shared attention) at 524,288 and 523,288
+    keys, held against its plain version and timed beside its bound and
+    SDPA.  Then the four NCCL ranks: (i) in f32 (mamba2-780m at 48 layers,
+    zamba2-7b at 6, gemma2-2b and mixtral-8x7b at 2; TF32 off, the router
+    f32), a cache drawn from a seed at its last position and 4 greedy
+    ticks, every rank's logits within 1e-4 + 1e-4·max|logit| of one card's
+    ticks of the same model and cache, the greedy tokens equal, the decode
+    launches equal to the plan's calls; (ii) at full depth in bf16 (48, 81,
+    26 and 32 layers), one tick counted (every count == the plan's, the
+    decode launches == the plan's calls, the peak within ``PEAK_BAND``,
+    finite logits), then 3 uncounted at the same position, ms a tick beside
+    the plan's bytes at 3.35 TB/s.  ``four_card_main`` ends with the
     kernels' launches on its paths (JSON).
 
 The last lines are the kernels' record (JSON), the card's name and power
@@ -813,7 +832,7 @@ def attention_phase(prompt_lens: list[int]) -> dict:
                 library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], k, v, attn_mask=valid, enable_gqa=True), reps=50)
             bound_ms, bound_by = attention_bound_ms(q, k, H * sum(lens), Hkv * sum(lens))
-            splits, chunk = decode_mod.decode_split_plan(B, Hkv, S, sm_count)
+            splits, chunk = decode_mod.decode_split_plan(Hkv, S, sm_count)
             print(f"decode {label} lengths {lens} (splits {splits} of {chunk} keys) {str(dtype)[6:]}: "
                   f"max abs diff {err:.3g} (from f32 plain "
                   f"{err32:.3g}); kernel {ms:.4f} ms (one call with its host work {one_call_ms:.4f} ms), "
@@ -4492,15 +4511,10 @@ SHARDED_FAMILIES_ONE_CARD = {"backend": "gloo", "staged": True, "world": 4, "car
 #: f32 at the one card's depths (internvl2-76b at 1 layer behind 256
 #: patches) against one card's unsharded steps, held as (a); (ii) each at
 #: full depth in bf16 at 4 x 1024 (internvl2-76b at ``FIT_LAYERS``, the
-#: deepest whose plan fits ``TRAIN_FIT_LIMIT_BYTES`` a card, found on meta), the
+#: deepest whose plan fits ``FIT_LIMIT_BYTES`` a card, found on meta), the
 #: loss against one card's bf16 steps where one card holds the model and
 #: AdamW's state, with step 2 timed and step 3 profiled
-FIT_LAYERS = {"internvl2-76b": 24}
-#: a training step's plan under-reads the card more than a decode tick's:
-#: internvl2-76b at 28 layers, planned at 70.42 GB a card (within 72 GB),
-#: ran out of memory on an H100 80GB HBM3 with 73.25 GB allocated in its
-#: first step on four cards; so its depth is found against 80% of the card
-TRAIN_FIT_LIMIT_BYTES = 64e9
+FIT_LAYERS = {"internvl2-76b": 23}  # 70.66 GB a card planned; 24: 73.22 (measured 73.27)
 SHARDED_FAMILIES_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "mesh": [2, 2],
                                "policy": "seqpar", "runs": [
     *({"arch": arch, "layers": FAMILY_LAYERS[arch], "dtype": "float32", "batch": 4, "seq": 512, "against_one": True}
@@ -4797,7 +4811,7 @@ def sharded_family_report(job: dict, reports: list[dict], label: str) -> dict[st
 def fit_layers(arch: str, mesh_shape, policy: str, batch: int, seq: int) -> tuple[int, int, int | None]:
     """The deepest cut of ``arch`` in bf16 whose training step's dry-run peak
     a card (AdamW's f32 moments included) at ``batch`` x ``seq`` on
-    ``mesh_shape`` under ``policy`` is at most ``TRAIN_FIT_LIMIT_BYTES``,
+    ``mesh_shape`` under ``policy`` is at most ``FIT_LIMIT_BYTES``,
     found on meta; with its peak and the next depth's (None at full
     depth)."""
     from repro_torch.configs.shapes import ShapeSuite
@@ -4815,7 +4829,7 @@ def fit_layers(arch: str, mesh_shape, policy: str, batch: int, seq: int) -> tupl
                                  opt_cfg=adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant"))
         return dryrun.count_cell(plan, scopes=False)[1].memory()["peak_bytes"]
 
-    return largest_fit(peak, cfg.num_layers, TRAIN_FIT_LIMIT_BYTES)
+    return largest_fit(peak, cfg.num_layers)
 
 
 def sharded_phase() -> dict[str, dict[str, int]]:
@@ -4846,7 +4860,7 @@ def sharded_families_phase() -> dict[str, dict[str, int]]:
         n, at, past = fit_layers(arch, job["mesh"], job["policy"], 4, 1024)
         nxt = "full depth" if past is None else f"{n + 1} layers: {past / 1e9:.3f} GB"
         print(f"phase 24 (d) {arch}: {n} layers fit, the dry-run's peak {at / 1e9:.3f} GB a card ({nxt}; at most "
-              f"{TRAIN_FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
+              f"{FIT_LIMIT_BYTES / 1e9:.0f} GB)", flush=True)
         check(n == want, f"{arch}: the depth that fits, {n}, is FIT_LAYERS's")
     return sharded_family_report(job, run_sharded(job, 2400, child="sharded_family_child", name="phase24d"),
                                  "four cards")
@@ -4920,16 +4934,16 @@ SERVE_FULL_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards"
 #: the cache's length in (iii) and the prompt's positions in (iv)
 LONG = 32768
 #: (iii)'s batch: the largest whose dry-run peak a card at a cache of
-#: ``LONG`` is at most ``FIT_LIMIT_BYTES``, 0.9 of the card's 80 GB (on meta:
-#: deepseek-67b 71.97 GB at 12, 75.16 at 13; internvl2-76b 70.18 at 13, 72.87
-#: at 14); ``fit_batch`` finds it again before (iii) runs, and phase 6 times
-#: the decode kernel at deepseek-67b's
+#: ``LONG`` is at most ``FIT_LIMIT_BYTES``, 0.9 of the card's 80 GB (on meta,
+#: cuBLAS's workspace included: deepseek-67b 68.81 GB at 11, 72.003 at 12;
+#: internvl2-76b 70.22 at 13, 72.90 at 14); ``fit_batch`` finds it again
+#: before (iii) runs, and phase 6 times the decode kernel at deepseek-67b's
 FIT_LIMIT_BYTES = 0.9 * 80e9
-FIT_BATCH = {"deepseek-67b": 12, "internvl2-76b": 13,
+FIT_BATCH = {"deepseek-67b": 11, "internvl2-76b": 13,
              # phase 25 (d): up to decode_32k's 128 (on meta: stablelm-1.6b
-             # 71.70 GB at 44, 73.31 at 45; qwen3-moe-30b-a3b 71.70 at 70, 72.50
-             # at 71; zamba2-7b 70.99 at 43, 72.56 at 44; mamba2-780m 3.66,
-             # whisper-base 13.63 and gemma2-2b 64.22 at 128)
+             # 71.73 GB at 44, 73.34 at 45; qwen3-moe-30b-a3b 71.73 at 70, 72.54
+             # at 71; zamba2-7b 71.10 at 43, 72.68 at 44; mamba2-780m 3.90,
+             # whisper-base 13.66 and gemma2-2b 64.25 at 128)
              "mamba2-780m": 128, "whisper-base": 128, "stablelm-1.6b": 44, "gemma2-2b": 128,
              "qwen3-moe-30b-a3b": 70, "zamba2-7b": 43}
 #: phase 25 (d): the six remaining architectures on four cards over NCCL
@@ -4958,6 +4972,31 @@ SERVE_REMAINING_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "c
 #: a sharded step's logits against one device's unsharded run in f32: within
 #: ``atol + rtol * max|logit|`` of the step
 SERVE_SHARDED_TOL = {"atol": 1e-4, "rtol": 1e-4}
+#: phase 26: the ``long_500k`` cell (batch 1, a cache of 524,288 positions)
+#: on four cards over NCCL, each arch (i) in f32 at ``LONG_F32_LAYERS``,
+#: ``LONG_TICKS`` greedy ticks from a cache drawn from a seed at its last
+#: position against one card's ticks of the same model and cache (a cut
+#: depth: one card holds the f32 model and the whole cache; zamba2-7b's 6
+#: layers hold one shared invocation, gemma2-2b's 2 a local and a global
+#: layer); (ii) at full depth in bf16, a counted tick and 3 uncounted
+LONG_TICKS = 4
+LONG_F32_LAYERS = {"mamba2-780m": 48, "zamba2-7b": 6, "gemma2-2b": 2, "mixtral-8x7b": 2}
+LONG_CONTEXT_FOUR_CARDS = {"backend": "nccl", "staged": False, "world": 4, "cards": 4, "max_len": 256, "runs": [
+    run for arch, layers in LONG_F32_LAYERS.items()
+    for run in (
+        {"arch": arch, "layers": layers, "dtype": "float32", "prompts": 0, "ticks": LONG_TICKS, "against_one": True,
+         "drawn": "long_500k"},
+        {"arch": arch, "layers": None, "dtype": None, "prompts": 0, "ticks": 0, "against_one": False,
+         "long_500k": True},
+    )
+]}
+#: phase 26's decode kernel shapes, a card's share of a ``long_500k`` cache
+#: on (data 1, model 4) in bf16: (label, H, Hkv, D, softcap)
+LONG_DECODE_SHAPES = (("gemma2-2b share (H 2, Hkv 1, D 256, softcap 50)", 2, 1, 256, 50.0),
+                      ("zamba2-7b share (H 8, Hkv 8, D 112)", 8, 8, 112, None))
+#: the keys cut from the cache for the shorter length of each shape: not a
+#: multiple of the split chunk
+LONG_DECODE_CUT = 1000
 
 
 def serve_sharded_child() -> None:
@@ -4970,7 +5009,7 @@ def serve_sharded_child() -> None:
 
     from repro_torch.configs.shapes import SHAPES, ShapeSuite
     from repro_torch.distributed.comm import DistComm
-    from repro_torch.distributed.sharding import logits_sharding
+    from repro_torch.distributed.sharding import logits_sharding, make_cache_shardings
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_state_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
@@ -5035,7 +5074,7 @@ def serve_sharded_child() -> None:
         return cell, out, seconds, {
             "batch": suite.global_batch, "cache": suite.seq_len, "build_s": build_s,
             "plan": plan_counts(planned), "counted": plan_counts(counted),
-            "plan_peak_bytes": planned.memory()["peak_bytes"],
+            "plan_peak_bytes": planned.memory()["peak_bytes"], "plan_bytes": planned.costs.to_json()["bytes"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "launches": {k: w.launches for k, w in wrappers.items()}, "finite": bool(torch.isfinite(out[0]).all())}
 
@@ -5050,15 +5089,22 @@ def serve_sharded_child() -> None:
             cfg = dataclasses.replace(cfg, dtype=run["dtype"])
         max_len = run.get("max_len", job["max_len"])
         row: dict = {"arch": run["arch"], "family": cfg.family, "layers": cfg.num_layers, "dtype": cfg.dtype}
-        if run["prompts"]:
-            n, T = run["prompts"], run["ticks"]
-            prompts = serve_prompts(cfg.vocab)[:n]
-            S = min(len(p) for p in prompts)
-            extra = extras(np.random.default_rng(20), n, cfg)
-            batch = {"tokens": torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev), **extra}
-            positions = S + (cfg.num_patches if cfg.family == "vlm" else 0)
-            pre = ShapeSuite("prefill", "prefill", max_len, n)
-            dec = ShapeSuite("decode", "decode", max_len, n)
+        if run["prompts"] or run.get("drawn"):  # ticks after a prefill, or from a cache drawn from a seed
+            T = run["ticks"]
+            if run["prompts"]:
+                n = run["prompts"]
+                prompts = serve_prompts(cfg.vocab)[:n]
+                S = min(len(p) for p in prompts)
+                extra = extras(np.random.default_rng(20), n, cfg)
+                batch = {"tokens": torch.from_numpy(np.stack([p[:S] for p in prompts])).to(dev), **extra}
+                positions = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+                pre = ShapeSuite("prefill", "prefill", max_len, n)
+                dec = ShapeSuite("decode", "decode", max_len, n)
+            else:  # phase 26 (i): no prompt; the first token against a cache at its suite's last position
+                dec = SHAPES[run["drawn"]]
+                n, S, extra, max_len, positions = dec.global_batch, 0, {}, dec.seq_len, dec.seq_len - 1
+                batch = {"token": torch.from_numpy(np.random.default_rng(26).integers(0, cfg.vocab, n)
+                                                   .astype(np.int32)).to(dev)}
             spec = logits_sharding(mesh, cfg, n, pol)
             row.update(batch=n, prompt=S, positions=positions, ticks=T, max_len=max_len)
             single_logits = torch.zeros(1 + T, n, cfg.vocab, device=on)
@@ -5067,38 +5113,57 @@ def serve_sharded_child() -> None:
                 if rank == 0:  # one device's run of the whole model, the same weights
                     whole = api.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
                     with torch.no_grad():
-                        cache = api.init_cache(n, max_len, cfg, device=dev)
-                        lg, cache = api.prefill(whole, batch["tokens"], cache, cfg, **extra)
-                        single_logits[0] = lg.to(on)
+                        if run["prompts"]:
+                            cache = api.init_cache(n, max_len, cfg, device=dev)
+                            lg, cache = api.prefill(whole, batch["tokens"], cache, cfg, **extra)
+                            single_logits[0] = lg.to(on)
+                        else:  # the whole cache the ranks cut theirs from: the same seed on a mesh of one
+                            one = make_mesh((1, 1), ("data", "model"))
+                            specs = api.cache_specs(cfg, dec)
+                            cache = dryrun._draw_cache(specs, make_cache_shardings(one, cfg, specs, pol), one, 0, 26,
+                                                       dev)
+                            cache["pos"], lg = positions, None
                         for t in range(T):
-                            single_tokens[t] = lg.argmax(-1).to(torch.int32).to(on)
-                            lg, cache = api.decode_step(whole, single_tokens[t].to(dev), cache, cfg)
+                            tok = batch["token"] if lg is None else lg.argmax(-1).to(torch.int32)
+                            single_tokens[t] = tok.to(on)
+                            lg, cache = api.decode_step(whole, tok, cache, cfg)
                             single_logits[t + 1] = lg.to(on)
                     del whole, cache, lg
                     gc.collect()
                     torch.cuda.empty_cache()
                 dist.broadcast(single_logits, 0)
                 dist.broadcast(single_tokens, 0)
-            plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch=on_meta(batch))
-            _, planned = dryrun.count_cell(plan, scopes=False)
+            if run["prompts"]:
+                plan = dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, batch=on_meta(batch))
+                _, planned = dryrun.count_cell(plan, scopes=False)
             plan = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg,
                                      batch={"token": torch.zeros(n, dtype=torch.int32, device="meta")})
             row["tick_plan_kernels"] = plan_counts(dryrun.count_cell(plan, scopes=False)[1])["kernels"]
             del plan
             gen = torch.Generator(device=dev).manual_seed(0)  # the model drawn a module at a time, sliced
-            cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, comm=comm,
-                                                             source=gen, batch=batch))
-            for w in wrappers.values():
-                w.launches = 0
-            ((local, _), counted), prefill_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
-            check(cell.cache["pos"] == positions, f"{run['arch']}: the cache's position {cell.cache['pos']} counts "
-                                                  f"the prompt's {positions} positions")
+            if run["prompts"]:
+                cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], pre, mesh, pol, cfg=cfg, comm=comm,
+                                                                 source=gen, batch=batch))
+                for w in wrappers.values():
+                    w.launches = 0
+                # the logits alone are kept: a name bound to a step's cache would hold it past the run
+                (out, counted), prefill_s = sync_s(lambda: dryrun.count_cell(cell, scopes=False))
+                local = out[0]
+                del out
+                check(cell.cache["pos"] == positions, f"{run['arch']}: the cache's position {cell.cache['pos']} "
+                                                      f"counts the prompt's {positions} positions")
+                row.update(prefill_s=prefill_s, prefill_plan=plan_counts(planned),
+                           prefill_counted=plan_counts(counted))
+            else:  # every rank's cut of the cache drawn whole from seed 26
+                cell, build_s = sync_s(lambda: dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg, comm=comm,
+                                                                 source=gen, batch=batch, cache=26))
+                for w in wrappers.values():
+                    w.launches = 0
             kv = dryrun.kv_cache_of(cell.cache)  # the first attention's keys; None for an SSM
-            row.update(build_s=build_s, prefill_s=prefill_s, prefill_plan=plan_counts(planned),
-                       prefill_counted=plan_counts(counted),
-                       seq_axes=[] if kv is None else list(cell.program.cache_seq_axes(kv)),
+            row.update(build_s=build_s, seq_axes=[] if kv is None else list(cell.program.cache_seq_axes(kv)),
                        span=None if kv is None else list(cell.program.cache_span(kv)),
                        layout=dryrun.layout(cell.program))
+            del kv
             errs, bounds, tokens_out, tick_s = [], [], [], []
 
             def held(step, local):
@@ -5111,12 +5176,15 @@ def serve_sharded_child() -> None:
                 return whole_logits.argmax(-1).to(torch.int32)
 
             row["finite"] = True
-            tok = held(0, local)
-            ticks = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tok},
-                                      cache=cell)
+            if run["prompts"]:
+                tok = held(0, local)
+                ticks = dryrun.build_cell(run["arch"], dec, mesh, pol, cfg=cfg, comm=comm, batch={"token": tok},
+                                          cache=cell)
+            else:
+                tok, ticks = batch["token"], cell
             for t in range(T):
                 tokens_out.append(tok.cpu().tolist())
-                (local, _), s = sync_s(lambda: ticks.run(tok))
+                local, s = sync_s(lambda: ticks.run(tok)[0])
                 tick_s.append(s)
                 tok = held(t + 1, local)
             row.update(launches={k: w.launches for k, w in wrappers.items()}, logits_max_abs_err=errs,
@@ -5126,16 +5194,21 @@ def serve_sharded_child() -> None:
             del cell, ticks, local, single_logits, batch, extra
             gc.collect()
             torch.cuda.empty_cache()
-        full = next((k for k in ("decode_32k", "decode_fit", "full_tick") if run.get(k)), None)
+        full = next((k for k in ("decode_32k", "decode_fit", "full_tick", "long_500k") if run.get(k)), None)
         if full:  # a tick at a full cache drawn from a seed, against the plan's counts and peak
             suite = {"decode_32k": SHAPES["decode_32k"],
                      "decode_fit": ShapeSuite("decode_32k", "decode", LONG, run.get("batch", 0)),
-                     "full_tick": ShapeSuite("decode", "decode", max_len, run["prompts"])}[full]
+                     "full_tick": ShapeSuite("decode", "decode", max_len, run["prompts"]),
+                     "long_500k": SHAPES["long_500k"]}[full]
             token = torch.from_numpy(np.random.default_rng(25).integers(0, cfg.vocab, suite.global_batch)
                                      .astype(np.int32)).to(dev)
-            cell, _, tick_s, row[full] = counted_run(run["arch"], cfg, suite, {"token": token}, cache=25)
+            cell, out, tick_s, row[full] = counted_run(run["arch"], cfg, suite, {"token": token}, cache=25)
+            del out
             row[full]["tick_ms"] = 1e3 * tick_s
-            if full == "decode_fit":  # the same tick again, uncounted, at the same position
+            kv = dryrun.kv_cache_of(cell.cache)
+            row[full]["seq_axes"] = [] if kv is None else list(cell.program.cache_seq_axes(kv))
+            del kv
+            if full in ("decode_fit", "long_500k"):  # the same tick again, uncounted, at the same position
                 times = []
                 for _ in range(3):
                     cell.cache["pos"] = suite.seq_len - 1
@@ -5149,8 +5222,9 @@ def serve_sharded_child() -> None:
             P = cfg.num_patches if cfg.family == "vlm" else 0
             batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, LONG - P)).astype(np.int32)).to(dev)}
             batch.update(extras(rng, 1, cfg))
-            cell, _, counted_s, rec = counted_run(run["arch"], cfg, ShapeSuite("prefill_32k", "prefill", LONG, 1),
-                                                  batch)
+            cell, out, counted_s, rec = counted_run(run["arch"], cfg, ShapeSuite("prefill_32k", "prefill", LONG, 1),
+                                                    batch)
+            del out
             check(cell.cache["pos"] == LONG, f"{run['arch']}: the long prompt fills the cache's {LONG} positions "
                                              f"({cell.cache['pos']})")
             rec.update(tokens=LONG - P, patches=P, counted_s=counted_s,
@@ -5196,26 +5270,31 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
         decoder = rows[0]["family"] in ("dense", "moe", "vlm")
         for r, row in zip(reports, rows):
             tag = f"sharded serve {label} {name} rank {r['rank']}"
-            if run["prompts"]:
-                check(row["prefill_counted"] == row["prefill_plan"],
-                      f"{tag}: the prefill's arguments, FLOPs, kernel calls and exchanges == the dry-run's: "
-                      f"{row['prefill_counted']} against {row['prefill_plan']}")
+            if run["prompts"] or run.get("drawn"):
                 T = row["ticks"]
                 seq = bool(row["seq_axes"])
-                prefill, tick = plan_calls(row["prefill_plan"]["kernels"]), plan_calls(row["tick_plan_kernels"])
-                if decoder:
-                    check(prefill["flash_attention"] == L and tick["decode_attention"] == L,
-                          f"{tag}: the plan calls flash once a layer a prefill and decode once a layer a tick: "
-                          f"{prefill}, {tick}")
+                prefill = plan_calls(row["prefill_plan"]["kernels"] if run["prompts"] else {})
+                tick = plan_calls(row["tick_plan_kernels"])
+                if run["prompts"]:
+                    check(row["prefill_counted"] == row["prefill_plan"],
+                          f"{tag}: the prefill's arguments, FLOPs, kernel calls and exchanges == the dry-run's: "
+                          f"{row['prefill_counted']} against {row['prefill_plan']}")
+                    check(not decoder or prefill["flash_attention"] == L,
+                          f"{tag}: the plan calls flash once a layer a prefill: {prefill}")
+                else:
+                    check(not seq, f"{tag}: the {run['drawn']} caches split by heads, not over {row['seq_axes']}")
+                check(not decoder or tick["decode_attention"] == L,
+                      f"{tag}: the plan calls decode once a layer a tick: {tick}")
                 decodes = prefill["decode_attention"] + T * tick["decode_attention"]
                 want = {"flash_attention": prefill["flash_attention"] + T * tick["flash_attention"],
                         "decode_attention": 0 if seq else decodes, "decode_attention_state": decodes if seq else 0,
                         "ssd_scan": prefill["ssd_scan"] + T * tick["ssd_scan"]}
-                check(row["launches"] == want and sum(want.values()) > 0,
-                      f"{tag}: launches {row['launches']}, expected the plan's {want}")
+                check(row["launches"] == want and (sum(want.values()) > 0 or not run["prompts"]),
+                      f"{tag}: launches {row['launches']}, expected the plan's {want}")  # a prefill runs a kernel
+                path = f"sharded serve {label} {name}{' ' + run['drawn'] if run.get('drawn') else ''} rank {r['rank']}"
                 for k, v in row["launches"].items():
                     if v:
-                        by_path.setdefault(k, {})[f"sharded serve {label} {name} rank {r['rank']}"] = v
+                        by_path.setdefault(k, {})[path] = v
                 if run["against_one"] and seq:
                     live = sum(rw["span"][0] < rw["positions"] + T for rw in rows)
                     check(live >= 2, f"{tag}: the prompts and ticks fill {live} of the cache's {len(rows)} shares, "
@@ -5228,14 +5307,17 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                     check(row["tokens_equal"], f"{tag}: the greedy tokens equal one device's")
                 check(row["finite"], f"{tag}: finite logits at every step")
                 ticks = row["tick_ms"]
+                counts = f"; counts {row['prefill_counted']['collective_counts']} == the plan's" if run["prompts"] else ""
+                start = (f"prefill {row['batch']} x {row['prompt']} ({row['positions']} positions, a cache of "
+                         f"{row['max_len']}) in {row['prefill_s']:.3f} s" if run["prompts"] else
+                         f"{run['drawn']}: batch {row['batch']} from a cache of {row['max_len']} drawn at position "
+                         f"{row['positions']}")
                 print(f"{tag}: layout {row['layout']['attention']}, modules {row['layout']['modules']}, cache sequence "
-                      f"over {row['seq_axes']}; prefill {row['batch']} x {row['prompt']} ({row['positions']} "
-                      f"positions, a cache of {row['max_len']}) in {row['prefill_s']:.3f} s (built in "
+                      f"over {row['seq_axes']}; {start} (built in "
                       f"{row['build_s']:.1f} s), {T} ticks: median {statistics.median(ticks):.2f} ms a tick "
                       f"({row['batch'] * 1e3 / statistics.median(ticks):.1f} tokens/s), max logit err "
-                      f"{max(row['logits_max_abs_err'] or [0.0]):.3g}; launches {row['launches']}; counts "
-                      f"{row['prefill_counted']['collective_counts']} == the plan's", flush=True)
-            for full in ("full_tick", "decode_32k", "decode_fit", "prefill_long"):
+                      f"{max(row['logits_max_abs_err'] or [0.0]):.3g}; launches {row['launches']}{counts}", flush=True)
+            for full in ("full_tick", "decode_32k", "decode_fit", "prefill_long", "long_500k"):
                 if full not in row:
                     continue
                 f = row[full]
@@ -5254,7 +5336,9 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                     check(calls["flash_attention"] == (L if long else 0) and calls["decode_attention"] == (0 if long
                                                                                                          else L),
                           f"{tag} {full}: one {'flash' if long else 'decode'} call a layer in the plan: {calls}")
-                if full in ("decode_fit", "prefill_long"):
+                if full == "long_500k":
+                    check(f["seq_axes"] == [], f"{tag} {full}: the caches split by heads, not over {f['seq_axes']}")
+                if full in ("decode_fit", "prefill_long", "long_500k"):
                     for k, v in f["launches"].items():
                         if v:
                             by_path.setdefault(k, {})[f"sharded serve {label} {name} {full} rank {r['rank']}"] = v
@@ -5267,6 +5351,9 @@ def serve_sharded_report(job: dict, reports: list[dict], label: str) -> dict[str
                 if "uncounted_tick_ms" in f:
                     med = statistics.median(f["uncounted_tick_ms"])
                     timing += f", {med:.2f} ms uncounted ({f['batch'] * 1e3 / med:.1f} tokens/s)"
+                if full == "long_500k":
+                    timing += (f" against the plan's {f['plan_bytes'] / 1e9:.3f} GB a card at 3.35 TB/s: "
+                               f"{1e3 * f['plan_bytes'] / HBM_BYTES_PER_S:.3f} ms")
                 print(f"{tag} {full} (batch {f['batch']}, cache {f['cache']}): arguments {f['counted']['arguments']:,} B, "
                       f"FLOPs {f['counted']['flops']:.6e}, exchanges {f['counted']['collective_counts']} "
                       f"{ {k: round(v / 1e6, 3) for k, v in f['counted']['collective_bytes'].items()} } MB == the "
@@ -5305,11 +5392,11 @@ def fit_batch(arch: str) -> tuple[int, int, int | None]:
     return largest_fit(peak, SHAPES["decode_32k"].global_batch)
 
 
-def largest_fit(peak, cap: int, limit: float = FIT_LIMIT_BYTES) -> tuple[int, int, int | None]:
+def largest_fit(peak, cap: int) -> tuple[int, int, int | None]:
     """The largest n in 1..``cap`` whose ``peak(n)`` (a dry-run's peak a
-    card, growing with n) is at most ``limit``: a guess from the growth of
-    one step, then a walk; with its peak and the next one's (None at
-    ``cap``)."""
+    card, growing with n) is at most ``FIT_LIMIT_BYTES``: a guess from the
+    growth of one step, then a walk; with its peak and the next one's (None
+    at ``cap``)."""
     peaks: dict[int, int] = {}
 
     def at(n: int) -> int:
@@ -5318,10 +5405,10 @@ def largest_fit(peak, cap: int, limit: float = FIT_LIMIT_BYTES) -> tuple[int, in
         return peaks[n]
 
     grows = max(1, at(2) - at(1))
-    n = min(cap, max(1, int((limit - at(1)) // grows) + 1))
-    while n > 1 and at(n) > limit:
+    n = min(cap, max(1, int((FIT_LIMIT_BYTES - at(1)) // grows) + 1))
+    while n > 1 and at(n) > FIT_LIMIT_BYTES:
         n -= 1
-    while n < cap and at(n + 1) <= limit:
+    while n < cap and at(n + 1) <= FIT_LIMIT_BYTES:
         n += 1
     return n, at(n), at(n + 1) if n < cap else None
 
@@ -5357,10 +5444,91 @@ def serve_remaining_phase() -> dict[str, dict[str, int]]:
                                 "four cards")
 
 
+def long_decode_kernel_phase() -> dict[str, dict]:
+    """Phase 26's first part, on card 0: the decode kernel at each of
+    ``LONG_DECODE_SHAPES`` (a batch of one against 524,288 keys in bf16),
+    at lengths S and S - ``LONG_DECODE_CUT``, held against its plain version
+    run in f32 within 2e-5 + 2**-8·|y| (half a bf16 step) and timed
+    (``cuda_ms``) beside the plain version, its bound (the K and V bytes
+    read once at 3.35 TB/s, against its operations) and SDPA with a length
+    mask (none under a softcap); the records by shape and length."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_ref, decode_split_plan
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    S = SHAPES["long_500k"].seq_len
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    records: dict[str, dict] = {}
+    for label, H, Hkv, D, cap in LONG_DECODE_SHAPES:
+        q = torch.randn((1, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
+        for n in (S, S - LONG_DECODE_CUT):
+            lengths = torch.full((1,), n, dtype=torch.int32, device=dev)
+            out = decode_attention_cuda(q, k, v, lengths, softcap=cap)
+            plain = decode_attention_ref(q, k, v, lengths, softcap=cap)
+            plain32 = decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=cap)
+            torch.cuda.synchronize()
+            err = float((out.float() - plain.float()).abs().max())
+            err32 = float((out.float() - plain32).abs().max())
+            check(bool(torch.isfinite(out.float()).all()), f"decode {label} {n} keys: finite output")
+            check(torch.allclose(out.float(), plain32, atol=2e-5, rtol=2**-8),
+                  f"decode {label} {n} keys: kernel == plain in f32 within atol 2e-5 rtol 2^-8 (max abs diff {err32})")
+            del plain, plain32
+            valid = (torch.arange(S, device=dev) < n)[None, None, None, :]
+            row = {"keys": n, "max_abs_err": err, "max_abs_err_f32": err32,
+                   "splits_chunk": list(decode_split_plan(Hkv, S, sm_count)),
+                   "ms": cuda_ms(lambda: decode_attention_cuda(q, k, v, lengths, softcap=cap), reps=20),
+                   "plain_ms": cuda_ms(lambda: decode_attention_ref(q, k, v, lengths, softcap=cap), reps=3, warmup=1),
+                   "library_ms": None if cap else cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q[:, :, None], k, v, attn_mask=valid, enable_gqa=True), reps=20)}
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, H * n, Hkv * n)
+            records[f"{label} {n} keys"] = row
+            print(f"decode long_500k {label}, {n} of {S} keys bfloat16: max abs diff {err:.3g} (from f32 plain "
+                  f"{err32:.3g}); splits x chunk {row['splits_chunk']}; kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms, bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']})", flush=True)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return records
+
+
+def long_context_phase() -> tuple[dict[str, dict[str, int]], dict[str, dict]]:
+    """Phase 26 on four cards: the decode kernel at 524,288 keys on card 0
+    (:func:`long_decode_kernel_phase`), then the four NCCL ranks of
+    ``LONG_CONTEXT_FOUR_CARDS``; each kernel's launches by path, and the
+    kernel's records at the long shapes.  Alone: ``python3 -c "import
+    chip_smoke; chip_smoke.long_context_phase()"`` (builds the kernels)."""
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= 4,
+          f"{torch.cuda.device_count()} cards: phase 26 needs four")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(f"phase 26: {smi}", flush=True)
+    _build.build()
+    t0 = time.perf_counter()
+    shapes = long_decode_kernel_phase()
+    print(f"phase 26: the decode kernel at the long shapes in {time.perf_counter() - t0:.1f} s", flush=True)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # card 0's share of the long shapes, freed for rank 0
+    job = LONG_CONTEXT_FOUR_CARDS
+    by_path = serve_sharded_report(job, run_sharded(job, 900, child="serve_sharded_child", name="phase26"),
+                                   "four cards")
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s; launches {by_path}", flush=True)
+    print(json.dumps({"long_500k_decode": shapes}), flush=True)
+    return by_path, shapes
+
+
 def four_card_main() -> int:
-    """Phases 24 (c)-(d) and 25 (b)-(d) alone, on a host of four cards: build
-    the kernels, run the four NCCL ranks of each, print the reports, then
-    the kernels' launches on these paths (JSON)."""
+    """Phases 24 (c)-(d), 25 (b)-(d) and 26 alone, on a host of four cards:
+    build the kernels, run the four NCCL ranks of each, print the reports,
+    then the kernels' launches on these paths (JSON)."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.device_count() >= 4, f"{torch.cuda.device_count()} cards: phases 24 (c)-(d) and 25 (b)-(d) need "
@@ -5386,8 +5554,12 @@ def four_card_main() -> int:
     t0 = time.perf_counter()
     remaining = serve_remaining_phase()
     print(f"phase 25 (d): {time.perf_counter() - t0:.1f} s; launches {remaining}", flush=True)
-    print(json.dumps({"kernels_four_cards": four_card_kernels({"flash_attention": by_path}, families, serving, full,
-                                                              remaining)}), flush=True)
+    long, long_shapes = long_context_phase()
+    kernels = four_card_kernels({"flash_attention": by_path}, families, serving, full, remaining, long)
+    for k in kernels:
+        if k["name"] == "decode_attention":
+            k["long_500k_shapes"] = long_shapes
+    print(json.dumps({"kernels_four_cards": kernels}), flush=True)
     return 0
 
 

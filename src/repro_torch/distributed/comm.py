@@ -199,7 +199,7 @@ class DistComm:
     def all_gather(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
         with self._uncounted():
             out = self._all_gather(x, dim, axes)
-        work.collective("all-gather", _nbytes(out))
+        work.collective("all-gather", _nbytes(out), out)
         return out
 
     def reduce_scatter(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
@@ -215,7 +215,7 @@ class DistComm:
                 res = chunks.new_empty(chunks.shape[1:])
                 dist.reduce_scatter_tensor(res.view(-1), chunks.view(-1), op=dist.ReduceOp.SUM, group=g.group)
                 out = self._back(res, x)
-        work.collective("reduce-scatter", _nbytes(out))
+        work.collective("reduce-scatter", _nbytes(out), out)
         return out
 
     def _all_reduce(self, x: torch.Tensor, axes: Sequence[str], op: str) -> torch.Tensor:
@@ -231,7 +231,7 @@ class DistComm:
         over the devices of ``axes``."""
         with self._uncounted():
             out = self._all_reduce(x, axes, op)
-        work.collective("all-reduce", _nbytes(out))
+        work.collective("all-reduce", _nbytes(out), out)
         return out
 
     def gather_to(self, x: torch.Tensor, shape, axes: Mapping[int, tuple[str, ...]] | None = None) -> torch.Tensor:
@@ -247,7 +247,7 @@ class DistComm:
                     out = self._all_gather(out, dim, a)
         if tuple(out.shape) != tuple(shape):
             raise ValueError(f"gathering {tuple(x.shape)} over {dict(axes)} gives {tuple(out.shape)}, not {tuple(shape)}")
-        work.collective("all-gather", _nbytes(out))
+        work.collective("all-gather", _nbytes(out), out)
         return out
 
     # -- beyond the plan -------------------------------------------------------------

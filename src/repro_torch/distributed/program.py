@@ -142,7 +142,7 @@ class CountingComm:
 
     def _out(self, kind: str, x: torch.Tensor, shape) -> torch.Tensor:
         out = x.new_empty(shape)
-        work.collective(kind, out.numel() * out.element_size())
+        work.collective(kind, out.numel() * out.element_size(), out)
         return out
 
     def all_gather(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:

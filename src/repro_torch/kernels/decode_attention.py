@@ -17,7 +17,8 @@ softcapped where asked, and the softmax state is f32:
   ``decode_attention_cuda.launches`` counts its calls that launch: one per
   call, though each launches two device kernels (the split-KV pass and its
   combine).  On meta tensors it is a shape function (the checks, the
-  card's shape limits, the output; no launch).  Every call is one
+  card's shape limits, the output and the f32 scratch of an H100's split
+  plan, which the dry-run's peak holds; no launch).  Every call is one
   :func:`~repro_torch.kernels.work.kernel_call` of
   :func:`~repro_torch.kernels.work.decode_attention_work`.
 
@@ -56,18 +57,22 @@ from repro_torch.kernels.flash_attention import (
 _MAX_GRID_YZ = 65535
 SPLIT_RANGE = 64  # keys per split are a multiple of this
 BLOCKS_PER_SM = 2  # the split pass aims at this many blocks per SM
+PLANNED_SM_COUNT = 132  # an H100 SXM's SMs: the card whose scratch a call on meta plans
 
 
-def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple[int, int]:
+def decode_split_plan(Hkv: int, S: int, sm_count: int) -> tuple[int, int]:
     """``(splits, chunk)``: the split-KV kernel's grid is ``(splits, Hkv,
     B)``, and split ``i`` of a sequence walks keys ``[i * chunk, (i + 1) *
     chunk)`` cut at its length.  ``chunk`` is a multiple of
-    :data:`SPLIT_RANGE`, there are about ``BLOCKS_PER_SM * sm_count`` blocks
-    where ``S`` allows, and the ranges cover ``[0, S)`` exactly once (one
-    empty range when ``S == 0``).  Depends on shapes only: the lengths stay
-    on the device."""
+    :data:`SPLIT_RANGE`, one sequence has about ``BLOCKS_PER_SM *
+    sm_count`` blocks where ``S`` allows, and the ranges cover ``[0, S)``
+    exactly once (one empty range when ``S == 0``).  Depends on shapes
+    only: the lengths stay on the device.  The plan does not read the batch:
+    a row's splits, and so the order of its sums, are the same in a batch of
+    any size, so a sequence decodes to the same bits alone and beside
+    others."""
     ranges = max(1, -(-S // SPLIT_RANGE))
-    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, B * Hkv)))
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, Hkv)))
     chunk = -(-ranges // min(ranges, want)) * SPLIT_RANGE
     return max(1, -(-S // chunk)), chunk
 
@@ -98,7 +103,7 @@ def _launch_plan(B: int, H: int, Hkv: int, S: int, D: int, bf16: bool, device: i
         raise ValueError(f"group {H // Hkv} x head width {D} needs {smem} B of shared memory "
                          f"per block (> {max_smem})")
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    return decode_split_plan(B, Hkv, S, sm_count)
+    return decode_split_plan(Hkv, S, sm_count)
 
 
 def _decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
@@ -206,8 +211,7 @@ def decode_attention_cuda(
         if q.device.type == "cpu":
             return decode_attention_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
         if q.device.type == "meta":
-            check_decode_launch(q.shape[0], k_cache.shape[1], q.shape[2])
-            return torch.empty_like(q)
+            return _on_meta(q, k_cache, state=False)[0]
         return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale, state=False)[0]
 
 
@@ -231,9 +235,29 @@ def decode_attention_state_cuda(
         if q.device.type == "cpu":
             return decode_attention_state_ref(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale)
         if q.device.type == "meta":
-            check_decode_launch(q.shape[0], k_cache.shape[1], q.shape[2])
-            return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+            return _on_meta(q, k_cache, state=True)
         return _on_card(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale, state=True)
+
+
+def _scratch(q: torch.Tensor, splits: int) -> torch.Tensor:
+    """The splits' partial outputs and softmax states, f32 ``[B, H, splits,
+    D + 2]`` flat: allocated by each call and freed when it returns."""
+    B, H, D = q.shape
+    return torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+
+
+def _on_meta(q: torch.Tensor, k_cache: torch.Tensor, *, state: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A call on meta tensors: the card's checks that need no library, the
+    outputs and, live while the call runs as on the card, the scratch of
+    the plan on :data:`PLANNED_SM_COUNT` SMs."""
+    B, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    check_decode_launch(B, Hkv, D)
+    o = torch.empty_like(q)
+    lse = q.new_empty((B, H), dtype=torch.float32) if state else None
+    if o.numel():
+        _scratch(q, decode_split_plan(Hkv, S, PLANNED_SM_COUNT)[0])
+    return o, lse
 
 
 def _on_card(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor, *,
@@ -249,7 +273,7 @@ def _on_card(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, leng
     lse = torch.empty(B, H, dtype=torch.float32, device=q.device) if state else None
     if o.numel() == 0:
         return o, lse
-    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    scratch = _scratch(q, splits)
     lib = _library()
     args = (B, H, Hkv, S, D, splits, chunk, int(q.dtype == torch.bfloat16), 0.0 if softcap is None else softcap,
             softmax_scale(D, scale), torch.cuda.current_stream(q.device).cuda_stream)

@@ -65,13 +65,14 @@ def kernel_call(work: Callable[[], Work]) -> Iterator[None]:
             c.exit_kernel()
 
 
-def collective(kind: str, nbytes: int) -> None:
+def collective(kind: str, nbytes: int, out=None) -> None:
     """Tell every listening counter of one exchange between devices: its
     kind (``all-gather``, ``all-reduce``, ``reduce-scatter``,
-    ``collective-permute``, ``gather``) and the bytes of its result on this
-    device."""
+    ``collective-permute``, ``gather``), the bytes of its result on this
+    device and, where given, the result itself, whose storage is live until
+    it is freed."""
     for c in LISTENERS:
-        c.collective(kind, nbytes)
+        c.collective(kind, nbytes, out)
 
 
 def attention_visible(Sq: int, Skv: int, *, causal: bool, window: int | None) -> tuple[int, int]:

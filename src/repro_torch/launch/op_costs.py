@@ -34,10 +34,16 @@ the reference's: ``matmul_flops`` (the products' share of ``flops``) and
 ``kernels`` ({name: calls, flops, bytes}).
 
 Memory: the counter follows the life of every storage an op makes (a weak
-reference to the storage; a view or an in-place op shares it), and gives
+reference to the storage; a view or an in-place op shares it) and of every
+exchange's result (made by an allocation, which is not an op it counts:
+a gathered weight is live until it is freed), and gives
 :meth:`OpCounter.memory`: the bytes of the step's arguments, the peak of
 the other live bytes (``temp``), the peak of both, the arguments written in
-place (``alias``) and the step's outputs.  A storage held by a reference
+place (``alias``) and the step's outputs.  ``temp`` holds the card's
+library workspace too (:data:`LIBRARY_WORKSPACE_BYTES`) from the first
+product on: cuBLAS allocates it at a process's first product and keeps it,
+so it is live at every later peak, as XLA's temporaries hold its GEMMs'
+workspaces.  A storage held by a reference
 cycle is freed when Python's collector runs, whose timing depends on the
 process's history, so the counter collects once on entry and holds the
 collector off while it counts: such a storage counts as live until the
@@ -83,6 +89,10 @@ _FREE = {  # metadata, views and allocations: no data moves
     "is_same_size", "sym_size", "sym_stride", "sym_numel", "resize_", "set_", "_has_compatible_shallow_copy_type",
     "result_type", "lift_fresh_copy",
 }
+#: cuBLAS's workspace on an H100 (compute capability 9.0), which PyTorch
+#: sizes at 8 chunks of 4 MiB (``CUBLAS_WORKSPACE_CONFIG`` ``:4096:8``) and
+#: allocates through its caching allocator: the dry-run plans for that card
+LIBRARY_WORKSPACE_BYTES = 8 * 4 * 2**20
 _MATMUL = {"mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot", "vdot"}
 _TRANSCENDENTAL = {
     "exp", "exp2", "expm1", "tanh", "log", "log1p", "log2", "rsqrt", "sqrt", "pow", "sigmoid",
@@ -187,6 +197,7 @@ class OpCounter(TorchDispatchMode):
         self._written: set[int] = set()
         self._live: dict[int, int] = {}
         self.live = 0
+        self.workspace = 0  # the library's, held from the first product on
         self.peak = 0
         self.scopes = scopes
         self.scope_costs: dict[str, list[float]] = defaultdict(lambda: [0.0, 0.0])
@@ -225,9 +236,11 @@ class OpCounter(TorchDispatchMode):
     def exit_kernel(self) -> None:
         self._kernel_depth -= 1
 
-    def collective(self, kind: str, nbytes: int) -> None:
+    def collective(self, kind: str, nbytes: int, out=None) -> None:
         self.costs.collective_bytes[kind] += nbytes
         self.costs.collective_counts[kind] += 1
+        if out is not None:
+            self._track(out)
 
     # -- memory -----------------------------------------------------------------
     def add_arguments(self, tree) -> None:
@@ -249,11 +262,12 @@ class OpCounter(TorchDispatchMode):
             self._live[key] = n
             self.live += n
             weakref.finalize(s, self._release, key)
-        self.peak = max(self.peak, self.live)
+        self.peak = max(self.peak, self.live + self.workspace)
 
     def memory(self, outputs=()) -> dict:
         """The reference's ``memory`` keys: argument, output (new storages
-        among ``outputs``), temp (the peak of non-argument bytes), alias
+        among ``outputs``), temp (the peak of non-argument bytes, the
+        library's workspace included once a product ran), alias
         (arguments written in place) and peak (arguments + temp)."""
         out_keys = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                     for t in _tensors(outputs)}
@@ -292,6 +306,7 @@ class OpCounter(TorchDispatchMode):
         nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         flops = 0
         if name in _MATMUL:
+            self.workspace = LIBRARY_WORKSPACE_BYTES
             flops = _matmul_flops(name, args, result)
             c.matmul_flops += flops
             if name in ("addmm", "baddbmm", "addmv"):

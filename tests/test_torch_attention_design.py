@@ -172,25 +172,24 @@ def test_tensor_core_numerics_match_the_pallas_kernel(case):
 @pytest.mark.parametrize("S", [0, 1, 63, 64, 65, 2048, 4096])
 @pytest.mark.parametrize("sm_count", [1, 8, 132])
 def test_split_plan_covers_every_key_once(S, sm_count):
-    for B in (1, 4, 7, 64):
-        for Hkv in (1, 2, 8):
-            splits, chunk = decode_split_plan(B, Hkv, S, sm_count)
-            assert splits >= 1 and chunk >= SPLIT_RANGE and chunk % SPLIT_RANGE == 0
-            seen = torch.zeros(S, dtype=torch.int32)
-            for i in range(splits):
-                seen[i * chunk: (i + 1) * chunk] += 1
-            assert bool((seen == 1).all()), (B, Hkv, S, splits, chunk)
-            assert (splits - 1) * chunk < max(S, 1)  # no split lies wholly past the cache
+    for Hkv in (1, 2, 8, 32):
+        splits, chunk = decode_split_plan(Hkv, S, sm_count)
+        assert splits >= 1 and chunk >= SPLIT_RANGE and chunk % SPLIT_RANGE == 0
+        seen = torch.zeros(S, dtype=torch.int32)
+        for i in range(splits):
+            seen[i * chunk: (i + 1) * chunk] += 1
+        assert bool((seen == 1).all()), (Hkv, S, splits, chunk)
+        assert (splits - 1) * chunk < max(S, 1)  # no split lies wholly past the cache
 
 
 def test_split_plan_fills_the_card_at_the_serving_shape():
-    """qwen2.5-3b's 4 slots of a 2048-key cache on 132 SMs: 32 splits of 64
-    keys, 256 blocks; at the lockstep length 892, 14 live ranges per (kv
-    head, sequence), 112 blocks doing work (the old kernel ran 8)."""
-    splits, chunk = decode_split_plan(4, 2, 2048, 132)
+    """qwen2.5-3b's 2048-key cache on 132 SMs: 32 splits of 64 keys, 64
+    blocks a slot (256 at 4 slots); at the lockstep length 892, 14 live
+    ranges per (kv head, sequence), 112 blocks doing work at 4 slots (the
+    old kernel ran 8)."""
+    splits, chunk = decode_split_plan(2, 2048, 132)
     assert (splits, chunk) == (32, 64)
     assert -(-892 // chunk) * 2 * 4 == 112
-    assert decode_split_plan(1, 2, 2048, 132) == (32, 64)  # one slot: 64 blocks, not 2
 
 
 def split_then_combine(q, k, v, lengths, *, softcap=None, sm_count=132, pad=False):
@@ -201,7 +200,7 @@ def split_then_combine(q, k, v, lengths, *, softcap=None, sm_count=132, pad=Fals
     B, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
-    splits, chunk = decode_split_plan(B, Hkv, S, sm_count)
+    splits, chunk = decode_split_plan(Hkv, S, sm_count)
     qs = (q.float() * D**-0.5).reshape(B, Hkv, G, D)
     if pad:
         qs, k = zero_pad(qs), zero_pad(k)
@@ -230,7 +229,7 @@ def split_then_combine(q, k, v, lengths, *, softcap=None, sm_count=132, pad=Fals
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("softcap", [None, 50.0], ids=["plain", "softcap"])
-@pytest.mark.parametrize("sm_count", [132, 8], ids=["chunk64", "chunk1024"])
+@pytest.mark.parametrize("sm_count", [132, 2], ids=["chunk64", "chunk1024"])
 def test_split_then_combine_equals_the_plain_version(dtype, softcap, sm_count):
     S = 2048
     rng = np.random.default_rng(int(sm_count + (softcap or 0)))
@@ -241,6 +240,28 @@ def test_split_then_combine_equals_the_plain_version(dtype, softcap, sm_count):
     ref = decode_attention_ref(q.float(), k.float(), v.float(), lengths, softcap=softcap)
     torch.testing.assert_close(out, ref, atol=2e-6, rtol=2e-6)
     assert torch.equal(out[0], torch.zeros_like(out[0]))  # no visible key gives zeros
+
+
+@pytest.mark.parametrize("H,Hkv,S,D,softcap", [
+    (8, 8, 892, 112, None), (2, 1, 4096, 256, 50.0), (16, 2, 892, 128, None), (8, 2, 2048, 128, None),
+    (2, 2, 1500, 64, None)], ids=["zamba2-share-892", "gemma2-share-4096", "qwen2.5-3b-892", "mixtral-share-2048",
+                                  "whisper-cross-share-1500"])
+def test_a_row_decodes_to_the_same_bits_alone_and_in_a_batch(H, Hkv, S, D, softcap):
+    """Row 0 of a batch of 4 and of 13 is, bit for bit, the same sequence
+    decoded alone: the split kernel sums a row's keys over ranges that the
+    batch does not choose.  zamba2-7b's card share (8 kv heads of one query
+    each) at the serving run's 892 keys, gemma2-2b's (a group of 2 over one
+    kv head, softcapped) at 4,096, qwen2.5-3b whole at 892, mixtral-8x7b's
+    card share at 2,048 and whisper-base's cross-attention share over 1,500
+    frames."""
+    rng = np.random.default_rng(S + D)
+    B = 13
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in [(B, H, D), (B, Hkv, S, D), (B, Hkv, S, D)])
+    lengths = torch.full((B,), S, dtype=torch.int32)
+    alone = split_then_combine(q[:1], k[:1], v[:1], lengths[:1], softcap=softcap)
+    for n in (4, B):
+        assert torch.equal(split_then_combine(q[:n], k[:n], v[:n], lengths[:n], softcap=softcap)[0], alone[0]), n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])

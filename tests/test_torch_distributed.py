@@ -22,16 +22,20 @@ each test reads its part:
   qwen2.5-3b and qwen3-moe-30b-a3b (experts over model); every reduced
   architecture served on (1, 4) (the caches' sequence split where the kv
   heads do not divide, mixtral's and gemma2's ring-buffered windows too,
-  mamba2-780m's states stored split over their heads); the
-  decode combine with empty shares; and the pipeline on four stages.
+  mamba2-780m's states stored split over their heads); the ``long_500k``
+  tick of mamba2-780m, zamba2-7b, gemma2-2b and mixtral-8x7b (batch 1, a
+  whole cache at its last position, every cache split by heads, the
+  windows wrapping); the decode combine with empty shares; and the
+  pipeline on four stages.
 
 The reference's side (``devices_indices_map``, ``compressed_psum_pod`` and
 ``pipeline_forward`` on 8 forced devices; its sharded train step,
 ``tests/test_distributed.py:142``, and its dry-run's jitted ``prefill_fn``
-and ``decode_fn``, on the port's weights and tokens for each case, beside
-the groups) runs in children of ``tests/torch_reference.py``.  The
-dry-run's pinned cells must not move but where a repair moved them; and a
-step with no program gives the bits it gave then.
+and ``decode_fn``, on the port's weights, tokens and ``long_500k`` caches
+for each case, beside the groups) runs in children of
+``tests/torch_reference.py``.  The dry-run's pinned cells must not move but
+where a repair moved them; and a step with no program gives the bits it
+gave then.
 """
 
 import concurrent.futures
@@ -49,6 +53,7 @@ from repro_torch.configs.shapes import ShapeSuite
 from repro_torch.distributed import hints
 from repro_torch.distributed import program as D
 from repro_torch.distributed.comm import local_slices
+from repro_torch.distributed.sharding import cache_leaves
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import coords, make_mesh, rank_of
 
@@ -90,6 +95,11 @@ SERVE_FOUR = [("serve-qwen-1x4", "qwen2.5-3b", (1, 4), "serve-tp"),
               ("serve-stablelm-1x4", "stablelm-1.6b", (1, 4), "serve-tp"),
               ("serve-qwen3-moe-1x4", "qwen3-moe-30b-a3b", (1, 4), "serve-tp")]
 VLM_SERVE = [c[0] for c in SERVE_EIGHT + SERVE_FOUR if c[1] == "internvl2-76b"]
+#: the ``long_500k`` tick of the four archs that have it, reduced, on (1, 4)
+#: under ``serve-tp`` (``torch_dist_common.LONG``): every cache split by
+#: heads, as at full width, so gemma2-2b and mixtral-8x7b take 4 kv heads
+LONG_FOUR = [("long-mamba2", "mamba2-780m", None), ("long-zamba2", "zamba2-7b", None),
+             ("long-gemma2", "gemma2-2b", G.LONG_HEADS), ("long-mixtral", "mixtral-8x7b", G.LONG_HEADS)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,9 +118,9 @@ def reference():
 @pytest.fixture(scope="module")
 def groups(reference, tmp_path_factory):
     """Each rank's outputs of the eight- and the four-rank group, and the
-    reference's sharded steps (``steps``) and jitted serving steps
-    (``serve``) of the same cases on the same weights and tokens, run
-    beside them."""
+    reference's sharded steps (``steps``), jitted serving steps (``serve``)
+    and ``long_500k`` ticks (``long``) of the same cases on the same
+    weights, tokens and caches, run beside them."""
     inputs = {"slice_cases": np.array(json.dumps(SLICE_CASES)), **{k: reference[k] for k in
               ("psum_x", "pipe_w", "pipe_x")}}
     _, _, params, tokens = G.reduced()
@@ -124,18 +134,25 @@ def groups(reference, tmp_path_factory):
         served.update({f"{name}/w/{k}": p.detach().numpy() for k, p in model.named_parameters()})
         served.update({f"{name}/{k}": x.numpy() for k, x in G.extras(cfg, G.SERVE["batch"]).items()})
         served[f"{name}/prompt"], served[f"{name}/tokens"] = prompt.numpy(), ticks.numpy()
+    long = {}
+    for name, arch, overrides in LONG_FOUR:
+        long.update({f"{name}/w/{k}": p.detach().numpy() for k, p in G.reduced(arch, overrides)[2].named_parameters()})
+        long.update({f"{name}/cache/{k}": np.asarray(x) for k, x in cache_leaves(G.long_cache(arch, overrides))})
+        long[f"{name}/tokens"] = G.long_single(arch, overrides)[0].numpy()
     out = {}
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
         steps = ex.submit(R.run, "sharded_steps", {"train_cases": EIGHT + FOUR + MOE_EIGHT + MOE_FOUR},
                           {**weights, "qwen_tokens": tokens.numpy()}, timeout=300, devices=8)
         serve = ex.submit(R.run, "sharded_serve", {"serve_cases": SERVE_EIGHT + SERVE_FOUR,
                                                    "max_len": G.SERVE["max_len"]}, served, timeout=300, devices=8)
-        for name, world, cases, serving in (("eight", 8, EIGHT + MOE_EIGHT, SERVE_EIGHT),
-                                            ("four", 4, FOUR + MOE_FOUR, SERVE_FOUR)):
+        ticks = ex.submit(R.run, "long_decode", {"long_cases": LONG_FOUR, "seq_len": G.LONG["seq_len"]}, long,
+                          timeout=300, devices=8)
+        for name, world, cases, serving, longs in (("eight", 8, EIGHT + MOE_EIGHT, SERVE_EIGHT, []),
+                                                   ("four", 4, FOUR + MOE_FOUR, SERVE_FOUR, LONG_FOUR)):
             tmp = tmp_path_factory.mktemp(name)
             np.savez(tmp / "inputs.npz", **inputs)
-            out[name] = G.run_group(name, world, {"cases": cases, "serve": serving}, tmp)
-        out["steps"], out["serve"] = steps.result(), serve.result()
+            out[name] = G.run_group(name, world, {"cases": cases, "serve": serving, "long": longs}, tmp)
+        out["steps"], out["serve"], out["long"] = steps.result(), serve.result(), ticks.result()
     return out
 
 
@@ -173,7 +190,7 @@ def test_every_slice_is_the_references(case, reference, groups):
 
 
 def _case(groups, name):
-    group = "four" if name in [c[0] for c in FOUR + MOE_FOUR + SERVE_FOUR] else "eight"
+    group = "four" if name in [c[0] for c in FOUR + MOE_FOUR + SERVE_FOUR + LONG_FOUR] else "eight"
     return [{k.split("/", 1)[1]: v for k, v in r.items() if k.startswith(name + "/")} for r in groups[group]]
 
 
@@ -446,6 +463,112 @@ def test_the_ring_buffered_window_split_over_devices_serves_past_its_window(grou
 
 
 # -----------------------------------------------------------------------------
+# the long_500k tick: batch 1 against a whole cache at its last position
+# -----------------------------------------------------------------------------
+
+LONG_OVERRIDES = {name: overrides for name, _, overrides in LONG_FOUR}
+
+
+@pytest.mark.parametrize("name,arch", [c[:2] for c in LONG_FOUR])
+def test_the_long_tick_equals_one_device_and_the_references_jitted_decode(name, arch, groups):
+    """The reduced ``long_500k`` cell on (1, 4): a whole cache of 40
+    positions at position 39 cut to each rank's share, then 4 greedy ticks
+    (the windows of 8 wrap: slots 7, 0, 1, 2); every rank's logits,
+    gathered whole, within 1e-4 of one device's ticks on the same weights
+    and cache and of the reference's ``jax.jit(decode_fn, in_shardings=...)``
+    on (1, 4), teacher-forced on one device's tokens; the group's greedy
+    tokens equal one device's and the reference's."""
+    from repro_torch.models.registry import get_model
+
+    window = get_model(arch).reduced.window
+    if window:
+        assert [(G.LONG["seq_len"] - 1 + t) % window for t in range(G.LONG["ticks"])] == [7, 0, 1, 2]
+    tokens, _ = G.long_single(arch, LONG_OVERRIDES[name])
+    ref = groups["long"][f"long/{name}/logits"]
+    assert ref.shape[0] == G.LONG["ticks"]
+    assert np.array_equal(ref[:-1].argmax(-1), tokens.numpy()[1:])
+    for rank, r in enumerate(_case(groups, name)):
+        assert np.array_equal(r["tokens"], tokens.numpy()), rank
+        for t in range(G.LONG["ticks"]):
+            assert float(r[f"err_{t}"]) <= G.TOL["loss"], (rank, t, float(r[f"err_{t}"]))
+            np.testing.assert_allclose(r[f"logits_{t}"], ref[t], atol=G.TOL["loss"], rtol=0, err_msg=f"{rank} {t}")
+
+
+@pytest.mark.parametrize("name", [c[0] for c in LONG_FOUR])
+def test_every_rank_counts_the_long_plan(name, groups):
+    """The first tick from the whole cache and a tick of a cache drawn from
+    a seed, counted on each rank: argument bytes, FLOPs, kernel calls and
+    exchanges by kind equal the dry-run's ``long_500k`` cell on meta."""
+    for rank, r in enumerate(_case(groups, name)):
+        plan = json.loads(str(r["plan"]))
+        assert json.loads(str(r["counted"])) == plan, rank
+        assert json.loads(str(r["seed_counted"])) == plan, rank
+        assert plan["collective_counts"]["all-reduce"] > 0, rank
+
+
+@pytest.mark.parametrize("name", [c[0] for c in LONG_FOUR])
+def test_a_seeded_long_cache_is_each_ranks_cut_of_one_whole_draw(name, groups):
+    """``cache=<seed>`` at batch 1: every rank's leaves are its cut of the
+    cache drawn whole from the same seed on a mesh of one, at the suite's
+    last position."""
+    for rank, r in enumerate(_case(groups, name)):
+        assert bool(r["seed_cut_equal"]), rank
+        assert int(r["seed_pos"]) == G.LONG["seq_len"] - 1, rank
+
+
+@pytest.mark.parametrize("name,arch", [c[:2] for c in LONG_FOUR])
+def test_every_long_cache_splits_by_heads(name, arch, groups):
+    """Under serve-tp on (1, 4) every KV cache of ``long_500k`` splits by
+    its kv heads, ``(None, 'data', 'model', None, None)``, at full width
+    and in the reduced cell (gemma2-2b and mixtral-8x7b with 4 kv heads):
+    each rank attends to whole sequences, and the ranks' caches hold no
+    split sequence."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.distributed.sharding import make_cache_shardings
+    from repro_torch.models.registry import get_model
+
+    api = get_model(arch)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    cfg = dataclasses.replace(api.reduced, **(LONG_OVERRIDES[name] or {}))
+    for c, suite in ((api.config, SHAPES["long_500k"]), (cfg, G.long_suite())):
+        specs = make_cache_shardings(mesh, c, api.cache_specs(c, suite), dryrun.POLICIES["serve-tp"])
+        kv = {p: s for p, s in specs.items() if p.rsplit("/", 1)[-1] in ("k", "v")}
+        assert all(s == (None, "data", "model", None, None) for s in kv.values()), specs
+        assert bool(kv) == (arch != "mamba2-780m")
+    for r in _case(groups, name):
+        assert json.loads(str(r["seq_axes"])) == []
+
+
+#: the four full-width ``long_500k`` cells' plans on (1, 4) under serve-tp,
+#: on meta: the peak and argument bytes a card, the bytes a tick reads and
+#: writes (the bound of ``chip_smoke.py``'s phase 26), the exchanges by kind
+#: and the decode kernel's calls
+PINNED_LONG = {
+    "mamba2-780m": {"peak_bytes": 466342756, "argument_bytes": 409765636, "bytes": 2066342438.0,
+                    "collective_counts": {"all-reduce": 1.0, "all-gather": 384.0}, "decode_calls": 0},
+    "zamba2-7b": {"peak_bytes": 27985325044, "argument_bytes": 27843459860, "bytes": 39740921786.0,
+                  "collective_counts": {"all-reduce": 27.0, "all-gather": 648.0}, "decode_calls": 13},
+    "gemma2-2b": {"peak_bytes": 8375713284, "argument_bytes": 8341381636, "bytes": 8361949662.0,
+                  "collective_counts": {"all-reduce": 53.0}, "decode_calls": 26},
+    "mixtral-8x7b": {"peak_bytes": 23525171426, "argument_bytes": 23489683460, "bytes": 23621054678.0,
+                     "collective_counts": {"all-reduce": 33.0, "all-gather": 32.0}, "decode_calls": 32},
+}
+
+
+@pytest.mark.parametrize("arch", list(PINNED_LONG))
+def test_the_long_plans_are_pinned(arch):
+    """Each full-width ``long_500k`` cell on (1, 4) under serve-tp, planned
+    on meta: every count equal, exactly."""
+    cell = dryrun.build_cell(arch, "long_500k", make_mesh((1, 4), ("data", "model")), dryrun.POLICIES["serve-tp"])
+    _, c = dryrun.count_cell(cell, scopes=False)
+    j, m = c.costs.to_json(), c.memory()
+    got = {"peak_bytes": m["peak_bytes"], "argument_bytes": m["argument_bytes"], "bytes": j["bytes"],
+           "collective_counts": j["collective_counts"],
+           "decode_calls": j["kernels"].get("decode_attention", {}).get("calls", 0)}
+    assert got == PINNED_LONG[arch]
+
+
+# -----------------------------------------------------------------------------
 # compression, the pipeline, the checkpoint
 # -----------------------------------------------------------------------------
 
@@ -505,38 +628,42 @@ def test_a_save_under_one_mesh_restores_under_another_bit_for_bit(reference, gro
 
 #: the dry-run's counts of these cells, recorded before the sharded step
 #: (argument bytes, FLOPs, bytes, peak and exchanges by kind); the dense
-#: cells must not move
+#: cells must not move.  Every peak of a cell that gathers was re-pinned
+#: when the counter came to hold an exchange's result live until it is
+#: freed (an allocation, which it had not counted), and every peak again
+#: when it came to hold cuBLAS's workspace from the first product on
+#: (``op_costs.LIBRARY_WORKSPACE_BYTES``): see CHANGES.md
 PINNED = {
     ("qwen2.5-3b", (2, 2)): {
         "flops": 24258479774915.0, "bytes": 417313976078.0, "argument_bytes": 8494118916,
-        "peak_bytes": 11317227004,
+        "peak_bytes": 11782320180,
         "collective_bytes": {"all-gather": 6171394048.0, "all-reduce": 1527142376.0,
                              "reduce-scatter": 1698430976.0},
         "collective_counts": {"all-gather": 506.0, "all-reduce": 366.0, "reduce-scatter": 254.0}},
     ("qwen2.5-3b", (1, 4)): {
         "flops": 24267830616729.0, "bytes": 495451098328.0, "argument_bytes": 8493896708,
-        "peak_bytes": 11748497460,
+        "peak_bytes": 11782051892,
         "collective_bytes": {"all-reduce": 3053502416.0, "all-gather": 301989888.0, "reduce-scatter": 37748736.0},
         "collective_counts": {"all-reduce": 185.0, "all-gather": 144.0, "reduce-scatter": 72.0}},
     # re-pinned when its MoE layers came to route the whole batch's tokens
     # (the global capacity, positions and aux loss; the buffer summed over
     # the token axes in place of the all-to-all): see CHANGES.md
     ("qwen3-moe-30b-a3b", (2, 2, 4)): {
-        "flops": 62760879.0, "bytes": 32367968.0, "argument_bytes": 204932, "peak_bytes": 1134940,
+        "flops": 62760879.0, "bytes": 32367968.0, "argument_bytes": 204932, "peak_bytes": 34817628,
         "collective_bytes": {"all-gather": 3067904.0, "all-reduce": 212816.0, "reduce-scatter": 878592.0},
         "collective_counts": {"all-gather": 66.0, "all-reduce": 34.0, "reduce-scatter": 42.0}},
     # dense and SSM cells, recorded on the commit before the MoE repairs: the
     # reduced configs' training step at 16 x 64 under ``baseline``
     ("mamba2-780m", (2, 4)): {
-        "flops": 305831963.0, "bytes": 200700604.0, "argument_bytes": 101396, "peak_bytes": 7212044,
+        "flops": 305831963.0, "bytes": 200700604.0, "argument_bytes": 101396, "peak_bytes": 40883468,
         "collective_bytes": {"all-gather": 309632.0, "all-reduce": 139344.0, "reduce-scatter": 34048.0},
         "collective_counts": {"all-gather": 34.0, "all-reduce": 20.0, "reduce-scatter": 6.0}},
     ("zamba2-7b", (2, 4)): {
-        "flops": 717471397.0, "bytes": 447937756.0, "argument_bytes": 252580, "peak_bytes": 7494556,
+        "flops": 717471397.0, "bytes": 447937756.0, "argument_bytes": 252580, "peak_bytes": 41176220,
         "collective_bytes": {"all-gather": 684800.0, "all-reduce": 797056.0, "reduce-scatter": 80384.0},
         "collective_counts": {"all-gather": 94.0, "all-reduce": 46.0, "reduce-scatter": 24.0}},
     ("gemma2-2b", (2, 4)): {
-        "flops": 215091245.0, "bytes": 190422948.0, "argument_bytes": 217732, "peak_bytes": 3560992,
+        "flops": 215091245.0, "bytes": 190422948.0, "argument_bytes": 217732, "peak_bytes": 37287456,
         "collective_bytes": {"all-gather": 688128.0, "all-reduce": 1712160.0, "reduce-scatter": 110592.0},
         "collective_counts": {"all-gather": 74.0, "all-reduce": 46.0, "reduce-scatter": 38.0}},
 }

@@ -342,3 +342,29 @@ def test_a_drawn_cache_is_every_devices_share_of_one_whole_cache(whole_bytes, mo
         assert out["pos"] == 0
         for name, t in whole.items():
             assert torch.equal(out["layers"][name], t[local_slices(shape, specs[f"layers/{name}"], mesh, rank)])
+
+
+@pytest.mark.parametrize("whole_bytes", [dryrun.DRAW_WHOLE_BYTES, 0], ids=["layers-whole", "batch-rows"])
+def test_a_drawn_cache_of_one_sequence_is_every_devices_cut_of_one_whole_draw(whole_bytes, monkeypatch):
+    """A ``long_500k``-like cache on (1, 4): a batch of one, its kv heads
+    over model (the row not split).  Every device's leaves are its cut of
+    the cache drawn whole from the same seed on a mesh of one, a layer at a
+    time or, past ``DRAW_WHOLE_BYTES``, the one row at a time; the position
+    is kept."""
+    from repro_torch.distributed.comm import local_slices
+
+    monkeypatch.setattr(dryrun, "DRAW_WHOLE_BYTES", whole_bytes)
+    mesh, one = make_mesh((1, 4), ("data", "model")), make_mesh((1, 1), ("data", "model"))
+    shape = (3, 1, 4, 6, 5)
+    cache = {"kv": ({"k": torch.zeros(shape), "v": torch.zeros(shape)},), "pos": 41}
+    specs = {"kv/0/k": (None, "data", "model", None, None), "kv/0/v": (None, "data", "model", None, None),
+             "pos": ()}
+    whole = dryrun._draw_cache(cache, specs, one, 0, 7, torch.device("cpu"))
+    assert whole["pos"] == 41
+    for rank in range(4):
+        out = dryrun._draw_cache(cache, specs, mesh, rank, 7, torch.device("cpu"))
+        assert out["pos"] == 41
+        for name in ("k", "v"):
+            got, want = out["kv"][0][name], whole["kv"][0][name]
+            assert got.shape == (3, 1, 1, 6, 5)
+            assert torch.equal(got, want[local_slices(shape, specs[f"kv/0/{name}"], mesh, rank)])

@@ -342,3 +342,50 @@ def test_bytes_are_each_eager_ops_operands_and_results():
     a = torch.empty(1000, device="meta")
     _, c = count(lambda a: a * 2 + 1, a)
     assert c.costs.bytes == 4 * 4000 and c.costs.flops == 2000
+
+
+def test_an_exchanges_result_is_live_until_it_is_freed():
+    """A weight gathered over model on (1, 4) is live from its exchange
+    until it is freed: the plan's peak holds it beside the product that
+    reads it, as a card's memory does (an exchange's result is made by an
+    allocation, which no op counts), with the library's workspace that the
+    product allocates."""
+    from repro_torch.distributed.program import CountingComm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_costs import LIBRARY_WORKSPACE_BYTES, OpCounter
+
+    comm = CountingComm(make_mesh((1, 4), ("data", "model")))
+    w = torch.empty(8, 16, device="meta")
+    x = torch.empty(2, 32, device="meta")
+    with OpCounter(arguments=(w, x)) as counter:
+        whole = comm.all_gather(w, 0, ("model",))  # [32, 16] f32: 2,048 B
+        y = x @ whole  # [2, 16] f32: 128 B
+        del whole
+        z = y * 2  # the gathered weight freed: 128 + 128 B
+    assert counter.memory()["temp_bytes"] == LIBRARY_WORKSPACE_BYTES + 32 * 16 * 4 + 2 * 16 * 4
+    assert counter.live == 2 * (2 * 16 * 4)
+    del z
+
+
+def test_the_librarys_workspace_is_live_from_the_first_product_on():
+    """cuBLAS allocates its workspace at a process's first product and
+    keeps it: a step with no product holds none of it, and in a step with
+    one every peak after the product holds it beside the step's tensors,
+    but no peak before it."""
+    from repro_torch.launch.op_costs import LIBRARY_WORKSPACE_BYTES, OpCounter
+
+    a = torch.empty(1000, device="meta")
+    m = torch.empty(4, 4, device="meta")
+    with OpCounter(arguments=(a, m)) as none:
+        b = a * 2
+        c = b + 1  # 8,000 B live
+    assert none.memory()["temp_bytes"] == 8000
+    with OpCounter(arguments=(a, m)) as one:
+        b = a * 2
+        c = b + 1
+        del b, c
+        d = m @ m  # 64 B beside the workspace
+        e = d.exp()  # 128 B
+    assert one.memory()["temp_bytes"] == LIBRARY_WORKSPACE_BYTES + 128
+    assert one.memory()["peak_bytes"] == 4000 + 64 + LIBRARY_WORKSPACE_BYTES + 128
+    assert LIBRARY_WORKSPACE_BYTES == 33_554_432 and e.shape == (4, 4)

@@ -317,6 +317,122 @@ def serve_case(rank: int, arch: str, shape: tuple[int, int], policy: str) -> dic
     return out
 
 
+#: the ``long_500k`` cell cut to size: batch 1 against a cache of 40
+#: positions drawn from numpy's seed 4 at its last position, 39, then 4
+#: greedy ticks (positions 39-42), so the reduced windows of 8 wrap during
+#: them (slots 7, 0, 1, 2) and so does every cache of 40 (slot 0 at 40);
+#: ``seed`` draws the cache of the seeded cell (``cache=<seed>``)
+LONG = {"seq_len": 40, "ticks": 4, "cache_seed": 4, "token_seed": 5, "seed": 9}
+#: the reduced gemma2-2b's and mixtral-8x7b's 2 kv heads split a cache by its
+#: sequence on (1, 4); 4 kv heads split it by heads, as the full configs' do
+LONG_HEADS = {"num_heads": 8, "num_kv_heads": 4}
+
+
+def long_suite():
+    from repro_torch.configs.shapes import ShapeSuite
+
+    return ShapeSuite("long_500k", "decode", LONG["seq_len"], 1)
+
+
+def long_cache(arch: str, overrides: dict | None) -> dict:
+    """A whole cache of the reduced config (:func:`reduced`) at
+    :func:`long_suite`, every leaf standard normal from numpy's seed
+    ``LONG["cache_seed"]`` in the order of ``sharding.cache_leaves``, at
+    the suite's last position."""
+    import torch
+
+    from repro_torch.distributed.sharding import cache_leaves
+
+    api, cfg, _, _ = reduced(arch, overrides)
+    cache = api.init_cache(1, LONG["seq_len"], cfg, device="cpu")
+    rng = np.random.default_rng(LONG["cache_seed"])
+    for path, leaf in cache_leaves(cache):
+        if isinstance(leaf, torch.Tensor):
+            leaf.copy_(torch.from_numpy(rng.standard_normal(tuple(leaf.shape)).astype(np.float32)))
+    cache["pos"] = LONG["seq_len"] - 1
+    return cache
+
+
+def long_single(arch: str, overrides: dict | None):
+    """One device's greedy ticks of the reduced config from
+    :func:`long_cache`, the whole model with no program: the token fed at
+    each tick ``[ticks, 1]`` int32 (the first from numpy's seed
+    ``LONG["token_seed"]``) and each tick's logits ``[ticks, 1, V]``."""
+    import torch
+
+    api, cfg, whole, _ = reduced(arch, overrides)
+    cache = long_cache(arch, overrides)
+    tokens = [torch.from_numpy(np.random.default_rng(LONG["token_seed"]).integers(0, cfg.vocab, (1,))
+                               .astype(np.int32))]
+    steps = []
+    with torch.no_grad():
+        for t in range(LONG["ticks"]):
+            logits, cache = api.decode_step(whole, tokens[-1], cache, cfg)
+            steps.append(logits)
+            if t + 1 < LONG["ticks"]:
+                tokens.append(logits.argmax(-1).to(torch.int32))
+    return torch.stack(tokens), torch.stack(steps)
+
+
+def long_case(rank: int, arch: str, overrides: dict | None) -> dict:
+    """The ``long_500k`` tick of a reduced config on (1, 4) under
+    ``serve-tp`` through ``dryrun.build_cell(..., comm=, cache=<whole>)``:
+    the whole cache of :func:`long_cache` cut to this device's share, then
+    greedy ticks on this group's own tokens, each step's logits gathered
+    whole (``logits_<i>``, ``err_<i>`` against :func:`long_single`) and its
+    tokens (``tokens``); the first tick's counts against the dry-run's plan
+    of the cell on meta, as a seeded cell's (``cache=<seed>``) are; the
+    seeded cell's leaves against this device's cut of one whole draw on a
+    mesh of one (``seed_cut_equal``)."""
+    import torch
+
+    from repro_torch.distributed.comm import DistComm, take_local
+    from repro_torch.distributed.sharding import cache_leaves, logits_sharding, make_cache_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 4), ("data", "model"))
+    comm = DistComm(mesh, rank, "gloo")
+    api, cfg, _, _ = reduced(arch, overrides)
+    pol = dryrun.POLICIES["serve-tp"]
+    suite = long_suite()
+    tokens, single = long_single(arch, overrides)
+    spec = logits_sharding(mesh, cfg, 1, pol)
+    plan = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg)
+    _, planned = dryrun.count_cell(plan, scopes=False)
+    cell = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch, overrides)[2],
+                             batch={"token": tokens[0]}, cache=long_cache(arch, overrides))
+    (local, _), counted = dryrun.count_cell(cell, scopes=False)
+    kv = dryrun.kv_cache_of(cell.cache)
+    out = {"plan": _counts(planned), "counted": _counts(counted),
+           "seq_axes": json.dumps([] if kv is None else list(cell.program.cache_seq_axes(kv)))}
+    own = [tokens[0]]
+    for t in range(LONG["ticks"]):
+        if t:
+            local = cell.run(own[-1])[0]
+        w = comm.gather_whole(local, spec)
+        out[f"logits_{t}"] = w.numpy()
+        out[f"err_{t}"] = float((w - single[t]).abs().max())
+        if t + 1 < LONG["ticks"]:
+            own.append(w.argmax(-1).to(torch.int32))
+    out["tokens"] = torch.stack(own).numpy()
+    # a cell of a cache drawn from a seed: this device's cut of one whole draw
+    seeded = dryrun.build_cell(arch, suite, mesh, pol, cfg=cfg, comm=comm, source=reduced(arch, overrides)[2],
+                               batch={"token": tokens[0]}, cache=LONG["seed"])
+    one = make_mesh((1, 1), ("data", "model"))
+    whole_specs = api.cache_specs(cfg, suite)
+    whole = dryrun._draw_cache(whole_specs, make_cache_shardings(one, cfg, whole_specs, pol), one, 0, LONG["seed"],
+                               torch.device("cpu"))
+    specs = make_cache_shardings(mesh, cfg, whole_specs, pol)
+    mine = dict(cache_leaves(seeded.cache))
+    out["seed_cut_equal"] = all(torch.equal(mine[p], take_local(t, specs[p], mesh, rank))
+                                for p, t in cache_leaves(whole) if isinstance(t, torch.Tensor))
+    out["seed_pos"] = int(mine["pos"])
+    _, counted = dryrun.count_cell(seeded, scopes=False)
+    out["seed_counted"] = _counts(counted)
+    return out
+
+
 def _whole_ref(params) -> dict:
     return {k: p.detach().clone() for k, p in params.named_parameters()}
 
@@ -567,8 +683,9 @@ def combine_shares(rank: int) -> dict:
 
 
 def _cases(rank: int, params: dict) -> dict:
-    """The train cases ``(name, shape, policy, remat[, arch, overrides])``
-    and the serving cases ``(name, arch, shape, policy)`` of ``params``."""
+    """The train cases ``(name, shape, policy, remat[, arch, overrides])``,
+    the serving cases ``(name, arch, shape, policy)`` and the ``long_500k``
+    cases ``(name, arch, overrides)`` of ``params``."""
     out = {}
     for name, shape, policy, remat, *more in params["cases"]:
         arch, overrides = more if more else ("qwen2.5-3b", None)
@@ -576,6 +693,8 @@ def _cases(rank: int, params: dict) -> dict:
                                                              overrides=overrides).items()})
     for name, arch, shape, policy in params.get("serve", ()):
         out.update({f"{name}/{k}": v for k, v in serve_case(rank, arch, tuple(shape), policy).items()})
+    for name, arch, overrides in params.get("long", ()):
+        out.update({f"{name}/{k}": v for k, v in long_case(rank, arch, overrides).items()})
     return out
 
 
@@ -592,8 +711,8 @@ def job_eight(rank: int, world: int, params: dict, tmp: Path) -> dict:
 
 
 def job_four(rank: int, world: int, params: dict, tmp: Path) -> dict:
-    """The 4-rank group: (1, 4), the batch not split, the pipeline and the
-    decode combine with empty shares."""
+    """The 4-rank group: (1, 4), the batch not split, the ``long_500k``
+    ticks, the pipeline and the decode combine with empty shares."""
     inputs = _inputs(tmp)
     out = _cases(rank, params)
     out.update(pipeline(rank, inputs))

@@ -1401,6 +1401,51 @@ def job_sharded_serve(params: dict, inputs: dict) -> dict:
     return out
 
 
+def job_long_decode(params: dict, inputs: dict) -> dict:
+    """The reference dry-run's ``decode_fn`` (``src/repro/launch/dryrun.py:113``)
+    of each ``long_500k`` case (name, arch, overrides), jitted with its
+    ``in_shardings`` and ``out_shardings`` on a mesh of the first 4 devices,
+    (data 1, model 4), under ``serve-tp``, on the port's reduced weights
+    (``<case>/w/<name>``, ``overrides`` replaced in the config) from the
+    port's whole cache (``<case>/cache/<path>``: every leaf by its ``/``
+    path, ``pos`` too), one tick for each token of ``<case>/tokens``
+    (teacher-forced); each tick's logits."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.distributed.sharding import (ShardingPolicy, batch_shardings, logits_sharding,
+                                            make_cache_shardings, make_param_shardings)
+
+    out = {}
+    pol = ShardingPolicy(dp_axes=("data",), tp_axes=("model",), param_fsdp_axes=())
+    mesh = jax.make_mesh((1, 4), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2, devices=jax.devices()[:4])
+    for name, arch, overrides in params["long_cases"]:
+        api, cfg, template, tree = _reduced_tree(arch, overrides or {}, _weights(inputs, f"{name}/w"))
+        leaves = _weights(inputs, f"{name}/cache")
+
+        def leaf(path, like):
+            a = leaves["/".join(_path_keys(path))]
+            return jnp.asarray(a).astype(like.dtype).reshape(like.shape)
+
+        cache = jax.tree_util.tree_map_with_path(leaf, api.init_cache(1, params["seq_len"], cfg))
+        psh = make_param_shardings(mesh, cfg, template, pol)
+        csh = make_cache_shardings(mesh, cfg, jax.eval_shape(lambda: cache), pol)
+        ksh = batch_shardings(mesh, cfg, {"token": jax.ShapeDtypeStruct((1,), jnp.int32)}, pol)
+
+        def decode_fn(params, token, cache):
+            return api.module.decode_step(params, cfg, token, cache)
+
+        decode = jax.jit(decode_fn, in_shardings=(psh, ksh["token"], csh),
+                         out_shardings=(logits_sharding(mesh, cfg, 1, pol), csh))
+        p, cache = jax.device_put(tree, psh), jax.device_put(cache, csh)
+        steps = []
+        for tok in inputs[f"{name}/tokens"]:
+            logits, cache = decode(p, jax.device_put(jnp.asarray(tok), ksh["token"]), cache)
+            steps.append(np.asarray(logits))
+        out[f"long/{name}/logits"] = np.stack(steps)
+    return out
+
+
 def job_distributed(params: dict, inputs: dict) -> dict:
     """The reference's layouts and collectives on 8 forced devices:
     ``devices_indices_map`` of each (mesh, spec, shape) case, a device's
@@ -1456,6 +1501,7 @@ JOBS = {
     "distributed": job_distributed,
     "sharded_steps": job_sharded_steps,
     "sharded_serve": job_sharded_serve,
+    "long_decode": job_long_decode,
     "replacement": job_replacement,
     "kvcache": job_kvcache,
     "obs": job_obs, "campaigns": job_campaigns, "cli": job_cli,
